@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 ``load_library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface and loads
-it with ``ctypes``.  The library lands in ``nbody3d_tpu_torch/_build/<key>/``
+(``sm_90a``), one ``nvcc`` process per source, all started together, links
+the objects into one shared library with a plain C interface and loads it
+with ``ctypes``.  The library lands in ``nbody3d_tpu_torch/_build/<key>/``
 where ``key`` hashes the sources and the flags, so an edited source builds
 anew and an unchanged one is reused.  Nothing is built at import time: the
 first kernel launch builds.  A missing ``nvcc`` or a failed build raises
@@ -24,7 +25,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 LIB_NAME = "libnbody3d_kernels.so"
@@ -36,6 +37,10 @@ SIGNATURES = {
     "nb_sym_diag_prep": [P, P, P, I, I, F, F, P],
     "nb_sym_hops": [P, P, I, I, I, I, I, F, P],
     "nb_sym_epilogue": [P, P, P, P, P, I, I, F, P],
+    "nb_vjp_full": [P, P, P, P, I, F, F, P],
+    "nb_vjp_sym_diag": [P, P, P, I, I, F, P],
+    "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, F, P],
+    "nb_vjp_combine": [P, P, P, P, I, F, P],
 }
 
 
@@ -65,6 +70,20 @@ def _nvcc() -> str:
     )
 
 
+def _run(cmds: list[list[str]]) -> tuple[bool, str]:
+    """Run the commands in parallel; ``(all succeeded, their output)``."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=CSRC)
+        for c in cmds
+    ]
+    log, ok = [], True
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        ok &= proc.returncode == 0
+        log.append(f"$ {' '.join(cmd)}\n{out}" + ("" if proc.returncode == 0 else f"(exit {proc.returncode})\n"))
+    return ok, "".join(log)
+
+
 def build() -> tuple[pathlib.Path, float]:
     """Compile the library unless a build of these sources exists.
     Returns ``(path, seconds spent compiling)``."""
@@ -73,15 +92,22 @@ def build() -> tuple[pathlib.Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, (p for p in _sources() if p.suffix == ".cu"))]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in sources]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    ok, log = _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)] for s, o in zip(sources, objs)])
+    if ok:
+        ok, link_log = _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]])
+        log += link_log
     seconds = time.perf_counter() - t0
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if not ok:
+        raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib)
     return lib, seconds
 

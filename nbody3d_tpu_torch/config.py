@@ -44,8 +44,8 @@ class SimConfig:
     (``"direct"`` only), ``boundary`` (``"isolated"`` only), ``cosmology``
     (``"none"`` only), ``backend``, ``block_target`` (capped at the GPU
     tile), ``force_mode`` (``"exact"`` or ``"sym"``), ``morton_every``,
-    ``fuse_integrate`` (``False`` only), ``fuse_epilogue``, ``seed`` and
-    ``size_factor``.
+    ``fuse_integrate`` (``False`` only), ``fuse_epilogue``,
+    ``grad_precision``, ``seed`` and ``size_factor``.
     """
 
     # Physics.
@@ -85,6 +85,10 @@ class SimConfig:
     morton_every: int = 0
     fuse_integrate: bool = False
     fuse_epilogue: bool = True
+    # The force VJP's precision: "precise" | "fast".  Checked by
+    # ops/step.py, and both values run the same f32 CUDA kernels.  In the JAX package "fast" skips a
+    # bf16 limb split of the MXU's weight matrices; CUDA cores do the
+    # pair math in f32 and round no weights, so the port has one path.
     grad_precision: str = "precise"
 
     # Multi-device (not ported).

@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels: wrappers, plain twins, launch counts.
+"""The forward kernels' wrappers and plain twins.
 
 Four kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 
@@ -9,13 +9,13 @@ Four kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 ``sym_epilogue_``   sym step 3: sum the partials, mask padding, Verlet
 ==================  =========================================================
 
-Each wrapper checks its tensors (float32, ``(N, 4)``, contiguous, one
-device, no autograd) and then takes its plain PyTorch twin (``*_plain``)
-only because the tensors lie on the CPU; on a CUDA tensor it launches the
-kernel on the current stream or raises.  The kernels allocate nothing and
-do not synchronise.  Each launch adds one to the kernel's count
-(:func:`launch_counts`), so a run can show that it went through the
-kernels.
+Each wrapper checks its tensors (``ops/launch.py``: float32, ``(N, 4)``,
+contiguous, one device, no autograd) and then takes its plain PyTorch twin
+(``*_plain``) only because the tensors lie on the CPU; on a CUDA tensor it
+launches the kernel on the current stream or raises.  The kernels allocate
+nothing and do not synchronise.  Each launch adds one to the kernel's count
+(``ops.launch.launch_counts``, shared with the VJP kernels of ``force_vjp``), so a
+run can show that it went through the kernels.
 
 The sym step keeps f32 vector accumulators in global memory:
 ``acc_diag`` (written by ``sym_diag_prep``) and ``acc_hop`` (zeroed by
@@ -30,86 +30,7 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, valid_mask
-
-KERNELS = ("force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue")
-MAX_TILE = 1024  # threads per CUDA block
-
-_LAUNCHES = dict.fromkeys(KERNELS, 0)
-
-
-def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
-
-
-def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
-
-
-# ----------------------------------------------------------------- checks
-def _check_rows(name: str, *tensors: torch.Tensor) -> torch.device:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if t.dim() != 2 or t.shape[1] != 4:
-            raise ValueError(f"{name}: expected an (N, 4) tensor, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.requires_grad:
-            raise RuntimeError(
-                f"{name}: inputs require grad, but the kernels are forward "
-                "only (the backward kernels are ROADMAP.md queue 2 items 5-6)"
-            )
-    if dev.type not in ("cpu", "cuda"):
-        raise NotImplementedError(f"{name}: no kernel for device {dev}")
-    return dev
-
-
-def _check_tile(name: str, n: int, b: int) -> int:
-    if not 1 <= b <= MAX_TILE or n % b != 0:
-        raise ValueError(f"{name}: tile {b} must divide N={n} and be in [1, {MAX_TILE}]")
-    nt = n // b
-    if nt < 2:
-        raise ValueError(f"{name}: the sym step needs nt >= 2 tiles, got N={n}, b={b}")
-    return nt
-
-
-def _launch(name: str, dev: torch.device, fn, *args) -> None:
-    """Call a C entry point on ``dev``'s current stream; raise on a CUDA error."""
-    for t in args:
-        if isinstance(t, torch.Tensor) and t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
-    c_args = [t.data_ptr() if isinstance(t, torch.Tensor) else t for t in args]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*c_args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    _LAUNCHES[name] += 1
-
-
-def _lib():
-    from nbody3d_tpu_torch._build import load_library
-
-    return load_library()
-
-
-def _split_hops(nt: int) -> list[tuple[int, int, int]]:
-    """``(k0, nk, grid_i)`` of each hop launch, as ``_sym_hops_raw``:
-    call B (k = 1..half-1 for even nt, 1..half for odd) over every tile,
-    then for even nt call C (the shared half hop) over tiles i < nt/2."""
-    half = nt // 2
-    calls = []
-    nk_b = half - 1 if nt % 2 == 0 else half
-    if nk_b > 0:
-        calls.append((1, nk_b, nt))
-    if nt % 2 == 0:
-        calls.append((half, 1, half))
-    return calls
+from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, launch, lib, split_hops
 
 
 # ------------------------------------------------------------ force_exact
@@ -140,14 +61,14 @@ def force_exact(tgt: torch.Tensor, src: torch.Tensor, G: float, eps2: float) -> 
     (both ``(N, 4)`` pos_mass; G folds into the source masses in the
     kernel).  No self mask: a zero separation adds zero.  Returns
     ``(N_t, 4)``, w lane 0."""
-    dev = _check_rows("force_exact", tgt, src)
+    dev = check_rows("force_exact", tgt, src)
     if eps2 <= 0:
         raise ValueError("eps2 must be > 0 (softening keeps the self pair finite)")
     if dev.type == "cpu":
         return force_exact_plain(tgt, src, G, eps2)
     out = torch.empty_like(tgt)
-    _launch(
-        "force_exact", dev, _lib().nb_force_exact,
+    launch(
+        "force_exact", dev, lib().nb_force_exact,
         tgt, src, out, tgt.shape[0], src.shape[0], float(G), float(eps2),
     )
     return out
@@ -182,14 +103,14 @@ def sym_diag_prep(
     """Sym step 1.  Returns ``(src, acc_diag)``: the G-folded source rows
     ``[x, y, z, G*m]`` and each tile's in-tile partial accelerations (all
     ordered pairs of the tile, self pair skipped), both ``(N, 4)``."""
-    dev = _check_rows("sym_diag_prep", pos_mass)
-    nt = _check_tile("sym_diag_prep", pos_mass.shape[0], b)
+    dev = check_rows("sym_diag_prep", pos_mass)
+    nt = check_tile("sym_diag_prep", pos_mass.shape[0], b)
     if dev.type == "cpu":
         return sym_diag_prep_plain(pos_mass, G, eps2, b)
     src = torch.empty_like(pos_mass)
     acc = torch.empty_like(pos_mass)
-    _launch(
-        "sym_diag_prep", dev, _lib().nb_sym_diag_prep,
+    launch(
+        "sym_diag_prep", dev, lib().nb_sym_diag_prep,
         pos_mass, src, acc, nt, b, float(G), float(eps2),
     )
     return src, acc
@@ -202,7 +123,7 @@ def sym_hops_plain(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
     nt = n // b
     tiles = src.view(nt, b, 4)
     acc = torch.zeros((nt, b, 4), dtype=src.dtype, device=src.device)
-    for k0, nk, grid_i in _split_hops(nt):
+    for k0, nk, grid_i in split_hops(nt):
         ii = torch.arange(grid_i, device=src.device)
         for k in range(k0, k0 + nk):
             jj = (ii + k) % nt
@@ -228,14 +149,14 @@ def sym_hops(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
     """Sym step 2.  Returns ``acc_hop (N, 4)``: for every unordered tile
     pair, the forward partial on the target tile and the reverse (Newton-3)
     partial on the source tile, each pair's weight computed once."""
-    dev = _check_rows("sym_hops", src)
-    nt = _check_tile("sym_hops", src.shape[0], b)
+    dev = check_rows("sym_hops", src)
+    nt = check_tile("sym_hops", src.shape[0], b)
     if dev.type == "cpu":
         return sym_hops_plain(src, eps2, b)
     acc = torch.zeros_like(src)
-    fn = _lib().nb_sym_hops
-    for k0, nk, grid_i in _split_hops(nt):
-        _launch("sym_hops", dev, fn, src, acc, nt, b, k0, nk, grid_i, float(eps2))
+    fn = lib().nb_sym_hops
+    for k0, nk, grid_i in split_hops(nt):
+        launch("sym_hops", dev, fn, src, acc, nt, b, k0, nk, grid_i, float(eps2))
     return acc
 
 
@@ -272,15 +193,15 @@ def sym_epilogue_(
     """Sym step 3, in place: ``a = acc_diag + acc_hop``; rows ``>= n_real``
     stay frozen with zero stored acceleration; the rest take the
     frame-shifted Verlet update, written into ``pos_mass``/``vel``/``accel``."""
-    dev = _check_rows("sym_epilogue", acc_diag, acc_hop, pos_mass, vel, accel)
+    dev = check_rows("sym_epilogue", acc_diag, acc_hop, pos_mass, vel, accel)
     if len({t.shape for t in (acc_diag, acc_hop, pos_mass, vel, accel)}) != 1:
         raise ValueError("sym_epilogue: all five tensors must have one shape")
     if dev.type == "cpu":
         sym_epilogue_plain_(acc_diag, acc_hop, pos_mass, vel, accel, dt, n_real)
         return
     n = pos_mass.shape[0]
-    _launch(
-        "sym_epilogue", dev, _lib().nb_sym_epilogue,
+    launch(
+        "sym_epilogue", dev, lib().nb_sym_epilogue,
         acc_diag, acc_hop, pos_mass, vel, accel, n, min(int(n_real), n),
         float(dt),
     )

@@ -18,6 +18,20 @@ Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
   wrappers run their plain twins, because the tensors lie on the CPU.
   Every other combination raises ``NotImplementedError`` naming its
   ROADMAP.md item; nothing falls back to plain code.
+
+Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
+the JAX package's step) flow on both kernel routes, through the force VJP
+kernels of ``ops/force_vjp.py`` with the Newton-3 schedule:
+
+- exact: ``force_exact`` is wrapped in ``make_diff_accel`` and autograd
+  differentiates the plain-torch integrators (``yoshida4`` included);
+- sym: :class:`_SymStep` mirrors the JAX ``make_fused_sym_step``: its
+  forward runs the fused kernels on copies, its backward differentiates
+  the Verlet update with autograd and sends the force cotangent through
+  ``force_vjp_sym``.  When nothing needs a gradient the step updates the
+  state in place, as before.
+
+``dt`` and ``G`` are Python floats and get no gradient.
 """
 
 from __future__ import annotations
@@ -29,7 +43,8 @@ import torch
 from nbody3d_tpu_torch.config import SimConfig
 from nbody3d_tpu_torch.ops.cuda_force import force_exact, sym_step_
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
-from nbody3d_tpu_torch.ops.integrate import integrate_state
+from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel
+from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
 from nbody3d_tpu_torch.state import SimState
 
 StepFn = Callable[[SimState, float, float], SimState]
@@ -99,6 +114,46 @@ def _check_supported(config: SimConfig) -> None:
         raise NotImplementedError(f"boundary={config.boundary!r}: {_TODO_MESH}")
     if config.cosmology != "none":
         raise NotImplementedError(f"cosmology={config.cosmology!r}: {_TODO_MESH}")
+    if config.grad_precision not in ("precise", "fast"):
+        # Both values run the same f32 VJP kernels (config.py).
+        raise ValueError(f"unknown grad_precision {config.grad_precision!r}")
+
+
+class _SymStep(torch.autograd.Function):
+    """The fused sym step with a backward (``make_fused_sym_step``'s
+    ``custom_vjp``).  ``opts = (eps2, b, n_real)``."""
+
+    @staticmethod
+    def forward(ctx, pos_mass, vel, accel, dt, G, opts):
+        eps2, b, n_real = opts
+        p, v, a = (t.detach().clone() for t in (pos_mass, vel, accel))
+        sym_step_(p, v, a, dt, G, eps2=eps2, b=b, n_real=n_real)
+        # The stored acceleration is the force at pos_mass, valid-masked:
+        # what the backward needs.
+        ctx.save_for_backward(pos_mass, vel, accel, a)
+        ctx.dt, ctx.G, ctx.opts = dt, G, opts
+        return p, v, a
+
+    @staticmethod
+    def backward(ctx, gp, gv, ga):
+        pos_mass, vel, a_old, a_new = ctx.saved_tensors
+        eps2, b, n_real = ctx.opts
+        ins = [t.detach().requires_grad_() for t in (pos_mass, vel, a_old, a_new)]
+        with torch.enable_grad():
+            outs = apply_integrator(
+                "verlet", *ins, ctx.dt, valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+            )
+            # Autograd hands zeros for unused outputs (materialized grads).
+            g_pm, g_v, g_aold, g_force = torch.autograd.grad(outs, ins, (gp, gv, ga))
+        if not ctx.needs_input_grad[0]:
+            # The force cotangent reaches only pos_mass: a rollout's first
+            # step, whose positions need no gradient, skips the force VJP
+            # (as autograd skips it on the exact route).
+            return None, g_v, g_aold, None, None, None
+        pm_bar, _ = force_vjp_sym(
+            pos_mass.detach(), ctx.G, g_force.contiguous(), eps2=eps2, b=b
+        )
+        return g_pm + pm_bar, g_v, g_aold, None, None, None
 
 
 def make_step_fn(
@@ -125,12 +180,13 @@ def make_step_fn(
         raise NotImplementedError(f"fuse_integrate=True: {_TODO_FUSED}")
     mode = config.force_mode
     if mode == "exact":
+        # The VJP's tile: any divisor of n_pad serves (nt = 1 included).
+        b_vjp = fit_block(n_pad, min(config.block_target, GPU_TILE), floor=1)
+        accel = make_diff_accel(lambda pm, G: force_exact(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
 
         def step(state: SimState, dt: float, G: float) -> SimState:
             return integrate_state(
-                config.integrator,
-                lambda pm: force_exact(pm, pm, G, eps2),
-                state, dt, n_real=n_real,
+                config.integrator, lambda pm: accel(pm, G), state, dt, n_real=n_real,
             )
 
         return step
@@ -144,12 +200,14 @@ def make_step_fn(
                 f"only the fused verlet step with nt >= 2 is ported; {_TODO_UNFUSED_SYM}"
             )
 
+        opts = (eps2, b, n_real)
+
         def step(state: SimState, dt: float, G: float) -> SimState:
-            sym_step_(
-                state.pos_mass, state.vel, state.accel, dt, G,
-                eps2=eps2, b=b, n_real=n_real,
-            )
-            return SimState(state.pos_mass, state.vel, state.accel, state.step + 1)
+            p, v, a = state.pos_mass, state.vel, state.accel
+            if torch.is_grad_enabled() and (p.requires_grad or v.requires_grad or a.requires_grad):
+                return SimState(*_SymStep.apply(p, v, a, dt, G, opts), state.step + 1)
+            sym_step_(p, v, a, dt, G, eps2=eps2, b=b, n_real=n_real)
+            return SimState(p, v, a, state.step + 1)
 
         return step
 

@@ -18,7 +18,7 @@ from nbody3d_tpu.config import SimConfig as JaxConfig  # noqa: E402
 from nbody3d_tpu.engine import Simulation as JaxSimulation  # noqa: E402
 from nbody3d_tpu_torch import SimConfig, Simulation  # noqa: E402
 from nbody3d_tpu_torch import cli  # noqa: E402
-from nbody3d_tpu_torch.ops import cuda_force as cf  # noqa: E402
+from nbody3d_tpu_torch.ops.launch import KERNELS, launch_counts, reset_launch_counts  # noqa: E402
 
 
 def run_both(kw_torch, kw_jax, n=600, steps=3):
@@ -122,11 +122,11 @@ def test_unported_configs_raise(kw):
 
 
 def test_launch_counters_stay_zero_on_cpu():
-    cf.reset_launch_counts()
+    reset_launch_counts()
     for mode in ("exact", "sym"):
         sim = Simulation.from_preset("uniform-sphere", SimConfig(force_mode=mode), n=512, device="cpu")
         sim.run(2)
-    assert cf.launch_counts() == dict.fromkeys(cf.KERNELS, 0)
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
 def test_cli_run_bench_info(capsys):
