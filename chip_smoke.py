@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # phases 1-3 small shapes only (build + checks)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a)
+    python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the eight kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the nine kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -34,34 +35,48 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    (3 steps); (c) the full-grid VJP route (``make_diff_accel(sym=False)``,
    on no main path) on (b)'s rollout, against (b)'s gradient; (d) at
    N = 4,096 the kernel routes' rollout gradient (sym, exact, exact with
-   the full-grid VJP) against the ``backend="jnp"`` route's, rtol 2e-3.
+   the full-grid VJP) against the ``backend="jnp"`` route's, rtol 2e-3,
+   by v0 and by dt and G.
+7. the render + checkpoint path: (a, after phase 3) ``splat_resolve``
+   against its plain twin, bit for bit, on the scenes of
+   tests/test_render.py and the two-galaxy frame; (b) the reference's
+   default run through ``cli.main``: two-galaxy, 200 steps, a frame every
+   50 and a checkpoint every 100, energy drift <= 1e-3 and momentum error
+   <= 1e-5, then ``render`` of ``final.npz`` equal to the run's last frame
+   and ``convert`` npz -> JSON -> npz bit-equal; (c, last) the kernel, its
+   twin and ``scatter_reduce_`` over the expanded pairs (the library
+   yardstick) at the run's frame and at N = 500,010 1920x1080
+   (benchmarks/render_bench.py's scene), frame, PNG and checkpoint times.
 
-Phases 4, 5, 6a and 6b (the main paths) and 6c and 6d each run with the
-launch counts set to 0 just before and read just after; each must launch
-every kernel it runs and no other, and the SM clock, power draw and
+Phases 4, 5, 6a, 6b and 7b (the main paths) and 6c and 6d each run with
+the launch counts set to 0 just before and read just after; each must
+launch every kernel it runs and no other, and the SM clock, power draw and
 temperature are printed after each.  One profiled rollout of 6a and 6b
-each (device busy time, idle share, largest kernels) follows its window.
-The line before the last is ``{"kernels": [...]}`` (launches summed over
-the main paths, ``vjp_full``'s from 6c; ``bound_ms`` from this run's shapes
-and the operation counts in each kernel's source note); the last is the
-``{"ok": true, "device": ...}`` line.  Without a CUDA card it exits 1 and
-prints no result.
+each and one profiled frame of 7b (device busy time, idle share, largest
+kernels) follow their windows.  The line before the last is
+``{"kernels": [...]}`` (launches summed over the main paths, ``vjp_full``'s
+from 6c; ``bound_ms`` from this run's shapes and the operation counts in
+each kernel's source note); the last is the ``{"ok": true, "device": ...}``
+line.  Without a CUDA card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from nbody3d_tpu_torch import SimConfig, Simulation, _build
+from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import force_vjp as fv
@@ -69,7 +84,10 @@ from nbody3d_tpu_torch.ops.integrate import integrate_state
 from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts
 from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import GPU_TILE, PAD_GRANULE, make_step_fn
+from nbody3d_tpu_torch.render import rasterize, resolve
+from nbody3d_tpu_torch.render.image import read_png, save_png
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count
+from nbody3d_tpu_torch.utils.camera import Camera
 
 G, EPS2, DT = 1e-4, 1e-4, 1e-3
 DT_MAIN = SimConfig().dt  # the main path's step, as grad_bench uses
@@ -85,6 +103,7 @@ REPLACES = {
     "vjp_sym_diag": (SRC + "vjp_sym_diag.cu", VJP + "434"),
     "vjp_sym_hops": (SRC + "vjp_sym_hops.cu", VJP + "450"),
     "vjp_combine": (SRC + "vjp_combine.cu", VJP + "490"),
+    "splat_resolve": (SRC + "splat_resolve.cu", "nbody3d_tpu/render/pallas_resolve.py:105"),
 }
 
 # Least time for a kernel's work (PERF.md "bound"): the larger of its FP32
@@ -744,8 +763,8 @@ def phase_grad_full(dev):
 
 def phase_grad_crosscheck(dev, n: int = 4096) -> None:
     """tests/test_grad.py's rollout (10 steps, dt 1e-2, loss |x_0|^2) at
-    N = 4,096 on the card: kernel routes vs the backend="jnp" route."""
-    dt = 1e-2
+    N = 4,096 on the card: kernel routes vs the backend="jnp" route, the
+    gradient by v0 and by dt and G (0-d tensors)."""
     rng = np.random.default_rng(7)
     pm = torch.from_numpy(np.concatenate(
         [rng.standard_normal((n, 3)), rng.uniform(10, 50, (n, 1))], axis=1).astype(np.float32)).to(dev)
@@ -759,13 +778,18 @@ def phase_grad_crosscheck(dev, n: int = 4096) -> None:
     grads = {}
     for name, step in steps.items():
         v = torch.zeros((n, 4), device=dev, requires_grad=True)
+        dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (1e-2, G))
         s = SimState(pm.clone(), v, torch.zeros_like(pm), 0)
         for _ in range(10):
-            s = step(s, dt, G)
-        grads[name] = torch.autograd.grad((s.pos_mass[0, :3] ** 2).sum(), v)[0]
-    ref = grads.pop("jnp")
-    for name, g in grads.items():
-        _grad_agrees(g, ref, f"[6d grad check] N={n} {name} route vs jnp route")
+            s = step(s, dt, g)
+        grads[name] = torch.autograd.grad((s.pos_mass[0, :3] ** 2).sum(), (v, dt, g))
+    ref_v, ref_dt, ref_g = grads.pop("jnp")
+    for name, (gv, gdt, gg) in grads.items():
+        _grad_agrees(gv, ref_v, f"[6d grad check] N={n} {name} route vs jnp route")
+        e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, ref_dt), (gg, ref_g)))
+        check(e_dt <= 2e-3 and e_g <= 2e-3,
+              f"[6d grad check] N={n} {name} route: d/d dt {float(gdt):.6e} (rel err {e_dt:.3e}), "
+              f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
 
 
 def _conservation(sim: Simulation, d0, d1):
@@ -831,21 +855,218 @@ def phase_sym(dev) -> None:
     check(mom <= 1e-5, f"sym: momentum error {mom:.3e} <= 1e-5")
 
 
+# ------------------------------------------------------- the render path
+def render_scene(n: int, seed: int, *, scale: float = 2.5, heavy: int = 2, masses=None):
+    """tests/test_render.py's scene (benchmarks/render_bench.py's at
+    N = 500,010): bodies N(0, scale), masses U(10, 50), the first ``heavy``
+    at 1e7 (or ``masses``), velocities N(0, 5)."""
+    rng = np.random.default_rng(seed)
+    pos_mass = np.concatenate(
+        [rng.normal(scale=scale, size=(n, 3)), rng.uniform(10, 50, (n, 1))], axis=1
+    ).astype(np.float32)
+    if masses is not None:
+        pos_mass[: len(masses), 3] = masses
+    elif heavy:
+        pos_mass[:heavy, 3] = 1e7
+    vel = rng.normal(scale=5.0, size=(n, 4)).astype(np.float32)
+    return pos_mass, vel
+
+
+def _two_galaxy_frame():
+    """The run's frame: the two-galaxy preset, its camera, 1024x768."""
+    cfg = SimConfig()
+    pm, vel, target = make_preset("two-galaxy", seed=cfg.seed, G=cfg.G, size_factor=cfg.size_factor)
+    return pm, vel, Camera(target=target), dict(width=1024, height=768, size_factor=cfg.size_factor)
+
+
+def render_scenes() -> dict:
+    """name: (pos_mass, vel, camera, frame kwargs).  The scenes of
+    tests/test_render.py:312-430 and the two-galaxy frame."""
+    scenes = {
+        "20k dense, 320x240": (*render_scene(20_000, 13), 4.0, dict(width=320, height=240)),
+        "6k bin edges, 640x100": (*render_scene(6_000, 7, heavy=0), 2.0, dict(width=640, height=100)),
+        "3k radii 16-64, 320x240": (*render_scene(3_000, 11, scale=2.0, masses=np.geomspace(1e5, 5e9, 64)), 2.0,
+                                    dict(width=320, height=240)),
+        "1.5k max_radius_px 96, 256x160": (*render_scene(1_500, 12, scale=2.0, masses=[5e10] * 4), 2.0,
+                                           dict(width=256, height=160, max_radius_px=96)),
+    }
+    # tests/test_render.py's size factors clamp every radius to 0.5 px at
+    # this frame height; about 160 / sf is the least radius, so 160.2, 113.3
+    # and 80.2 spread radii from just below r = 1, sqrt 2 and 2 upwards.
+    for sf in (400.0, 700.0, 1000.0, 1800.0, 160.2, 113.3, 80.2):
+        scenes[f"r = 1, sqrt 2, 2 sweep, size_factor {sf:g}"] = (
+            *render_scene(512, 3, scale=1.0, heavy=0), 5.0, dict(width=200, height=160, size_factor=sf))
+    out = {k: (pm, vel, Camera(target=np.zeros(3), radius=rad), fr) for k, (pm, vel, rad, fr) in scenes.items()}
+    out["two-galaxy N=40,002, 1024x768"] = _two_galaxy_frame()
+    return out
+
+
+def _prep(pm, vel, cam, frame, dev):
+    """The device prep's resolve inputs on the card."""
+    pm, vel = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
+    return rasterize.prep_device(pm, vel, cam, frame["width"], frame["height"],
+                                 frame.get("size_factor", 1000.0), frame.get("max_radius_px", 64))
+
+
+def phase_render_checks(dev) -> None:
+    """7a: ``splat_resolve`` against its twin on the same prep, bit for bit."""
+    print("[7a render] splat_resolve vs plain twin on the card (uint64 framebuffer, torch.equal)", flush=True)
+    for name, (pm, vel, cam, frame) in render_scenes().items():
+        w, h = frame["width"], frame["height"]
+        prep = _prep(pm, vel, cam, frame, dev)
+        got = resolve.splat_resolve(*prep, width=w, height=h)
+        want = resolve.splat_resolve_plain(*prep, width=w, height=h)
+        torch.cuda.synchronize()
+        vis, r = prep[5], prep[4][prep[5]]
+        lit = int((got != resolve.MISS).sum())
+        check(torch.equal(got, want) and lit > 0,
+              f"{name}: kernel == twin ({int(vis.sum())} visible splats, r {float(r.min()):.3f}-"
+              f"{float(r.max()):.3f} px, {lit} pixels lit)")
+
+
+def stamp_pairs(prep, width: int, height: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every (flat pixel, key) pair of the visible splats' discs: the input
+    of one ``scatter_reduce_(..., "amin")`` (the library yardstick); its
+    length is the stamp area."""
+    cx, cy, depth_bits, rgb24, r, visible = prep
+    rd = r[visible].double()
+    order = torch.argsort(-rd, stable=True)
+    cx, cy = (t[visible][order].long() for t in (cx, cy))
+    key = resolve.make_keys(depth_bits[visible], rgb24[visible])[order]
+    pairs = list(resolve.offset_pairs(cx, cy, key, rd[order].cpu().numpy(), width, height))
+    return torch.cat([p for p, _ in pairs]), torch.cat([k for _, k in pairs])
+
+
+def splat_bound(n: int, n_visible: int, width: int, height: int) -> dict:
+    """The least bytes the resolve must move, over HBM: every splat's 1-byte
+    ``visible`` flag, the visible splats' other 20 bytes (cx, cy, depth, rgb,
+    r: 4 each), and each 8-byte framebuffer word written once (the frame
+    fits in L2, so the atomics' read-modify-write need not reach HBM)."""
+    return {"bound_ms": (n + 20 * n_visible + 8 * width * height) / HBM_BYTES * 1e3, "bound_by": "bytes"}
+
+
+def _render_times(name, pm, vel, cam, frame, dev, tmp: pathlib.Path) -> dict:
+    w, h = frame["width"], frame["height"]
+    prep = _prep(pm, vel, cam, frame, dev)
+    got = resolve.splat_resolve(*prep, width=w, height=h)
+    want = None
+
+    def run_plain():
+        nonlocal want
+        want = resolve.splat_resolve_plain(*prep, width=w, height=h)
+
+    plain_ms = host_ms(run_plain)
+    check(torch.equal(got, want), f"{name}: kernel == twin")
+    pix, key = stamp_pairs(prep, w, h)
+    top = torch.iinfo(torch.int64).max
+    lib_call = lambda: torch.full((h * w,), top, dtype=torch.int64, device=dev).scatter_reduce_(  # noqa: E731
+        0, pix, key, "amin")
+    lib_buf = lib_call()
+    check(torch.equal(torch.where(lib_buf == top, resolve.MISS, lib_buf), got), f"{name}: scatter_reduce_ == kernel")
+    ms = cuda_ms(lambda: resolve.splat_resolve(*prep, width=w, height=h), reps=20)
+    library_ms = cuda_ms(lib_call, reps=20)
+    pm_d, vel_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
+    rasterize.render_points(pm_d, vel_d, cam, **frame)  # warm
+    frame_ms = statistics.median(host_ms(lambda: rasterize.render_points(pm_d, vel_d, cam, **frame)) for _ in range(3))
+    img = rasterize.render_points(pm_d, vel_d, cam, **frame)
+    t0 = time.perf_counter()
+    save_png(str(tmp / "frame.png"), img)
+    png_ms = (time.perf_counter() - t0) * 1e3
+    n_vis = int(prep[5].sum())
+    r = {
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "shape": f"{pm.shape[0]} splats ({n_vis} visible) -> {w}x{h}",
+        "note": (f"stamp area {pix.numel()} pixels ({pix.numel() / max(n_vis, 1):.2f} a splat), "
+                 f"{int((got != resolve.MISS).sum())} lit; frame end to end {frame_ms:.3f} ms; "
+                 f"PNG write {png_ms:.3f} ms; ms includes the framebuffer fill; plain: one run, host clock"),
+        **splat_bound(pm.shape[0], n_vis, w, h),
+    }
+    print(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {library_ms:.4f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{r['shape']}; {r['note']}]", flush=True)
+    return r
+
+
+def phase_render_times(dev) -> dict[str, dict]:
+    """7c: the kernel, its twin and the library call at the run's frame
+    (two-galaxy, 1024x768) and at benchmarks/render_bench.py's N = 500,010
+    at 1920x1080 (camera radius 5 and 1); frame, PNG and checkpoint times."""
+    print("[7c render] times (CUDA events; frame, PNG, checkpoint: host clock, synced)", flush=True)
+    pm, vel = render_scene(500_010, 0)
+    big = dict(width=1920, height=1080)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        main = _render_times("two-galaxy N=40,002 1024x768", *_two_galaxy_frame(), dev, tmp)
+        scenes = {
+            label: _render_times(f"N=500,010 1920x1080 {label}", pm, vel, Camera(target=np.zeros(3), radius=rad),
+                                 big, dev, tmp)
+            for rad, label in ((5.0, "default distance"), (1.0, "close-up"))
+        }
+        sim = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+        ck = {}
+        for fmt in ("npz", "json"):
+            path = str(tmp / f"c.{fmt}")
+            ck[f"{fmt} save"] = host_ms(lambda: sim.save(path))
+            ck[f"{fmt} load"] = host_ms(lambda: Simulation.load(path, device=dev))
+        print(f"  checkpoint two-galaxy N={sim.n_real}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ck.items()),
+              flush=True)
+    main["scenes"] = {k: {x: v[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms", "note")}
+                      for k, v in scenes.items()}
+    return {"splat_resolve": main}
+
+
+def phase_render_path(dev, out: pathlib.Path):
+    """7b: the reference-default run through the CLI on the card, then
+    ``render`` and ``convert`` of its final checkpoint, all into ``out``."""
+    argv = ["run", "--device", dev.type, "--preset", "two-galaxy", "--steps", "200", "--log-every", "50",
+            "--diagnostics", "--render-every", "50", "--checkpoint-every", "100", "--outdir", str(out)]
+    print(f"[7b render path] cli {' '.join(argv)}", flush=True)
+    sim0 = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+    d0 = sim0.diagnostics()
+    del sim0
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    run_s = time.perf_counter() - t0
+    names = sorted(p.name for p in out.iterdir())
+    want = [f"frame_{i:06d}.png" for i in range(5)] + ["ckpt_00000100.npz", "ckpt_00000200.npz", "final.npz"]
+    check(rc == 0 and all(n in names for n in want), f"run rc {rc} in {run_s:.3f} s wrote {names}")
+    final = str(out / "final.npz")
+    sim = Simulation.load(final, device=dev)
+    drift, mom, finite = _conservation(sim, d0, sim.diagnostics())
+    check(finite and sim.step_count == 200, f"final.npz: step {sim.step_count}, finite state")
+    check(drift <= 1e-3 and mom <= 1e-5, f"run: energy drift {drift:.3e} <= 1e-3, momentum error {mom:.3e} <= 1e-5")
+    t0 = time.perf_counter()
+    rc = cli.main(["render", final, "-o", str(out / "render.png"), "--device", dev.type])
+    render_s = time.perf_counter() - t0
+    last, again = read_png(str(out / "frame_000004.png")), read_png(str(out / "render.png"))
+    check(rc == 0 and np.array_equal(last, again) and last.any(),
+          f"render final.npz ({render_s:.3f} s) == the run's last frame {last.shape}, "
+          f"{int(last.any(axis=2).sum())} pixels lit")
+    rc_a = cli.main(["convert", final, str(out / "x.json"), "--device", dev.type])
+    rc_b = cli.main(["convert", str(out / "x.json"), str(out / "y.npz"), "--device", dev.type])
+    with np.load(final) as a, np.load(out / "y.npz") as b:
+        same = all(np.array_equal(a[k], b[k]) for k in ("pos_mass", "vel", "accel", "step"))
+    check(rc_a == rc_b == 0 and same, "convert final.npz -> x.json -> y.npz: pos_mass, vel, accel, step bit-equal")
+    return [("two-galaxy frame 1024x768", lambda: sim.render_frame())]
+
+
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
 VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # The main paths, each with the kernels it runs; a kernel's "launches" is
-# its sum over these windows.
+# its sum over these windows and phase 7b's (its entry is made in main,
+# which knows the output directory).
 PATHS = (
     ("phase 4 (exact path)", phase_exact, ("force_exact",)),
     ("phase 5 (sym path)", phase_sym, SYM),
     ("phase 6a (sym gradient path)", phase_grad_sym, SYM + VJP_SYM),
     ("phase 6b (exact gradient path)", phase_grad_exact, ("force_exact",) + VJP_SYM),
 )
+RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
 SIDE = (
     ("phase 6c (full-grid VJP route)", phase_grad_full, ("force_exact", "vjp_full")),
-    ("phase 6d (cross-check)", phase_grad_crosscheck, KERNELS),
+    ("phase 6d (cross-check)", phase_grad_crosscheck, tuple(k for k in KERNELS if k != "splat_resolve")),
 )
 FULL_ROUTE = SIDE[0][0]
 
@@ -872,6 +1093,8 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--kernels-only", action="store_true", help="stop after the small-shape kernel checks")
+    ap.add_argument("--outdir", default=None,
+                    help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)
@@ -881,13 +1104,19 @@ def main() -> int:
     phase_kernel_checks(dev)
     phase_vjp_checks(dev)
     phase_vjp_gate(dev)
+    phase_render_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
     times = phase_kernel_times(dev)
 
-    by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(args.outdir or tmp)
+        out.mkdir(parents=True, exist_ok=True)
+        render_path = (RENDER_PATH[0], functools.partial(phase_render_path, out=out), RENDER_PATH[1])
+        by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path,)}
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
+    times.update(phase_render_times(dev))
 
     kernels = []
     for name in KERNELS:
@@ -909,7 +1138,10 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],
-            "library_ms": None,  # no single PyTorch call computes any of these functions
+            # Only the resolve has one PyTorch call of the same function
+            # (scatter_reduce_ "amin" over its pre-expanded pairs).
+            "library_ms": times[name].get("library_ms"),
+            **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
         })
     if FAILURES:
         print(f"FAILED {len(FAILURES)} checks: {FAILURES}", file=sys.stderr)

@@ -41,6 +41,7 @@ SIGNATURES = {
     "nb_vjp_sym_diag": [P, P, P, I, I, F, P],
     "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, F, P],
     "nb_vjp_combine": [P, P, P, P, I, F, P],
+    "nb_splat_resolve": [P, P, P, P, P, P, P, I, I, I, P],
 }
 
 

@@ -1,9 +1,11 @@
 """Simulation engine: owns the state on one device, steps it in chunks.
 
 The host sees the state at chunk boundaries only (logging, diagnostics,
-Morton re-sorts).  Each chunk is timed on the host clock and ends in
-``torch.cuda.synchronize`` on a CUDA device, so the time covers the
-device's work and not just its enqueueing.
+Morton re-sorts, checkpoints, frames).  Each chunk is timed on the host
+clock and ends in ``torch.cuda.synchronize`` on a CUDA device, so the time
+covers the device's work and not just its enqueueing.  Frames render on
+the state's device (``render/``: the ``splat_resolve`` kernel on a card);
+only the finished image comes to the host.
 """
 
 from __future__ import annotations
@@ -45,9 +47,16 @@ class Simulation:
         *,
         device: torch.device | str,
         step: int = 0,
+        camera_target: np.ndarray | None = None,
     ):
         self.config = config
         self.device = resolve_device(device)
+        # The camera's orbit centre (a preset's third return value), and the
+        # full camera pose of a loaded checkpoint (util.js:247-258).
+        self.camera_target = (
+            np.zeros(3) if camera_target is None else np.asarray(camera_target, dtype=np.float64)
+        )
+        self.loaded_camera = None
         self.n_real = int(np.asarray(pos_mass).shape[0])
         self.n_pad = pad_count(self.n_real, pad_multiple(config, self.device))
         self.state = init_state(
@@ -62,6 +71,9 @@ class Simulation:
         self.stats = StepStats(ema=Ema(10.0))
         # Optional metrics sink: one JSON line per chunk.
         self.metrics_path: str | None = None
+        # The last frame's render time (host clock, ms) and size + camera.
+        self.last_render_ms: float | None = None
+        self.last_render_info: str | None = None
 
     @classmethod
     def from_preset(
@@ -74,11 +86,11 @@ class Simulation:
         **preset_kw,
     ) -> "Simulation":
         config = config or SimConfig()
-        pos_mass, vel, _ = make_preset(
+        pos_mass, vel, target = make_preset(
             name, seed=config.seed, G=config.G, n=n,
             size_factor=config.size_factor, **preset_kw,
         )
-        return cls(config, pos_mass, vel, device=device)
+        return cls(config, pos_mass, vel, device=device, camera_target=target)
 
     # -------------------------------------------------- live dt/G (sliders)
     @property
@@ -148,6 +160,9 @@ class Simulation:
             "G": self.G,
             "device": str(self.device),
         }
+        if self.last_render_ms is not None:
+            rec["render_ms"] = round(self.last_render_ms, 3)
+            rec["render_info"] = self.last_render_info
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -195,6 +210,69 @@ class Simulation:
         )
         return diag_mod.Diagnostics(*(t.detach().cpu().numpy() for t in d))
 
+    # ---------------------------------------------------------- checkpoint
+    def save(self, path: str) -> None:
+        """Save a checkpoint; format by suffix: ``.json`` = reference
+        schema, ``.npz`` = native (``utils/checkpoint.py``)."""
+        from nbody3d_tpu_torch.utils import checkpoint
+
+        if checkpoint.check_format(path) == "json":
+            checkpoint.save_reference_json(path, self)
+        else:
+            checkpoint.save_npz(path, self)
+
+    @classmethod
+    def load(
+        cls, path: str, config: SimConfig | None = None, *, device: torch.device | str
+    ) -> "Simulation":
+        """A Simulation on ``device`` from a ``.json`` or ``.npz`` checkpoint.
+        ``config=None`` takes the file's (npz) or the defaults with the file's
+        G and dt (JSON)."""
+        from nbody3d_tpu_torch.utils import checkpoint
+
+        if checkpoint.check_format(path) == "json":
+            return checkpoint.load_reference_json(path, config, device=device)
+        return checkpoint.load_npz(path, config, device=device)
+
+    # -------------------------------------------------------------- render
+    def render_frame(
+        self,
+        camera=None,
+        *,
+        width: int = 1024,
+        height: int = 768,
+        color_mode: str = "magnitude",
+        resolve: str = "auto",
+    ) -> np.ndarray:
+        """Headless point-splat frame of the current state, (H, W, 3) uint8.
+
+        ``resolve="auto"`` renders on the state's device (the
+        ``splat_resolve`` kernel on a card) from the real rows only: mass-0
+        padding would still splat through the minimum-size clamp.
+        ``"host"`` is the JAX package's default f64 host frame.  The camera
+        defaults to one orbiting ``camera_target``.
+        """
+        from nbody3d_tpu_torch.render.rasterize import render_points
+        from nbody3d_tpu_torch.utils.camera import Camera
+
+        if camera is None:
+            camera = Camera(target=self.camera_target)
+        t0 = time.perf_counter()
+        img = render_points(
+            self.state.pos_mass[: self.n_real].detach(),
+            self.state.vel[: self.n_real].detach(),
+            camera,
+            width=width,
+            height=height,
+            size_factor=self.config.size_factor,
+            color_mode=color_mode,
+            resolve=resolve,
+        )
+        # The image is on the host, so the device's work is done.
+        self.last_render_ms = (time.perf_counter() - t0) * 1e3
+        self.last_render_info = f"{width}x{height} {camera.describe()}"
+        return img
+
     # ------------------------------------------------------------- logging
     def log_lines(self) -> Iterator[str]:
         s = self.stats
@@ -203,3 +281,5 @@ class Simulation:
             f"Gints/s={s.gints_per_s:.2f} wall_ms/step={s.ms_per_step:.3f} "
             f"N={self.n_real} dt={self.dt:g} G={self.G:g} device={self.device}"
         )
+        if self.last_render_ms is not None:
+            yield f"  render_ms={self.last_render_ms:.1f} {self.last_render_info}"

@@ -34,15 +34,16 @@ def _chunk_accel(
 
 def accel_direct(
     pos_mass: torch.Tensor,
-    G: float,
+    G: float | torch.Tensor,
     *,
     eps2: float = 1e-4,
     chunk: int | None = None,
 ) -> torch.Tensor:
-    """Direct-sum O(N^2) accelerations. Returns (N, 4) with zero w lane."""
+    """Direct-sum O(N^2) accelerations. Returns (N, 4) with zero w lane.
+    ``G`` is a float or a 0-d tensor (then autograd reaches it)."""
     n = pos_mass.shape[0]
     pos = pos_mass[:, :3]
-    gm = pos_mass[:, 3] * float(G)
+    gm = pos_mass[:, 3] * (G if isinstance(G, torch.Tensor) else float(G))
     idx = torch.arange(n, device=pos_mass.device)
     if chunk is None or chunk >= n:
         acc = _chunk_accel(pos, idx, pos, gm, eps2)

@@ -254,40 +254,53 @@ def force_vjp_sym(
     return pm_bar, gbar.to(torch.float32).reshape(())
 
 
+def requires_grad(x) -> bool:
+    """Whether ``x`` (a tensor or a Python float) takes part in autograd."""
+    return isinstance(x, torch.Tensor) and x.requires_grad
+
+
 class _DiffAccel(torch.autograd.Function):
     """``accel = forward_fn(pos_mass, G)`` with the hand-written VJP as its
-    backward.  ``G`` is a Python float and gets no gradient."""
+    backward.  ``G`` is a Python float (no gradient) or a 0-d tensor, whose
+    gradient is the VJP's Ḡ.  The kernels see ``float(G)``."""
 
     @staticmethod
     def forward(ctx, pos_mass, G, forward_fn, backward_fn):
         ctx.save_for_backward(pos_mass)
-        ctx.G = G
+        ctx.G = float(G)
         ctx.backward_fn = backward_fn
-        return forward_fn(pos_mass.detach(), G)
+        return forward_fn(pos_mass.detach(), ctx.G)
 
     @staticmethod
     def backward(ctx, abar):
         (pos_mass,) = ctx.saved_tensors
-        pm_bar, _ = ctx.backward_fn(pos_mass.detach(), ctx.G, abar.detach().contiguous())
-        return pm_bar, None, None, None
+        pm_bar, gbar = ctx.backward_fn(pos_mass.detach(), ctx.G, abar.detach().contiguous())
+        return (
+            pm_bar if ctx.needs_input_grad[0] else None,
+            gbar if ctx.needs_input_grad[1] else None,
+            None,
+            None,
+        )
 
 
 def make_diff_accel(forward_fn, *, eps2: float, b: int, sym: bool = True):
     """Wrap ``forward_fn(pos_mass, G) -> (N, 4)`` so that autograd flows
     through it: the backward is :func:`force_vjp_sym` with tile ``b``
     (``sym=True``, the JAX default) or :func:`force_vjp`.  The backward is
-    the VJP of the ideal pair math, as in the JAX package.  When grad mode
-    is off or ``pos_mass`` needs no gradient, the wrapper calls
-    ``forward_fn`` directly, so the forward path pays nothing."""
+    the VJP of the ideal pair math, as in the JAX package.  ``G`` is a
+    float or a 0-d tensor; a tensor that requires grad gets Ḡ.  When grad
+    mode is off or neither ``pos_mass`` nor ``G`` needs a gradient, the
+    wrapper calls ``forward_fn`` directly, so the forward path pays
+    nothing."""
 
     def backward_fn(pos_mass, G, abar):
         if sym:
             return force_vjp_sym(pos_mass, G, abar, eps2=eps2, b=b)
         return force_vjp(pos_mass, G, abar, eps2=eps2)
 
-    def accel(pos_mass: torch.Tensor, G: float) -> torch.Tensor:
-        if torch.is_grad_enabled() and pos_mass.requires_grad:
+    def accel(pos_mass: torch.Tensor, G: float | torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (pos_mass.requires_grad or requires_grad(G)):
             return _DiffAccel.apply(pos_mass, G, forward_fn, backward_fn)
-        return forward_fn(pos_mass, G)
+        return forward_fn(pos_mass, float(G))
 
     return accel

@@ -11,7 +11,9 @@ The operations run in this order in float32, as in
 ``nbody3d_tpu/ops/integrate.py``, so the two packages agree bit for bit on
 the same inputs.  All four lanes update; the w lanes stay put because
 ``vel.w == accel.w == 0``.  ``valid`` (an ``(N, 1)`` bool mask) freezes
-padded rows and zeroes their stored acceleration.
+padded rows and zeroes their stored acceleration.  ``dt`` is a float or a
+0-d float32 tensor; a tensor stays in the graph, so autograd gives ``dt``
+its gradient.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ Tensors3 = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Accum = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _f32(x: float) -> float:
+def _f32(x: float | torch.Tensor) -> float | torch.Tensor:
     """``x`` rounded to float32, as a Python float (torch then applies it
-    to float32 tensors without further rounding)."""
-    return float(np.float32(x))
+    to float32 tensors without further rounding).  A 0-d float32 tensor
+    passes through, so that autograd reaches it."""
+    return x if isinstance(x, torch.Tensor) else float(np.float32(x))
 
 
 def apply_integrator(
@@ -39,7 +42,7 @@ def apply_integrator(
     vel: torch.Tensor,
     accel_old: torch.Tensor,
     accel_new: torch.Tensor,
-    dt: float,
+    dt: float | torch.Tensor,
     valid: torch.Tensor | None = None,
 ) -> Tensors3:
     """One update from a precomputed acceleration.  Returns
@@ -90,7 +93,7 @@ def integrate_from_accum(
     pos_mass: torch.Tensor,
     vel: torch.Tensor,
     accel_old: torch.Tensor,
-    dt: float,
+    dt: float | torch.Tensor,
     valid: torch.Tensor | None = None,
 ) -> Tensors3:
     """One step given the force closure ``accum(pos_mass) -> (N, 4)``.
@@ -101,14 +104,18 @@ def integrate_from_accum(
         )
     if kind != "yoshida4":
         raise ValueError(f"unknown integrator {kind!r}")
-    dt32 = np.float32(dt)
-    p = pos_mass + float(np.float32(Y4_DRIFT[0]) * dt32) * vel
+    dt32 = _f32(dt)
+
+    def coef(c: float) -> float | torch.Tensor:  # c * dt, one f32 product
+        return _f32(float(np.float32(c)) * dt32)
+
+    p = pos_mass + coef(Y4_DRIFT[0]) * vel
     v = vel
     a = accel_old
     for ci, di in zip(Y4_DRIFT[1:], Y4_KICK):
         a = accum(p)
-        v = v + float(np.float32(di) * dt32) * a
-        p = p + float(np.float32(ci) * dt32) * v
+        v = v + coef(di) * a
+        p = p + coef(ci) * v
     if valid is not None:
         p = torch.where(valid, p, pos_mass)
         v = torch.where(valid, v, vel)
@@ -120,7 +127,7 @@ def integrate_state(
     kind: str,
     accum: Accum,
     state: SimState,
-    dt: float,
+    dt: float | torch.Tensor,
     *,
     n_real: int | None = None,
 ) -> SimState:

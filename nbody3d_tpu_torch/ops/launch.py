@@ -1,6 +1,6 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The eight kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The nine kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
 ==================  ===================  ===================================
@@ -14,9 +14,10 @@ kernel              wrapper module       computes
 ``vjp_sym_diag``    ``force_vjp``        sym VJP 1: in-tile pairs
 ``vjp_sym_hops``    ``force_vjp``        sym VJP 2: off-diagonal tile pairs
 ``vjp_combine``     ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
+``splat_resolve``   ``render.resolve``   the renderer's depth-min resolve
 ==================  ===================  ===================================
 
-A wrapper checks its tensors (float32, contiguous, one device, no
+A wrapper checks its tensors (dtype, shape, contiguous, one device, no
 autograd: the kernels never see a tensor that requires grad; gradients
 reach them through ``force_vjp.make_diff_accel`` and the sym step's
 ``torch.autograd.Function``), takes its plain twin only because the tensors
@@ -31,6 +32,7 @@ import torch
 KERNELS = (
     "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
+    "splat_resolve",
 )
 MAX_TILE = 1024  # threads per CUDA block
 

@@ -31,7 +31,11 @@ kernels of ``ops/force_vjp.py`` with the Newton-3 schedule:
   ``force_vjp_sym``.  When nothing needs a gradient the step updates the
   state in place, as before.
 
-``dt`` and ``G`` are Python floats and get no gradient.
+``dt`` and ``G`` are Python floats or 0-d float32 tensors.  A tensor that
+requires grad gets its gradient as in the JAX fused step's VJP: ``dt``'s
+from autograd through the integrator, ``G``'s from the force VJP's Ḡ.  The
+kernels always see ``float(dt)`` and ``float(G)`` (a CUDA tensor costs a
+device sync there; a CPU tensor does not).
 """
 
 from __future__ import annotations
@@ -43,11 +47,12 @@ import torch
 from nbody3d_tpu_torch.config import SimConfig
 from nbody3d_tpu_torch.ops.cuda_force import force_exact, sym_step_
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
-from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel
+from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel, requires_grad
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
 from nbody3d_tpu_torch.state import SimState
 
-StepFn = Callable[[SimState, float, float], SimState]
+Scalar = float | torch.Tensor
+StepFn = Callable[[SimState, Scalar, Scalar], SimState]
 
 # Largest sym tile: one thread a body in a CUDA block.  block_target is
 # read as a cap below this (its default 2048 is the JAX package's).
@@ -121,39 +126,44 @@ def _check_supported(config: SimConfig) -> None:
 
 class _SymStep(torch.autograd.Function):
     """The fused sym step with a backward (``make_fused_sym_step``'s
-    ``custom_vjp``).  ``opts = (eps2, b, n_real)``."""
+    ``custom_vjp``).  ``opts = (eps2, b, n_real)``; ``dt`` and ``G`` are
+    floats or 0-d tensors."""
 
     @staticmethod
     def forward(ctx, pos_mass, vel, accel, dt, G, opts):
         eps2, b, n_real = opts
         p, v, a = (t.detach().clone() for t in (pos_mass, vel, accel))
-        sym_step_(p, v, a, dt, G, eps2=eps2, b=b, n_real=n_real)
+        sym_step_(p, v, a, float(dt), float(G), eps2=eps2, b=b, n_real=n_real)
         # The stored acceleration is the force at pos_mass, valid-masked:
         # what the backward needs.
         ctx.save_for_backward(pos_mass, vel, accel, a)
-        ctx.dt, ctx.G, ctx.opts = dt, G, opts
+        ctx.dt, ctx.G, ctx.opts = dt, float(G), opts
         return p, v, a
 
     @staticmethod
     def backward(ctx, gp, gv, ga):
         pos_mass, vel, a_old, a_new = ctx.saved_tensors
         eps2, b, n_real = ctx.opts
+        need_pm, need_dt, need_G = (ctx.needs_input_grad[i] for i in (0, 3, 4))
         ins = [t.detach().requires_grad_() for t in (pos_mass, vel, a_old, a_new)]
+        dt = ctx.dt.detach().requires_grad_() if need_dt else ctx.dt
         with torch.enable_grad():
             outs = apply_integrator(
-                "verlet", *ins, ctx.dt, valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+                "verlet", *ins, dt, valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
             )
             # Autograd hands zeros for unused outputs (materialized grads).
-            g_pm, g_v, g_aold, g_force = torch.autograd.grad(outs, ins, (gp, gv, ga))
-        if not ctx.needs_input_grad[0]:
-            # The force cotangent reaches only pos_mass: a rollout's first
-            # step, whose positions need no gradient, skips the force VJP
-            # (as autograd skips it on the exact route).
-            return None, g_v, g_aold, None, None, None
-        pm_bar, _ = force_vjp_sym(
+            grads = torch.autograd.grad(outs, ins + [dt] if need_dt else ins, (gp, gv, ga))
+        g_pm, g_v, g_aold, g_force = grads[:4]
+        gdt = grads[4] if need_dt else None
+        if not (need_pm or need_G):
+            # The force cotangent reaches only pos_mass and G: a rollout's
+            # first step, whose positions need no gradient, skips the force
+            # VJP (as autograd skips it on the exact route).
+            return None, g_v, g_aold, gdt, None, None
+        pm_bar, g_bar = force_vjp_sym(
             pos_mass.detach(), ctx.G, g_force.contiguous(), eps2=eps2, b=b
         )
-        return g_pm + pm_bar, g_v, g_aold, None, None, None
+        return (g_pm + pm_bar if need_pm else None), g_v, g_aold, gdt, (g_bar if need_G else None), None
 
 
 def make_step_fn(
@@ -167,7 +177,7 @@ def make_step_fn(
     if route == "plain":
         chunk = fit_block(n_pad, 256) if n_pad > 4096 else None
 
-        def step(state: SimState, dt: float, G: float) -> SimState:
+        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
             return integrate_state(
                 config.integrator,
                 lambda pm: accel_direct(pm, G, eps2=eps2, chunk=chunk),
@@ -184,7 +194,7 @@ def make_step_fn(
         b_vjp = fit_block(n_pad, min(config.block_target, GPU_TILE), floor=1)
         accel = make_diff_accel(lambda pm, G: force_exact(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
 
-        def step(state: SimState, dt: float, G: float) -> SimState:
+        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
             return integrate_state(
                 config.integrator, lambda pm: accel(pm, G), state, dt, n_real=n_real,
             )
@@ -202,11 +212,11 @@ def make_step_fn(
 
         opts = (eps2, b, n_real)
 
-        def step(state: SimState, dt: float, G: float) -> SimState:
+        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
             p, v, a = state.pos_mass, state.vel, state.accel
-            if torch.is_grad_enabled() and (p.requires_grad or v.requires_grad or a.requires_grad):
+            if torch.is_grad_enabled() and any(map(requires_grad, (p, v, a, dt, G))):
                 return SimState(*_SymStep.apply(p, v, a, dt, G, opts), state.step + 1)
-            sym_step_(p, v, a, dt, G, eps2=eps2, b=b, n_real=n_real)
+            sym_step_(p, v, a, float(dt), float(G), eps2=eps2, b=b, n_real=n_real)
             return SimState(p, v, a, state.step + 1)
 
         return step
@@ -216,7 +226,7 @@ def make_step_fn(
     raise ValueError(f"unknown force_mode {mode!r}")
 
 
-def run_chunk(step_fn: StepFn, state: SimState, dt: float, G: float, k: int) -> SimState:
+def run_chunk(step_fn: StepFn, state: SimState, dt: Scalar, G: Scalar, k: int) -> SimState:
     """k steps in a row; the replacement for ``make_scan_fn``'s scan."""
     for _ in range(k):
         state = step_fn(state, dt, G)

@@ -129,9 +129,9 @@ def test_launch_counters_stay_zero_on_cpu():
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
 
 
-def test_cli_run_bench_info(capsys):
+def test_cli_run_bench_info(capsys, tmp_path):
     assert cli.main(["run", "--device", "cpu", "--preset", "uniform-sphere", "--n", "128",
-                     "--steps", "4", "--log-every", "2", "--diagnostics",
+                     "--steps", "4", "--log-every", "2", "--diagnostics", "--outdir", str(tmp_path),
                      "--log-dt", "-3", "--log-G", "-4"]) == 0
     out = capsys.readouterr().out
     lines = out.splitlines()
@@ -180,14 +180,19 @@ def test_step_stats_match_jax():
 
 
 def test_port_imports_without_jax():
-    """The package and every module of it import with jax blocked, and
-    pull in nothing of nbody3d_tpu."""
+    """The package, every module of it and chip_smoke.py import with jax
+    and PIL blocked, and pull in nothing of nbody3d_tpu."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['PIL'] = None\n"
         "import nbody3d_tpu_torch, nbody3d_tpu_torch.cli, nbody3d_tpu_torch._build\n"
         "import nbody3d_tpu_torch.ops.step, nbody3d_tpu_torch.ops.cuda_force\n"
         "import nbody3d_tpu_torch.ops.diagnostics, nbody3d_tpu_torch.ops.morton\n"
         "import nbody3d_tpu_torch.models, nbody3d_tpu_torch.utils.profiling\n"
+        "import nbody3d_tpu_torch.ops.force_vjp, nbody3d_tpu_torch.utils.checkpoint\n"
+        "import nbody3d_tpu_torch.utils.camera, nbody3d_tpu_torch.utils.mathlib\n"
+        "import nbody3d_tpu_torch.render.rasterize, nbody3d_tpu_torch.render.resolve\n"
+        "import nbody3d_tpu_torch.render.image, nbody3d_tpu_torch.render.colormap\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'nbody3d_tpu' or m.startswith('nbody3d_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

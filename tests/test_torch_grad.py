@@ -149,6 +149,60 @@ def test_rollout_grad_matches_jax_pallas_step(rng, mode, integrator, n_real):
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-6 * np.abs(want).max())
 
 
+def _jax_scalar_grads(pm, vel, n, n_real, mode, integrator, k=3):
+    cfg = JaxConfig(backend="pallas", force_mode=mode, integrator=integrator, block_target=32, block_source=32)
+    step = jax_make_step_fn(cfg, n, n_real, platform="cpu")
+
+    def loss(dt, g):
+        s = JaxState(jnp.asarray(pm), jnp.asarray(vel), jnp.zeros((n, 4), jnp.float32), jnp.asarray(0, jnp.int32))
+        out, _ = jax.lax.scan(lambda c, _: (step(c, dt, g), None), s, None, length=k)
+        return jnp.sum(out.pos_mass[:n_real, :3] ** 2) + jnp.sum(out.vel[:n_real, :3] ** 2)
+
+    return [float(x) for x in jax.grad(loss, argnums=(0, 1))(jnp.float32(DT), jnp.float32(G))]
+
+
+@pytest.mark.parametrize(
+    "mode,integrator,n_real", [("sym", "verlet", 64), ("sym", "verlet", 60), ("exact", "verlet", 60),
+                               ("exact", "yoshida4", 64)]
+)
+def test_rollout_grad_by_dt_and_G_matches_jax_pallas_step(rng, mode, integrator, n_real):
+    """The gradient of a 3-step rollout by the scalars dt and G (0-d
+    tensors), against jax.grad through the JAX Pallas step (interpret
+    mode): rtol 2e-3, the rollout tolerance."""
+    n = 64
+    pm, _ = pm_abar(rng, n, n_real)
+    vel = np.zeros((n, 4), np.float32)
+    vel[:n_real, :3] = 0.3 * rng.standard_normal((n_real, 3))
+    step = make_step_fn(SimConfig(force_mode=mode, integrator=integrator, block_target=32), n, n_real, "cpu")
+    dt = torch.tensor(DT, requires_grad=True)
+    g = torch.tensor(G, requires_grad=True)
+    s = SimState(t(pm.copy()), t(vel.copy()), torch.zeros((n, 4)), 0)
+    for _ in range(3):
+        s = step(s, dt, g)
+    loss = torch.sum(s.pos_mass[:n_real, :3] ** 2) + torch.sum(s.vel[:n_real, :3] ** 2)
+    got = [float(x) for x in torch.autograd.grad(loss, (dt, g))]
+    want = _jax_scalar_grads(pm, vel, n, n_real, mode, integrator)
+    assert all(np.isfinite(got)) and got[0] != 0 and got[1] != 0
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+
+
+@pytest.mark.parametrize("mode", ["sym", "exact"])
+def test_grad_by_G_matches_plain_route(rng, mode):
+    """The kernel routes' dt and G gradients against the backend="jnp"
+    route's, which autograd takes through the plain oracle."""
+    n = 64
+    pm, _ = pm_abar(rng, n)
+    grads = {}
+    for route, cfg in (("plain", SimConfig(backend="jnp")), ("kernels", SimConfig(force_mode=mode, block_target=32))):
+        step = make_step_fn(cfg, n, n, "cpu")
+        dt, g = torch.tensor(DT, requires_grad=True), torch.tensor(G, requires_grad=True)
+        s = SimState(t(pm.copy()), torch.zeros((n, 4)), torch.zeros((n, 4)), 0)
+        for _ in range(3):
+            s = step(s, dt, g)
+        grads[route] = [float(x) for x in torch.autograd.grad(torch.sum(s.pos_mass[:, :3] ** 2), (dt, g))]
+    np.testing.assert_allclose(grads["kernels"], grads["plain"], rtol=2e-3)
+
+
 # ------------------------------------------------------------------ (e)
 def _small(rng, mode):
     """tests/test_grad.py's 8-body, 20-step problem on the kernel route."""
@@ -191,21 +245,26 @@ def test_gradient_descent_reaches_target(rng, mode):
 
 
 # ------------------------------------------------------------------ (f)
-@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("grad", [False, "tensors", True, "scalars"])
 def test_sym_step_in_place_only_without_grad(rng, grad):
+    """Without grad the sym step updates the state in place, with dt and G
+    given as Python floats (False) or as 0-d tensors that need no gradient
+    ("tensors"); with grad (by the state, True, or by dt and G, "scalars")
+    it leaves its inputs alone."""
     pm, _ = pm_abar(rng, 64)
     step = make_step_fn(SimConfig(force_mode="sym", block_target=32), 64, 64, "cpu")
     v = torch.full((64, 4), 0.01)
     v[:, 3] = 0.0
-    s = SimState(t(pm.copy()), v.clone().requires_grad_(grad), torch.zeros((64, 4)), 0)
+    s = SimState(t(pm.copy()), v.clone().requires_grad_(grad is True), torch.zeros((64, 4)), 0)
     ins = (s.pos_mass, s.vel, s.accel)
     before = [x.detach().clone() for x in ins]
-    out = step(s, DT, G)
+    scalars = (DT, G) if grad in (False, True) else [torch.tensor(x, requires_grad=grad == "scalars") for x in (DT, G)]
+    out = step(s, *scalars)
     outs = (out.pos_mass, out.vel, out.accel)
     moved = not torch.equal(out.pos_mass.detach(), before[0])
     assert moved
-    if grad:
-        assert out.vel.requires_grad
+    if grad in (True, "scalars"):
+        assert out.vel.requires_grad and out.pos_mass.requires_grad
         for x, x0 in zip(ins, before):
             assert torch.equal(x.detach(), x0)  # inputs untouched
         assert all(o.data_ptr() != x.data_ptr() for o, x in zip(outs, ins))
@@ -246,7 +305,7 @@ def test_cpu_runs_launch_nothing_and_wrappers_check(rng):
     fv.force_vjp_sym(t(pm), G, t(abar), eps2=EPS2, b=64)  # nt = 1 is allowed
     _torch_rollout_grad(pm, 64, 64, "sym", "verlet")
     assert all(c == 0 for c in launch_counts().values())
-    assert len(launch_counts()) == 8
+    assert len(launch_counts()) == 9
     with pytest.raises(RuntimeError, match="never take such tensors"):
         fv.force_vjp_sym(t(pm).requires_grad_(), G, t(abar), eps2=EPS2, b=32)
     with pytest.raises(ValueError):
