@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the nine kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the twelve kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -47,17 +47,42 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    twin and ``scatter_reduce_`` over the expanded pairs (the library
    yardstick) at the run's frame and at N = 500,010 1920x1080
    (benchmarks/render_bench.py's scene), frame, PNG and checkpoint times.
+8. the mesh solvers (``method="p3m"`` and ``"pm"``, isolated): (a, after
+   7a) ``short_range``, ``mesh_deposit`` and ``mesh_gather`` against their
+   plain twins on the clustered two-galaxy scene (n = 4,096) at N = 8,192
+   and 7,936, tiles 128 and 256, grids 32 and 128, TSC and CIC, and
+   ``short_range`` with slots masked; (b) the P3M path at full width,
+   benchmarks/p3m_bench.py's configuration: two-galaxy N = 2,097,152,
+   grid 128, k = 32, tile 256 (8,193 tiles: the two-level neighbour
+   selection), 30 warm steps with the momentum error (<= 1e-5 of
+   sum |m v|) over them, 2 timed chunks of 10, ms/step and the
+   direct-equivalent G-int/s; then, on the state it leaves, the force of
+   4,096 sampled bodies against ``force_exact`` (median < 2e-3,
+   p99 < 1e-2) with the selection's tile overflow, the three kernels at
+   that shape beside their twins, bounds and (deposit) ``index_add_``
+   (the deposit per cell within the f32 summation bound, the total mass,
+   and bit for bit on exact terms), and a force evaluation's device time
+   stage by stage; (c) p3m_bench's accuracy probe (two-galaxy
+   n = 16,384, grid 128) against ``force_exact``, median < 2e-3 and
+   p99 < 1e-2, and ``cli run --method p3m`` on two-galaxy for 200 steps
+   with the energy (<= 1e-3) and momentum (<= 1e-5) checks; (d) PM at
+   two-galaxy N = 2,097,152, grid 128, 30 warm steps (momentum as 8b) and
+   5 timed chunks of 50, then its CIC deposit and gather against their
+   twins at that shape and data, as 8b's; (e) at N = 8,192 the kernel route
+   of ``pm`` and ``p3m`` against ``backend="jnp"`` (accelerations and a
+   5-step rollout, rtol 1e-4, atol 1e-5 of the scale).
 
-Phases 4, 5, 6a, 6b and 7b (the main paths) and 6c and 6d each run with
-the launch counts set to 0 just before and read just after; each must
-launch every kernel it runs and no other, and the SM clock, power draw and
-temperature are printed after each.  One profiled rollout of 6a and 6b
-each and one profiled frame of 7b (device busy time, idle share, largest
-kernels) follow their windows.  The line before the last is
-``{"kernels": [...]}`` (launches summed over the main paths, ``vjp_full``'s
-from 6c; ``bound_ms`` from this run's shapes and the operation counts in
-each kernel's source note); the last is the ``{"ok": true, "device": ...}``
-line.  Without a CUDA card it exits 1 and prints no result.
+Phases 4, 5, 6a, 6b, 7b, 8b and 8d (the main paths) and 6c, 6d, 8c and 8e
+each run with the launch counts set to 0 just before and read just after;
+each must launch every kernel it runs and no other, and the SM clock,
+power draw and temperature are printed after each.  One profiled rollout
+of 6a and 6b each, one profiled frame of 7b and one profiled step of 8b
+and 8d (device busy time, idle share, largest kernels) follow their
+windows.  The line before the last is ``{"kernels": [...]}`` (launches
+summed over the main paths, ``vjp_full``'s from 6c; ``bound_ms`` from this
+run's shapes and the operation counts in each kernel's source note); the
+last is the ``{"ok": true, "device": ...}`` line.  Without a CUDA card it
+exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -80,6 +105,8 @@ from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import force_vjp as fv
+from nbody3d_tpu_torch.ops import mesh_cuda as mc
+from nbody3d_tpu_torch.ops import p3m, pm
 from nbody3d_tpu_torch.ops.integrate import integrate_state
 from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts
 from nbody3d_tpu_torch.ops.morton import morton_reorder
@@ -104,6 +131,9 @@ REPLACES = {
     "vjp_sym_hops": (SRC + "vjp_sym_hops.cu", VJP + "450"),
     "vjp_combine": (SRC + "vjp_combine.cu", VJP + "490"),
     "splat_resolve": (SRC + "splat_resolve.cu", "nbody3d_tpu/render/pallas_resolve.py:105"),
+    "short_range": (SRC + "short_range.cu", "nbody3d_tpu/ops/p3m.py:709"),
+    "mesh_deposit": (SRC + "mesh_deposit.cu", "nbody3d_tpu/ops/mesh_pallas.py:215"),
+    "mesh_gather": (SRC + "mesh_gather.cu", "nbody3d_tpu/ops/mesh_pallas.py:285"),
 }
 
 # Least time for a kernel's work (PERF.md "bound"): the larger of its FP32
@@ -120,7 +150,11 @@ HBM_BYTES = 3.35e12
 FLOP = {
     "force_exact": 18, "sym_diag_prep": 18, "sym_hops": 25, "sym_epilogue": 33,
     "vjp_full": 53, "vjp_sym_diag": 53, "vjp_sym_hops": 61, "vjp_combine": 8,
+    # short_range a pair; mesh_deposit and mesh_gather a particle (TSC).
+    "short_range": 47, "mesh_deposit": 82, "mesh_gather": 216,
 }
+# MUFU results a short_range pair: two rsqrt, the ex2 of expf, the rcp of 1/(1 + p u).
+SR_MUFU = 4
 
 FAILURES: list[str] = []
 
@@ -1050,6 +1084,451 @@ def phase_render_path(dev, out: pathlib.Path):
     return [("two-galaxy frame 1024x768", lambda: sim.render_frame())]
 
 
+# ------------------------------------------------------ the mesh solvers
+MESH_KERNELS = ("short_range", "mesh_deposit", "mesh_gather")
+# 8b's bodies: two galaxies of 2^20 disk bodies and a 1e7 centre each.  The
+# preset's n counts the centres, so n = 2,097,152 (p3m_bench's 2M, also 8d's)
+# makes 8,192 tiles of 256, the flat selection's last size; these two more
+# bodies pad to 2,097,408 rows = 8,193 tiles, odd, so the two-level selection
+# runs with super-tiles of one tile.
+P3M_N = 2_097_154
+PM_N = 2_097_152
+
+
+def _clustered(n: int, n_pad: int, dev, seed: int = 0):
+    """The two-galaxy preset at ``n`` bodies (two 1e7 centres among them),
+    zero-padded to ``n_pad`` rows on ``dev``: ``(pos_mass, vel, n_real)``."""
+    pm_np, vel_np, _ = make_preset("two-galaxy", seed=seed, G=G, n=n)
+    st = init_state(pm_np, vel_np, n_pad=n_pad, device=dev)
+    return st.pos_mass, st.vel, pm_np.shape[0]
+
+
+def _p3m_inputs(pos_mass: torch.Tensor, n_real: int, grid: int, block: int, nbr_k: int = 32):
+    """What ``accel_p3m`` hands its kernels: the Morton-sorted mesh rows,
+    the box, sigma and rcut, the TSC operands and the neighbour lists."""
+    lo, h = pm._box(pos_mass[:n_real, :3], grid)
+    sigma = p3m.DEFAULT_SIGMA_CELLS * h
+    rcut = p3m.DEFAULT_RCUT_SIGMAS * sigma
+    hidx, mass_mesh = p3m.heavy_split(pos_mass, p3m.DEFAULT_HEAVY_K)
+    perm = torch.argsort(p3m.morton_keys(pos_mass, n_real), stable=True)
+    ps = torch.cat([pos_mass[:, :3], mass_mesh[:, None]], 1)[perm].contiguous()
+    c, f = p3m._tsc_cells(ps[:, :3], lo, h, grid)
+    c4, fm = mc.mesh_operands(c, f, ps[:, 3])
+    lo_b, hi_b = p3m._sorted_aabbs(ps, n_real, block)
+    kth, neg, idx = p3m._select_neighbors(lo_b, hi_b, h, min(nbr_k, ps.shape[0] // block))
+    mask = p3m.mutual_neighbor_mask(neg, idx, kth)
+    return dict(ps=ps, lo=lo, h=h, sigma=sigma, rcut=rcut, c4=c4, fm=fm, nbr_idx=idx, mask=mask,
+                hidx=hidx, lo_b=lo_b, hi_b=hi_b, perm=perm)
+
+
+def _sr_agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
+    """tests/test_p3m.py's short-range bound: ``|got - want| <= 2e-4 |want|
+    + 3e-6 max|want|``; and the worst max-abs over scale."""
+    scale = float(want.abs().max())
+    ok = bool(((got - want).abs() <= 2e-4 * want.abs() + 3e-6 * scale).all())
+    return ok, max_abs(got, want) / scale
+
+
+def phase_mesh_checks(dev) -> None:
+    """8a: the three mesh kernels against their plain twins on the card, on
+    the clustered two-galaxy scene (n = 4,096) at N = 8,192 and 7,936,
+    tiles 128 and 256, grids 32 and 128, both assignment orders, and
+    ``short_range`` with every third row's second slot masked."""
+    print("[8a mesh] short_range, mesh_deposit, mesh_gather vs plain twins, small shapes", flush=True)
+    for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
+        pos_mass, _, n_real = _clustered(4096, n_pad, dev)
+        for grid in (32, 128):
+            x = _p3m_inputs(pos_mass, n_real, grid, block)
+            tag = f"N={n_pad} block={block} grid={grid}"
+            for order in (3, 2):
+                c, f = (p3m._tsc_cells if order == 3 else pm._cic_cells)(x["ps"][:, :3], x["lo"], x["h"], grid)
+                c4, fm = mc.mesh_operands(c, f, x["ps"][:, 3])
+                rho, rho_p = mc.deposit(c4, fm, grid, order), mc.deposit_plain(c4, fm, grid, order)
+                grids = p3m.solve_accel_long(rho_p, x["h"], EPS2, x["sigma"], order=order)
+                acc, acc_p = mc.gather(grids, c4, fm, grid, order), mc.gather_plain(grids, c4, fm, grid, order)
+                torch.cuda.synchronize()
+                e_rho, e_mass = rel_err(rho, rho_p), abs(float(rho.sum() / rho_p.sum()) - 1.0)
+                check(e_rho < 1e-5 and e_mass < 1e-6,
+                      f"{tag} order {order}: mesh_deposit vs plain max-abs/max {e_rho:.3e} < 1e-5, "
+                      f"total mass {e_mass:.3e} < 1e-6")
+                e_acc = rel_err(acc, acc_p)
+                check(e_acc < 1e-5 and not acc[:, 3].any(),
+                      f"{tag} order {order}: mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+            mask = x["mask"].clone()
+            mask[::3, 1] = 0.0
+            args = (x["ps"], x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block)
+            for what, m in (("mutual mask", x["mask"]), ("mask with slots zeroed", mask)):
+                got = p3m.short_range_tiles(*args, m)
+                want = p3m.short_range_tiles(*args, m, backend="jnp")
+                torch.cuda.synchronize()
+                ok, err = _sr_agree(got, want)
+                check(ok and not got[:, 3].any(),
+                      f"{tag}: short_range vs plain ({what}, {int((m == 0).sum())} slots off) "
+                      f"rtol 2e-4, atol 3e-6 of max (max-abs/max {err:.3e})")
+
+
+def _momentum(sim: Simulation) -> torch.Tensor:
+    p = sim.state.pos_mass.double()
+    return (p[:, 3:4] * sim.state.vel[:, :3].double()).sum(dim=0)
+
+
+def _mesh_run(sim: Simulation, tag: str, chunks: int, chunk: int, warm: int = 30) -> float:
+    """``warm`` untimed steps, over which the momentum error is checked
+    against 1e-5 of sum |m v|, then ``chunks`` timed chunks of ``chunk``
+    steps.  Prints ms/step (the median chunk) and the momentum error over
+    all steps; returns the ms/step."""
+    p0 = _momentum(sim)
+    pscale = float((sim.state.pos_mass[:, 3:4].double() * sim.state.vel[:, :3].double()).abs().sum())
+    warm_s = _timed_chunks(sim, 1, warm)[0]
+    mom = float((_momentum(sim) - p0).abs().max()) / pscale
+    times = _timed_chunks(sim, chunks, chunk)
+    mom_all = float((_momentum(sim) - p0).abs().max()) / pscale
+    med = statistics.median(times)
+    ms = med / chunk * 1e3
+    gints = sim.pair_interactions_per_step * chunk / med / 1e9
+    finite = bool(torch.isfinite(sim.state.pos_mass).all() and torch.isfinite(sim.state.vel).all())
+    print(f"{tag}: median of {chunks} chunks of {chunk} steps {med:.4f} s = {ms:.4f} ms/step, direct-equivalent "
+          f"{gints:.2f} G-int/s; warm {warm} steps {warm_s:.4f} s, timed {[round(t, 4) for t in times]}; "
+          f"momentum err {mom:.3e} after {warm} steps, {mom_all:.3e} after {warm + chunks * chunk}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), f"{tag}: finite state of shape (n_pad, 4)")
+    check(mom <= 1e-5, f"{tag}: momentum error over the first {warm} steps {mom:.3e} <= 1e-5")
+    return ms
+
+
+MESH_SIMS: dict[str, Simulation] = {}  # 8b's and 8d's simulations, for the checks after their windows
+
+
+def phase_p3m(dev):
+    """8b: the P3M path at full width (benchmarks/p3m_bench.py's
+    configuration, grid 128, k = 32, tile 256, on two-galaxy with 2^20 disk
+    bodies a galaxy: 8,193 tiles, the two-level selection), 30 warm steps
+    and 2 timed chunks of 10."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SimConfig(method="p3m", pm_grid=128, p3m_nbr_k=32)
+    sim = Simulation.from_preset("two-galaxy", cfg, n=P3M_N, device=dev)
+    nb = sim.n_pad // p3m.DEFAULT_BLOCK
+    check(nb == 8193 and nb > p3m._FLAT_MAX_TILES,
+          f"8b: n_real {sim.n_real}, n_pad {sim.n_pad}, {nb} tiles > {p3m._FLAT_MAX_TILES}: two-level selection")
+    _mesh_run(sim, f"[8b p3m] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) grid 128 k 32", chunks=2, chunk=10)
+    MESH_SIMS["p3m"] = sim
+    return [("p3m step at 2M", lambda: sim.run(1, chunk=1))]
+
+
+def phase_pm(dev):
+    """8d: PM at two-galaxy N = 2,097,152, grid 128: 30 warm steps and 5
+    timed chunks of 50 (a step takes a few ms, so shorter chunks time the
+    host's jitter)."""
+    torch.cuda.reset_peak_memory_stats()
+    sim = Simulation.from_preset("two-galaxy", SimConfig(method="pm", pm_grid=128), n=PM_N, device=dev)
+    _mesh_run(sim, f"[8d pm] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) grid 128", chunks=5, chunk=50)
+    MESH_SIMS["pm"] = sim
+    return [("pm step at 2M", lambda: sim.run(1, chunk=1))]
+
+
+def phase_p3m_probe(dev) -> None:
+    """8c: p3m_bench.accuracy_probe's scene (two-galaxy n = 16,384, seed 1,
+    grid 128, k = 32) against ``force_exact``, then the README's run through
+    the CLI: two-galaxy, 200 steps, energy drift <= 1e-3, momentum <= 1e-5."""
+    pos_mass, _, n_real = _clustered(16384, pad_count(16384, PAD_GRANULE), dev, seed=1)
+    ref = cf.force_exact(pos_mass, pos_mass, G, EPS2)[:n_real, :3]
+    got = p3m.accel_p3m(pos_mass, G, grid=128, n_real=n_real, nbr_k=32)[:n_real, :3]
+    rel = (torch.linalg.norm(got - ref, dim=1) / torch.linalg.norm(ref, dim=1).clamp(min=1e-20)).cpu().numpy()
+    ov = p3m.p3m_neighbor_overflow(pos_mass, grid=128, n_real=n_real, nbr_k=32)
+    med, p99 = float(np.median(rel)), float(np.percentile(rel, 99))
+    check(med < 2e-3 and p99 < 1e-2,
+          f"[8c p3m accuracy] two-galaxy N={n_real} grid 128 k 32 vs force_exact: median {med:.3e} < 2e-3, "
+          f"p99 {p99:.3e} < 1e-2 (max {rel.max():.3e}, tile overflow {ov})")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["run", "--device", dev.type, "--method", "p3m", "--preset", "two-galaxy", "--steps", "200",
+                "--log-every", "50", "--diagnostics", "--outdir", tmp]
+        print(f"[8c p3m run] cli {' '.join(argv)}", flush=True)
+        d0 = Simulation.from_preset("two-galaxy", SimConfig(method="p3m"), device=dev).diagnostics()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        run_s = time.perf_counter() - t0
+        sim = Simulation.load(str(pathlib.Path(tmp) / "final.npz"), device=dev)
+        drift, mom, finite = _conservation(sim, d0, sim.diagnostics())
+    check(rc == 0 and finite and sim.step_count == 200 and sim.config.method == "p3m",
+          f"p3m run rc {rc} in {run_s:.3f} s, step {sim.step_count}, method {sim.config.method}, finite")
+    check(drift <= 1e-3 and mom <= 1e-5, f"p3m run: energy drift {drift:.3e} <= 1e-3, momentum error {mom:.3e} <= 1e-5")
+
+
+def phase_mesh_crosscheck(dev) -> None:
+    """8e: at N = 8,192 (two-galaxy n = 4,096) the kernel route of ``pm`` and
+    ``p3m`` against ``backend="jnp"`` on the card: the accelerations and a
+    5-step rollout, rtol 1e-4 and atol 1e-5 of the scale."""
+    from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
+
+    pos_mass, vel, n_real = _clustered(4096, 8192, dev)
+    for method in ("p3m", "pm"):
+        cfg = SimConfig(method=method)
+        acc_k = make_mesh_accel_fn(cfg, n_real, "kernels")(pos_mass, G)
+        acc_p = make_mesh_accel_fn(cfg, n_real, "plain")(pos_mass, G)
+        states = {}
+        for route, c in (("kernels", cfg), ("jnp", cfg.replace(backend="jnp"))):
+            step = make_step_fn(c, 8192, n_real, dev)
+            s = SimState(pos_mass.clone(), vel.clone(), torch.zeros_like(pos_mass), 0)
+            for _ in range(5):
+                s = step(s, DT_MAIN, G)
+            states[route] = s
+        torch.cuda.synchronize()
+        for what, a, b in (("accel", acc_k, acc_p),
+                           ("5-step positions", states["kernels"].pos_mass, states["jnp"].pos_mass),
+                           ("5-step velocities", states["kernels"].vel, states["jnp"].vel)):
+            a, b = a[:n_real, :3], b[:n_real, :3]
+            scale = float(b.abs().max())
+            excess = float(((a - b).abs() - 1e-4 * b.abs()).max())
+            check(excess <= 1e-5 * scale, f"[8e mesh check] N=8192 {method} kernel route vs jnp route, {what}: "
+                  f"worst |diff| - 1e-4|ref| = {excess:.3e} <= {1e-5 * scale:.3e}")
+
+
+def _stage_ms(x: dict, n_real: int, grid: int, block: int) -> dict[str, float]:
+    """Device ms of each stage of one P3M force evaluation on ``x``."""
+    ps, h, sigma = x["ps"], x["h"], x["sigma"]
+    rho = mc.deposit(x["c4"], x["fm"], grid, 3)
+    grids = p3m.solve_accel_long(rho, h, EPS2, sigma)
+
+    def select():
+        kth, neg, idx = p3m._select_neighbors(x["lo_b"], x["hi_b"], h, 32)
+        return p3m.mutual_neighbor_mask(neg, idx, kth)
+
+    stages = {
+        "Morton keys + sort": lambda: torch.argsort(p3m.morton_keys(ps, n_real), stable=True),
+        "heavy split": lambda: p3m.heavy_split(ps, p3m.DEFAULT_HEAVY_K),
+        "TSC cells": lambda: mc.mesh_operands(*p3m._tsc_cells(ps[:, :3], x["lo"], h, grid), ps[:, 3]),
+        "mesh_deposit": lambda: mc.deposit(x["c4"], x["fm"], grid, 3),
+        "FFT solve + kernel grids (solve_accel_long)": lambda: p3m.solve_accel_long(rho, h, EPS2, sigma),
+        "mesh_gather": lambda: mc.gather(grids, x["c4"], x["fm"], grid, 3),
+        "tile AABBs": lambda: p3m._sorted_aabbs(ps, n_real, block),
+        "neighbour selection + mutual mask": lambda: select(),
+        "short_range": lambda: p3m.short_range_tiles(ps, x["nbr_idx"], EPS2, sigma, x["rcut"], block, x["mask"]),
+        "heavy_direct": lambda: p3m.heavy_direct(ps, x["hidx"], EPS2),
+    }
+    return {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
+
+
+def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p):
+    """Holds a full-size deposit (kernel ``rho`` and twin ``rho_p``) against
+    the same f32 terms summed in f64, and returns the terms ``(idx, val)``.
+
+    At 2M a core cell takes about 1e5 f32 atomic adds in no fixed order, in
+    the kernel and in the twin's index_add_ alike, so each cell is held to
+    the bound of any order of f32 summation, (adds into the cell) x 2^-24 x
+    the cell's sum (every term is >= 0), and the total mass to the sum of
+    those bounds.  That bound is loose where a cell takes many adds, so a
+    second deposit on the same cells gives every body exact terms (TSC
+    f = 1/2: weights 0, 1/2, 1/2 an axis; CIC f = 0: 1, 0; mass 1), whose
+    sums are exact in any order: the kernel must match them bit for bit,
+    which a lost or repeated atomic add would break."""
+    idx, val = zip(*mc._stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3]))
+    idx, val = torch.cat(idx), torch.cat(val)
+    rho64 = torch.zeros(grid**3, dtype=torch.float64, device=fm.device).index_add_(0, idx, val.double())
+    adds = torch.bincount(idx, minlength=grid**3).double()
+    allowed = adds * 2.0**-24 * rho64
+    worst = {name: float(((r.view(-1).double() - rho64).abs() / allowed.clamp(min=1e-300)).max())
+             for name, r in (("kernel", rho), ("twin", rho_p))}
+    check(all(w <= 1.0 for w in worst.values()),
+          f"{tag}: mesh_deposit and twin vs f64 sums of the same terms, each cell within its f32 summation "
+          f"bound (worst error / bound: kernel {worst['kernel']:.3e}, twin {worst['twin']:.3e}; max-abs/max "
+          f"{rel_err(rho.view(-1).double(), rho64):.3e}, twin {rel_err(rho_p.view(-1).double(), rho64):.3e}; "
+          f"up to {int(adds.max())} adds a cell)")
+    total = float(rho64.sum())
+    mass_err = {name: abs(float(r.double().sum()) - total) / total for name, r in (("kernel", rho), ("twin", rho_p))}
+    mass_bound = float(allowed.sum()) / total
+    check(max(mass_err.values()) <= mass_bound,
+          f"{tag}: total mass vs f64, relative error kernel {mass_err['kernel']:.3e}, twin {mass_err['twin']:.3e} "
+          f"<= {mass_bound:.3e} (the summed cell bounds)")
+    exact = fm.clone()
+    exact[:, :3] = 0.5 if order == 3 else 0.0
+    exact[:, 3] = 1.0
+    got = mc.deposit(c4, exact, grid, order).view(-1).double()
+    want = mc.deposit_plain(c4, exact.double(), grid, order).view(-1)
+    check(torch.equal(got, want) and float(got.sum()) == fm.shape[0],
+          f"{tag}: mesh_deposit with exact terms (mass 1 a body) equal to their f64 sums in every cell, total "
+          f"{float(got.sum()):.1f} = {fm.shape[0]} bodies (worst cell |diff| {float((got - want).abs().max()):.3e})")
+    return idx, val
+
+
+def _p3m_checks_2m(sim: Simulation, samples: int = 4096, chunk: int = 32) -> None:
+    """8b's selection and force on the state it leaves, at full width.
+
+    The card's neighbour lists, distances and mutual mask must equal the
+    host CPU's from the same tile boxes (the CPU route is the one
+    tests/test_torch_p3m.py holds bit-equal to the JAX package, supers of
+    one tile included), and the mask's pair set must be symmetric.
+
+    At k = 32 every tile of this shape drops source tiles within rcut, and
+    the force then departs from the direct sum by the short range of the
+    pairs left out: the JAX package's configuration does the same
+    (tests/test_torch_p3m.py::test_accel_p3m_overflow_matches_jax, where
+    past p3m_bench's probe size its p99 leaves the contract, and the
+    port's with it).  So the contract, median < 2e-3 and p99 < 1e-2
+    (tests/test_p3m.py at grid 128), holds the force of ``samples``
+    sampled bodies (heavy ones aside) against what the selection asks for:
+    ``force_exact`` over all bodies less the short-range part of every pair
+    the selection leaves out or the cut drops.  The error against the
+    direct sum itself, the left-out share and the tile overflow are
+    printed."""
+    from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
+
+    pos_mass, n_real, cfg = sim.state.pos_mass, sim.n_real, sim.config
+    n, block, dev = pos_mass.shape[0], p3m.DEFAULT_BLOCK, pos_mass.device
+    x = _p3m_inputs(pos_mass, n_real, cfg.pm_grid, block, cfg.p3m_nbr_k)
+    nb = n // block
+    t0 = time.perf_counter()
+    kth, neg, idx = p3m._select_neighbors(x["lo_b"].cpu(), x["hi_b"].cpu(), x["h"].cpu(), cfg.p3m_nbr_k)
+    cpu_s = time.perf_counter() - t0
+    mask = p3m.mutual_neighbor_mask(neg, idx, kth)
+    same = torch.equal(idx, x["nbr_idx"].cpu()) and torch.equal(mask, x["mask"].cpu())
+    live = x["mask"] > 0
+    cover = torch.zeros((nb, nb), dtype=torch.bool, device=dev)  # target tile x source tile kept
+    cover[live.nonzero()[:, 0], x["nbr_idx"][live]] = True
+    one_sided = int((cover & ~cover.T).sum())
+    check(same and one_sided == 0,
+          f"[8b p3m selection] {nb} tiles, {'two-level' if nb > p3m._FLAT_MAX_TILES else 'flat'}: card's lists and mask equal to the host CPU's "
+          f"({cpu_s:.1f} s there): {same}; {int(live.sum())} live slots, {one_sided} one-sided tile pairs")
+
+    inv = torch.empty_like(x["perm"])
+    inv[x["perm"]] = torch.arange(n, device=dev)
+    tile = inv // block  # each body's tile in the sorted order
+    mass_mesh = pos_mass[:, 3].index_fill(0, x["hidx"], 0.0)
+    light = torch.ones(n_real, dtype=torch.bool, device=dev)
+    light[x["hidx"][x["hidx"] < n_real]] = False
+    pick = np.random.default_rng(0).choice(light.nonzero()[:, 0].cpu().numpy(), samples, replace=False)
+    rows = torch.from_numpy(pick).to(dev)
+    direct = cf.force_exact(pos_mass[rows].contiguous(), pos_mass, cfg.G, cfg.eps2)[:, :3].double()
+    left_out = torch.zeros((samples, 3), dtype=torch.float64, device=dev)
+    rcut2 = x["rcut"] * x["rcut"]
+    for c0 in range(0, samples, chunk):
+        r = rows[c0 : c0 + chunk]
+        d = pos_mass[None, :, :3] - pos_mass[r, None, :3]  # (chunk, N, 3), toward the source
+        r2 = torch.sum(d * d, dim=-1)
+        kept = cover[tile[r]][:, tile] & (r2 < rcut2)
+        w = p3m.k_short(r2, cfg.eps2, x["sigma"]) * mass_mesh * ~kept
+        left_out[c0 : c0 + chunk] = torch.sum(w[..., None] * d, dim=1, dtype=torch.float64)
+    want = direct - cfg.G * left_out
+    got = make_mesh_accel_fn(cfg, n_real, "kernels")(pos_mass, cfg.G)[rows, :3].double()
+
+    def rel(a, b):
+        return (torch.linalg.norm(a - b, dim=1) / torch.linalg.norm(b, dim=1).clamp(min=1e-300)).cpu().numpy()
+
+    e_alg, e_dir, share = rel(got, want), rel(got, direct), rel(want, direct)
+    ov = p3m.p3m_neighbor_overflow(pos_mass, grid=cfg.pm_grid, n_real=n_real, nbr_k=cfg.p3m_nbr_k)
+    med, p99 = float(np.median(e_alg)), float(np.percentile(e_alg, 99))
+    print(f"[8b p3m accuracy] N={n_real}, {samples} sampled bodies: against force_exact median "
+          f"{np.median(e_dir):.3e}, p99 {np.percentile(e_dir, 99):.3e}, max {e_dir.max():.3e}; the short range "
+          f"left out is a median {np.median(share):.3e} (p99 {np.percentile(share, 99):.3e}) of the force; "
+          f"tile overflow {ov} of {nb}", flush=True)
+    check(med < 2e-3 and p99 < 1e-2,
+          f"[8b p3m accuracy] N={n_real}, {samples} sampled bodies against force_exact less the left-out "
+          f"short range: median {med:.3e} < 2e-3, p99 {p99:.3e} < 1e-2 (max {e_alg.max():.3e})")
+
+
+def _pm_kernels_2m(sim: Simulation) -> None:
+    """8d's CIC kernels at its shape and data (the state after 8d's run)
+    against their twins: the deposit as :func:`_deposit_agrees`, the
+    gather at 1e-5 of the max."""
+    grid = sim.config.pm_grid
+    pos_mass = sim.state.pos_mass
+    lo, h = pm._box(pos_mass[: sim.n_real, :3], grid)
+    c4, fm = mc.mesh_operands(*pm._cic_cells(pos_mass[:, :3], lo, h, grid), pos_mass[:, 3])
+    rho, rho_p = mc.deposit(c4, fm, grid, 2), mc.deposit_plain(c4, fm, grid, 2)
+    _deposit_agrees(f"2M PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, rho, rho_p)
+    grids = pm.force_grids(pm.solve_potential(rho_p, h, sim.config.eps2), h)
+    e_acc = rel_err(mc.gather(grids, c4, fm, grid, 2), mc.gather_plain(grids, c4, fm, grid, 2))
+    check(e_acc < 1e-5, f"2M PM (CIC, N={fm.shape[0]}): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+
+
+def phase_mesh_times(dev) -> dict[str, dict]:
+    """8b's selection and force checks (:func:`_p3m_checks_2m`), then the
+    three kernels at 8b's shape and data (the state after 8b's run) beside
+    their twins, bounds and (deposit) ``index_add_``; where a P3M force
+    evaluation's device time goes, stage by stage; and 8d's CIC kernels
+    against their twins."""
+    print("[8b mesh] kernel times at the P3M path's shape (CUDA events; plain: host clock, one run)", flush=True)
+    sim = MESH_SIMS.pop("p3m")
+    _p3m_checks_2m(sim)
+    n_real, grid, block = sim.n_real, 128, p3m.DEFAULT_BLOCK
+    x = _p3m_inputs(sim.state.pos_mass, n_real, grid, block)
+    del sim
+    ps, c4, fm, n = x["ps"], x["c4"], x["fm"], x["ps"].shape[0]
+    out: dict[str, dict] = {}
+
+    rho = mc.deposit(c4, fm, grid, 3)
+    rho_p = None
+
+    def run_dep_plain():
+        nonlocal rho_p
+        rho_p = mc.deposit_plain(c4, fm, grid, 3)
+
+    dep_plain_ms = host_ms(run_dep_plain)
+    idx, val = _deposit_agrees(f"2M P3M (TSC, N={n})", c4, fm, grid, 3, rho, rho_p)
+    lib_call = lambda: torch.zeros(grid**3, device=dev).index_add_(0, idx, val)  # noqa: E731
+    out["mesh_deposit"] = {
+        "max_abs_err": max_abs(rho, rho_p), "ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 3), reps=20),
+        "plain_ms": dep_plain_ms, "library_ms": cuda_ms(lib_call, reps=20),
+        "shape": f"({n}, 4) x 2 -> {grid}^3, TSC",
+        "note": "library: index_add_ over the 27N pre-expanded (cell, weight) pairs, with the grid's zero fill; "
+                "plain: one run, host clock",
+        **bound("mesh_deposit", n, 32 * n + 4 * grid**3),
+    }
+    del idx, val, rho_p
+
+    grids = p3m.solve_accel_long(rho, x["h"], EPS2, x["sigma"])
+    acc = mc.gather(grids, c4, fm, grid, 3)
+    acc_p = None
+
+    def run_gat_plain():
+        nonlocal acc_p
+        acc_p = mc.gather_plain(grids, c4, fm, grid, 3)
+
+    gat_plain_ms = host_ms(run_gat_plain)
+    e_acc = rel_err(acc, acc_p)
+    check(e_acc < 1e-5, f"2M: mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+    out["mesh_gather"] = {
+        "max_abs_err": max_abs(acc, acc_p), "ms": cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 3), reps=20),
+        "plain_ms": gat_plain_ms, "shape": f"3 x {grid}^3 + ({n}, 4) x 2 -> ({n}, 4), TSC",
+        "note": "plain: one run, host clock",
+        **bound("mesh_gather", n, 48 * n + 12 * grid**3),
+    }
+    del acc_p
+
+    args = (ps, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    sr = p3m.short_range_tiles(*args)
+    sr_p = None
+
+    def run_sr_plain():
+        nonlocal sr_p
+        sr_p = p3m.short_range_tiles(*args, backend="jnp")
+
+    sr_plain_ms = host_ms(run_sr_plain)
+    ok, err = _sr_agree(sr, sr_p)
+    check(ok, f"2M: short_range vs plain rtol 2e-4, atol 3e-6 of max (max-abs/max {err:.3e})")
+    live = int((x["mask"] != 0).sum())
+    pairs = live * block * block
+    nb, k = x["nbr_idx"].shape
+    out["short_range"] = {
+        "max_abs_err": max_abs(sr, sr_p), "ms": cuda_ms(lambda: p3m.short_range_tiles(*args), reps=5),
+        "plain_ms": sr_plain_ms, "shape": f"({n}, 4), {nb} tiles of {block}, k {k}, {live} live slots",
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
+        **bound("short_range", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU * pairs),
+    }
+    del sr_p
+    for name, r in out.items():
+        print(f"  {name:14s} {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" + (f"  library {r['library_ms']:.4f} ms"
+                                                                  if "library_ms" in r else "")
+              + f"  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]", flush=True)
+    stages = _stage_ms(x, n_real, grid, block)
+    total = sum(stages.values())
+    print(f"  P3M force evaluation at 2M by stage (CUDA events, sum {total:.3f} ms):", flush=True)
+    for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:45s} {ms:9.3f} ms  {ms / total:6.1%}", flush=True)
+    _pm_kernels_2m(MESH_SIMS.pop("pm"))
+    return out
+
+
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
 VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # The main paths, each with the kernels it runs; a kernel's "launches" is
@@ -1060,13 +1539,18 @@ PATHS = (
     ("phase 5 (sym path)", phase_sym, SYM),
     ("phase 6a (sym gradient path)", phase_grad_sym, SYM + VJP_SYM),
     ("phase 6b (exact gradient path)", phase_grad_exact, ("force_exact",) + VJP_SYM),
+    ("phase 8b (P3M path)", phase_p3m, MESH_KERNELS),
+    ("phase 8d (PM path)", phase_pm, ("mesh_deposit", "mesh_gather")),
 )
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
 SIDE = (
     ("phase 6c (full-grid VJP route)", phase_grad_full, ("force_exact", "vjp_full")),
-    ("phase 6d (cross-check)", phase_grad_crosscheck, tuple(k for k in KERNELS if k != "splat_resolve")),
+    ("phase 6d (cross-check)", phase_grad_crosscheck,
+     tuple(k for k in KERNELS if k != "splat_resolve" and k not in MESH_KERNELS)),
+    ("phase 8c (P3M accuracy probe and run)", phase_p3m_probe, ("force_exact",) + MESH_KERNELS),
+    ("phase 8e (mesh cross-check)", phase_mesh_crosscheck, MESH_KERNELS),
 )
 FULL_ROUTE = SIDE[0][0]
 
@@ -1105,6 +1589,7 @@ def main() -> int:
     phase_vjp_checks(dev)
     phase_vjp_gate(dev)
     phase_render_checks(dev)
+    phase_mesh_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -1115,6 +1600,7 @@ def main() -> int:
         out.mkdir(parents=True, exist_ok=True)
         render_path = (RENDER_PATH[0], functools.partial(phase_render_path, out=out), RENDER_PATH[1])
         by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path,)}
+    times.update(phase_mesh_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 
@@ -1138,8 +1624,9 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],
-            # Only the resolve has one PyTorch call of the same function
-            # (scatter_reduce_ "amin" over its pre-expanded pairs).
+            # Only the resolve and the deposit have one PyTorch call of the
+            # same function (scatter_reduce_ "amin" and index_add_ over
+            # their pre-expanded pairs).
             "library_ms": times[name].get("library_ms"),
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
         })

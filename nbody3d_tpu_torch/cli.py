@@ -14,6 +14,7 @@ Resuming a checkpoint keeps its saved config except for the flags given.
 
     python -m nbody3d_tpu_torch.cli run --preset two-galaxy --steps 2000 --diagnostics \
         --checkpoint-every 500 --render-every 500 --outdir out
+    python -m nbody3d_tpu_torch.cli run --method p3m --preset two-galaxy --steps 200 --diagnostics
     python -m nbody3d_tpu_torch.cli render out/final.npz -o frame.png
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
 """
@@ -39,6 +40,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--backend", default=None, choices=["auto", "pallas", "jnp"],
                    help="auto/pallas = the CUDA kernels, jnp = the plain oracle")
     p.add_argument("--force-mode", default=None, choices=["exact", "sym"])
+    p.add_argument("--method", default=None, choices=["direct", "pm", "p3m"],
+                   help="force algorithm: direct = all pairs; pm = particle mesh (CIC + FFT); "
+                        "p3m = PM + exact short-range correction (~1e-3 of direct)")
+    p.add_argument("--pm-grid", type=int, default=None, help="PM/P3M mesh cells per axis (default 128)")
+    p.add_argument("--p3m-nbr-k", type=int, default=None,
+                   help="P3M short-range neighbour-tile budget (default 32)")
     p.add_argument("--morton-every", type=int, default=None,
                    help="re-sort bodies along the Z-order curve every N steps (0 = never)")
     p.add_argument("--integrator", default=None, choices=["verlet", "euler", "yoshida4"])
@@ -63,6 +70,9 @@ def _config_overrides(args) -> dict:
         ("seed", args.seed),
         ("backend", args.backend),
         ("force_mode", args.force_mode),
+        ("method", args.method),
+        ("pm_grid", args.pm_grid),
+        ("p3m_nbr_k", args.p3m_nbr_k),
         ("morton_every", args.morton_every),
         ("integrator", args.integrator),
         ("block_target", args.block_target),
@@ -199,6 +209,7 @@ def cmd_bench(args) -> int:
         "gints_per_s": sim.pair_interactions_per_step * steps_per_s / 1e9,
         "backend": config.backend,
         "force_mode": config.force_mode,
+        "method": config.method,
         "device": str(sim.device),
         "device_name": _device_name(sim.device),
     }

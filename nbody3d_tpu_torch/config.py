@@ -2,9 +2,9 @@
 
 ``SimConfig`` keeps the JAX package's field names, defaults and JSON
 (``to_json``/``from_json``), so a config written by either package loads
-in the other.  Fields that select paths the port does not have yet (mesh
-solvers, periodic boundary, cosmology, multi-device strategies, the
-``fast`` mode) are kept for that interchange; choosing them raises
+in the other.  Fields that select paths the port does not have yet
+(periodic boundary, cosmology, multi-device strategies, the ``fast``
+mode) are kept for that interchange; choosing them raises
 ``NotImplementedError`` in :mod:`nbody3d_tpu_torch.ops.step`.
 
 ``dt`` and ``G`` stored here are defaults: the engine passes them to every
@@ -41,11 +41,15 @@ class SimConfig:
     """Static simulation configuration.
 
     The port reads: ``dt``, ``G``, ``eps2``, ``integrator``, ``method``
-    (``"direct"`` only), ``boundary`` (``"isolated"`` only), ``cosmology``
-    (``"none"`` only), ``backend``, ``block_target`` (capped at the GPU
-    tile), ``force_mode`` (``"exact"`` or ``"sym"``), ``morton_every``,
-    ``fuse_integrate`` (``False`` only), ``fuse_epilogue``,
-    ``grad_precision``, ``seed`` and ``size_factor``.
+    (``"direct"``, ``"pm"`` or ``"p3m"``), ``pm_grid``,
+    ``p3m_sigma_cells``, ``p3m_rcut_sigmas``, ``p3m_nbr_k``,
+    ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"`` only),
+    ``cosmology`` (``"none"`` only), ``backend``, ``block_target`` (capped
+    at the GPU tile), ``force_mode`` (``"exact"`` or ``"sym"``, direct
+    only), ``morton_every``, ``fuse_integrate`` (``False`` only, direct),
+    ``fuse_epilogue``, ``grad_precision``, ``seed`` and ``size_factor``.
+    ``box_size``, ``mesh_interlace`` and ``p3m_halo_tiles`` belong to the
+    periodic boundary and the sharded P3M step, which are not ported.
     """
 
     # Physics.
@@ -55,7 +59,7 @@ class SimConfig:
     # "verlet" | "euler" | "yoshida4" (ops/integrate.py).
     integrator: str = "verlet"
 
-    # Force algorithm: "direct" (all pairs) | "pm" | "p3m" (not ported).
+    # Force algorithm: "direct" (all pairs) | "pm" | "p3m" (mesh solvers).
     method: str = "direct"
     pm_grid: int = 128
     boundary: str = "isolated"

@@ -1,6 +1,6 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The nine kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The twelve kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
 ==================  ===================  ===================================
@@ -15,6 +15,9 @@ kernel              wrapper module       computes
 ``vjp_sym_hops``    ``force_vjp``        sym VJP 2: off-diagonal tile pairs
 ``vjp_combine``     ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
 ``splat_resolve``   ``render.resolve``   the renderer's depth-min resolve
+``short_range``     ``p3m``              P3M's block-sparse short-range pass
+``mesh_deposit``    ``mesh_cuda``        TSC/CIC mass deposit onto the mesh
+``mesh_gather``     ``mesh_cuda``        TSC/CIC interpolation of the forces
 ==================  ===================  ===================================
 
 A wrapper checks its tensors (dtype, shape, contiguous, one device, no
@@ -32,7 +35,7 @@ import torch
 KERNELS = (
     "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
-    "splat_resolve",
+    "splat_resolve", "short_range", "mesh_deposit", "mesh_gather",
 )
 MAX_TILE = 1024  # threads per CUDA block
 
@@ -49,13 +52,15 @@ def reset_launch_counts() -> None:
         _LAUNCHES[k] = 0
 
 
-def check_rows(name: str, *tensors: torch.Tensor, width: int = 4) -> torch.device:
-    """Every tensor float32, ``(N, width)``, contiguous, on one CPU or CUDA
-    device, and not requiring grad.  Returns the device."""
+def check_rows(
+    name: str, *tensors: torch.Tensor, width: int = 4, dtype: torch.dtype = torch.float32
+) -> torch.device:
+    """Every tensor of ``dtype``, ``(N, width)``, contiguous, on one CPU or
+    CUDA device, and not requiring grad.  Returns the device."""
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: expected an (N, {width}) tensor, got {tuple(t.shape)}")
         if not t.is_contiguous():

@@ -1,0 +1,125 @@
+"""Particle-mesh (PM) gravity, isolated boundary: ``nbody3d_tpu/ops/pm.py``.
+
+Pipeline of one force evaluation:
+
+1. a cubic box from the real bodies' bounds, every step (``h`` and ``lo``
+   are device tensors: nothing is rebuilt as the system expands);
+2. cloud-in-cell (CIC) mass deposit onto an ``(M, M, M)`` grid
+   (``mesh_cuda.deposit`` at order 2; the twin :func:`cic_deposit` sums
+   with ``index_add_``);
+3. the isolated Poisson solve by zero-padded FFT convolution with the
+   Plummer-softened potential ``-1/sqrt(r² + eps2)`` on the ``(2M)³`` grid;
+4. central-difference force grids;
+5. CIC interpolation at the bodies (``mesh_cuda.gather``), times ``G``.
+
+The JAX package deposits without a scatter (a sort and a segmented scan,
+``deposit_cols``/``_segment_sum_*``), because a scatter is serial on the
+TPU; the card has atomics, so the port needs neither.  The periodic
+boundary (``ops/ewald.py``) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbody3d_tpu_torch.ops import mesh_cuda
+
+# Bodies stay this many cells clear of the grid faces, so that no stencil
+# and no central difference reaches a face.
+_EDGE_CELLS = 3
+
+DEFAULT_PM_GRID = 128
+
+
+def box_from_bounds(lo_w: torch.Tensor, hi_w: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cubic grid placement ``(lo (3,), h ())`` from world bounds, with every
+    body at least ``_EDGE_CELLS`` cells from each face."""
+    center = 0.5 * (lo_w + hi_w)
+    half = torch.clamp(torch.max(hi_w - lo_w) * 0.5, min=1e-6)
+    h = (2.0 * half) / float(grid - 2 * _EDGE_CELLS - 1)
+    lo = center - h * float(grid) * 0.5
+    return lo, h
+
+
+def _box(pos_real: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The box of one device's real bodies (device tensors, no host sync)."""
+    return box_from_bounds(torch.amin(pos_real, dim=0), torch.amax(pos_real, dim=0), grid)
+
+
+def _cic_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int):
+    """CIC base cell ``i0 (N, 3) int32`` in [0, grid-2] and fraction ``f``
+    in [0, 1], with cell values at the centres ``lo + (i + 0.5) h``."""
+    s = (pos - lo) / h - 0.5
+    i0 = torch.clamp(torch.floor(s).to(torch.int32), 0, grid - 2)
+    f = torch.clamp(s - i0.to(s.dtype), 0.0, 1.0)
+    return i0, f
+
+
+def cic_deposit(pos: torch.Tensor, mass: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int) -> torch.Tensor:
+    """CIC mass deposit → ``(grid, grid, grid)``, mass per cell (the twin
+    of ``mesh_deposit`` at order 2)."""
+    i0, f = _cic_cells(pos, lo, h, grid)
+    return mesh_cuda.deposit_plain(*mesh_cuda.mesh_operands(i0, f, mass), grid, 2)
+
+
+def _offset_axis(m2: int, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(idx, d)``: the padded grid's index and its signed separation
+    ``d = idx·h`` (``idx <= m``) or ``(idx - 2m)·h``."""
+    idx = torch.arange(m2, device=h.device)
+    m = m2 // 2
+    d = torch.where(idx <= m, idx, idx - m2).to(torch.float32) * h
+    return idx, d
+
+
+def _pad(rho: torch.Tensor) -> torch.Tensor:
+    m = rho.shape[0]
+    return torch.nn.functional.pad(rho, (0, m, 0, m, 0, m))
+
+
+def solve_potential(rho: torch.Tensor, h: torch.Tensor, eps2: float) -> torch.Tensor:
+    """Isolated potential per unit G, ``Φ/G = Σ_j m_j · (-1/sqrt(r² + eps2))``,
+    by zero-padded FFT convolution → ``(M, M, M)``."""
+    m = rho.shape[0]
+    m2 = 2 * m
+    _, d = _offset_axis(m2, h)
+    r2 = d[:, None, None] ** 2 + d[None, :, None] ** 2 + d[None, None, :] ** 2 + eps2
+    kern = -torch.rsqrt(r2)
+    phi = torch.fft.irfftn(torch.fft.rfftn(_pad(rho)) * torch.fft.rfftn(kern), s=(m2, m2, m2))
+    return phi[:m, :m, :m]
+
+
+def force_grids(phi: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Central-difference ``a = -∇Φ`` → ``(3, M³)``.  The face cells wrap
+    but are never read (the box keeps bodies ``_EDGE_CELLS`` inside)."""
+    inv2h = 0.5 / h
+    comps = [(torch.roll(phi, 1, axis) - torch.roll(phi, -1, axis)) * inv2h for axis in (0, 1, 2)]
+    return torch.stack([c.reshape(-1) for c in comps], dim=0)
+
+
+def cic_gather(grids: torch.Tensor, i0: torch.Tensor, f: torch.Tensor, grid: int) -> torch.Tensor:
+    """Trilinear interpolation of ``(3, M³)`` grids → ``(N, 3)`` (the twin
+    of ``mesh_gather`` at order 2)."""
+    return mesh_cuda.gather_plain(grids, *mesh_cuda.mesh_operands(i0, f), grid, 2)[:, :3]
+
+
+def accel_pm(
+    pos_mass: torch.Tensor,
+    G: float | torch.Tensor,
+    *,
+    grid: int = DEFAULT_PM_GRID,
+    eps2: float = 1e-4,
+    n_real: int | None = None,
+    mesh_backend: str = "auto",
+) -> torch.Tensor:
+    """PM accelerations ``(N, 4)`` (w lane 0) with an isolated boundary.
+    ``mesh_backend="jnp"`` runs the plain twins; otherwise the deposit and
+    gather go through the ``mesh_cuda`` wrappers (the kernels on a card)."""
+    n = pos_mass.shape[0]
+    n_real = n if n_real is None else n_real
+    lo, h = _box(pos_mass[:n_real, :3], grid)
+    i0, f = _cic_cells(pos_mass[:, :3], lo, h, grid)
+    c4, fm = mesh_cuda.mesh_operands(i0, f, pos_mass[:, 3])
+    plain = mesh_backend == "jnp"
+    dep, gat = (mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain else (mesh_cuda.deposit, mesh_cuda.gather)
+    phi = solve_potential(dep(c4, fm, grid, 2), h, eps2)
+    return gat(force_grids(phi, h), c4, fm, grid, 2) * G

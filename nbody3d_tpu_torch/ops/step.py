@@ -9,6 +9,14 @@ nothing.
 
 Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
 
+- ``method="pm"`` and ``"p3m"`` (isolated, no cosmology, forward only):
+  the mesh solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.
+  On the kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
+  ``short_range``; on ``"jnp"`` their plain twins.  A mesh step raises
+  when anything needs a gradient (the short-range VJP is not ported).
+
+For ``method="direct"``:
+
 - ``"jnp"``: the plain oracle (``ops/force_torch.py``) and the
   integrator, on any device.  The only way plain code runs on the card.
 - ``"auto"`` (any device) and ``"pallas"`` (CUDA only): the kernel path.
@@ -49,6 +57,8 @@ from nbody3d_tpu_torch.ops.cuda_force import force_exact, sym_step_
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
 from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel, requires_grad
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
+from nbody3d_tpu_torch.ops.p3m import accel_p3m
+from nbody3d_tpu_torch.ops.pm import accel_pm
 from nbody3d_tpu_torch.state import SimState
 
 Scalar = float | torch.Tensor
@@ -62,7 +72,9 @@ GPU_TILE = 256
 PAD_GRANULE = GPU_TILE
 
 # Configurations of the JAX package that the port does not run yet.
-_TODO_MESH = "ROADMAP.md queue 1 item 9 (mesh solvers)"
+_TODO_PERIODIC = "ROADMAP.md queue 1 item 9 (periodic boundary: ops/ewald.py, the kernels' periodic forms)"
+_TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
+_TODO_MESH_GRAD = "ROADMAP.md queue 2 item 10 (_short_range_bwd_kernel: P3M and PM gradients)"
 _TODO_FAST = "ROADMAP.md queue 2 item 8 (fast-mode kernels)"
 _TODO_FUSED = "ROADMAP.md queue 2 item 8 (_fused_kernel_exact/_fused_kernel_fast)"
 _TODO_UNFUSED_SYM = "ROADMAP.md queue 2 item 7 (unfused sym: _combine16_kernel)"
@@ -113,12 +125,12 @@ def pad_multiple(config: SimConfig, device: torch.device | str) -> int:
 
 
 def _check_supported(config: SimConfig) -> None:
-    if config.method != "direct":
-        raise NotImplementedError(f"method={config.method!r}: {_TODO_MESH}")
+    if config.method not in ("direct", "pm", "p3m"):
+        raise ValueError(f"unknown method {config.method!r}")
     if config.boundary != "isolated":
-        raise NotImplementedError(f"boundary={config.boundary!r}: {_TODO_MESH}")
+        raise NotImplementedError(f"boundary={config.boundary!r}: {_TODO_PERIODIC}")
     if config.cosmology != "none":
-        raise NotImplementedError(f"cosmology={config.cosmology!r}: {_TODO_MESH}")
+        raise NotImplementedError(f"cosmology={config.cosmology!r}: {_TODO_COSMO}")
     if config.grad_precision not in ("precise", "fast"):
         # Both values run the same f32 VJP kernels (config.py).
         raise ValueError(f"unknown grad_precision {config.grad_precision!r}")
@@ -166,6 +178,34 @@ class _SymStep(torch.autograd.Function):
         return (g_pm + pm_bar if need_pm else None), g_v, g_aold, gdt, (g_bar if need_G else None), None
 
 
+def make_mesh_accel_fn(config: SimConfig, n_real: int, route: str) -> Callable:
+    """``accel(pos_mass, G) -> (N, 4)`` of ``config.method`` in {"pm",
+    "p3m"}: the kernel wrappers on the ``"kernels"`` route, the plain twins
+    on ``"plain"``.  Unlike the JAX package, PM follows the route too: on
+    the card its CIC deposit and gather are the two mesh kernels at order
+    2, and no plain code runs there."""
+    backend = "jnp" if route == "plain" else "auto"
+    if config.method == "pm":
+
+        def accel(pos_mass, G):
+            return accel_pm(pos_mass, G, grid=config.pm_grid, eps2=config.eps2, n_real=n_real,
+                            mesh_backend=backend)
+
+        return accel
+    if config.method == "p3m":
+
+        def accel(pos_mass, G):
+            return accel_p3m(
+                pos_mass, G, grid=config.pm_grid, eps2=config.eps2, n_real=n_real,
+                sigma_cells=config.p3m_sigma_cells, rcut_sigmas=config.p3m_rcut_sigmas,
+                block=config.p3m_block, nbr_k=config.p3m_nbr_k, heavy_k=config.p3m_heavy_k,
+                backend=backend,
+            )
+
+        return accel
+    raise ValueError(f"make_mesh_accel_fn needs method='pm'|'p3m', got {config.method!r}")
+
+
 def make_step_fn(
     config: SimConfig, n_pad: int, n_real: int, device: torch.device | str
 ) -> StepFn:
@@ -173,6 +213,20 @@ def make_step_fn(
     _check_supported(config)
     route = resolve_backend(config, device)
     eps2 = config.eps2
+
+    if config.method != "direct":
+        accel_fn = make_mesh_accel_fn(config, n_real, route)
+
+        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
+            if torch.is_grad_enabled() and any(
+                map(requires_grad, (state.pos_mass, state.vel, state.accel, dt, G))
+            ):
+                raise NotImplementedError(f"gradients through method={config.method!r}: {_TODO_MESH_GRAD}")
+            return integrate_state(
+                config.integrator, lambda pm: accel_fn(pm, G), state, dt, n_real=n_real,
+            )
+
+        return step
 
     if route == "plain":
         chunk = fit_block(n_pad, 256) if n_pad > 4096 else None

@@ -106,8 +106,8 @@ def test_pallas_backend_on_cpu_raises():
     "kw",
     [
         {"force_mode": "fast"},
-        {"method": "pm"},
-        {"method": "p3m"},
+        {"method": "pm", "cosmology": "eds"},
+        {"method": "p3m", "boundary": "periodic", "box_size": 10.0},
         {"boundary": "periodic", "box_size": 10.0},
         {"cosmology": "eds"},
         {"fuse_integrate": True},
@@ -192,6 +192,7 @@ def test_port_imports_without_jax():
         "import nbody3d_tpu_torch.utils.camera, nbody3d_tpu_torch.utils.mathlib\n"
         "import nbody3d_tpu_torch.render.rasterize, nbody3d_tpu_torch.render.resolve\n"
         "import nbody3d_tpu_torch.render.image, nbody3d_tpu_torch.render.colormap\n"
+        "import nbody3d_tpu_torch.ops.pm, nbody3d_tpu_torch.ops.p3m, nbody3d_tpu_torch.ops.mesh_cuda\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'nbody3d_tpu' or m.startswith('nbody3d_tpu.')]\n"
         "assert not bad, bad\n"
