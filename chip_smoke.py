@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the twelve kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the thirteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -68,26 +68,43 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    with the energy (<= 1e-3) and momentum (<= 1e-5) checks; (d) PM at
    two-galaxy N = 2,097,152, grid 128, 30 warm steps (momentum as 8b) and
    5 timed chunks of 50, then its CIC deposit and gather against their
-   twins at that shape and data, as 8b's; (e) at N = 8,192 the kernel route
+   twins at that shape and data, as 8b's, and the gather beside
+   ``grid_sample`` (its library call); (e) at N = 8,192 the kernel route
    of ``pm`` and ``p3m`` against ``backend="jnp"`` (accelerations and a
    5-step rollout, rtol 1e-4, atol 1e-5 of the scale).
+9. the mesh gradients (``torch.autograd`` through ``method="p3m"`` and
+   ``"pm"``): (a, after 8a) ``short_range_bwd`` against its plain twin on
+   8a's scenes (N = 8,192 and 7,936, tiles 128 and 256) with a massless
+   source tile and slots masked in mutual pairs: x̄ and m̄ rtol 1e-4, atol
+   1e-5 of the scale, σ̄ rel 1e-3 (the JAX tests' gradient bounds); (b)
+   the P3M gradient at benchmarks/grad_bench.py's configuration:
+   uniform-sphere n = 2,097,152, grid 128, k = 32, tile 256 (8,192 tiles,
+   the flat selection), a 5-step rollout, loss sum |x|^2 / n, gradient by
+   v0, forward and gradient ms/step, their ratio and the peak memory, with
+   every plain twin of the mesh path patched to raise; after the windows
+   ``short_range_bwd`` at that shape beside its twin; (c) the same for PM
+   (grid 128, CIC); (d) at N = 8,192 (8e's scene) the kernel route's 5-step
+   rollout gradient against ``backend="jnp"``'s for both methods, by v0,
+   dt and G, rtol 2e-3.
 
-Phases 4, 5, 6a, 6b, 7b, 8b and 8d (the main paths) and 6c, 6d, 8c and 8e
-each run with the launch counts set to 0 just before and read just after;
-each must launch every kernel it runs and no other, and the SM clock,
-power draw and temperature are printed after each.  One profiled rollout
-of 6a and 6b each, one profiled frame of 7b and one profiled step of 8b
-and 8d (device busy time, idle share, largest kernels) follow their
-windows.  The line before the last is ``{"kernels": [...]}`` (launches
-summed over the main paths, ``vjp_full``'s from 6c; ``bound_ms`` from this
-run's shapes and the operation counts in each kernel's source note); the
-last is the ``{"ok": true, "device": ...}`` line.  Without a CUDA card it
-exits 1 and prints no result.
+Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b and 9c (the main paths) and 6c, 6d,
+8c, 8e and 9d each run with the launch counts set to 0 just before and
+read just after; each must launch every kernel it runs and no other, and
+the SM clock, power draw and temperature are printed after each.  One
+profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
+step of 8b and 8d and one profiled gradient rollout of 9b and 9c (device
+busy time, idle share, largest kernels; for 9b and 9c the share of each
+stage) follow their windows.  The line before the last is ``{"kernels":
+[...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c;
+``bound_ms`` from this run's shapes and the operation counts in each
+kernel's source note); the last is the ``{"ok": true, "device": ...}``
+line.  Without a CUDA card it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import pathlib
@@ -132,6 +149,7 @@ REPLACES = {
     "vjp_combine": (SRC + "vjp_combine.cu", VJP + "490"),
     "splat_resolve": (SRC + "splat_resolve.cu", "nbody3d_tpu/render/pallas_resolve.py:105"),
     "short_range": (SRC + "short_range.cu", "nbody3d_tpu/ops/p3m.py:709"),
+    "short_range_bwd": (SRC + "short_range_bwd.cu", "nbody3d_tpu/ops/p3m.py:885"),
     "mesh_deposit": (SRC + "mesh_deposit.cu", "nbody3d_tpu/ops/mesh_pallas.py:215"),
     "mesh_gather": (SRC + "mesh_gather.cu", "nbody3d_tpu/ops/mesh_pallas.py:285"),
 }
@@ -150,10 +168,11 @@ HBM_BYTES = 3.35e12
 FLOP = {
     "force_exact": 18, "sym_diag_prep": 18, "sym_hops": 25, "sym_epilogue": 33,
     "vjp_full": 53, "vjp_sym_diag": 53, "vjp_sym_hops": 61, "vjp_combine": 8,
-    # short_range a pair; mesh_deposit and mesh_gather a particle (TSC).
-    "short_range": 47, "mesh_deposit": 82, "mesh_gather": 216,
+    # short_range and short_range_bwd a pair; mesh_deposit and mesh_gather a particle (TSC).
+    "short_range": 47, "short_range_bwd": 100, "mesh_deposit": 82, "mesh_gather": 216,
 }
-# MUFU results a short_range pair: two rsqrt, the ex2 of expf, the rcp of 1/(1 + p u).
+# MUFU results a short_range (and short_range_bwd) pair: two rsqrt, the ex2 of
+# expf, the rcp of 1/(1 + p u).
 SR_MUFU = 4
 
 FAILURES: list[str] = []
@@ -701,12 +720,28 @@ def _profiled(fn):
     return wall_us, events, seen == launched
 
 
-def profile_window(label: str, fn, tries: int = 3) -> None:
+# Stages of a mesh step by kernel name (lower case; the first key found wins).
+STAGES = (
+    ("short_range_bwd", "short_range_bwd"), ("short_range", "short_range"),
+    ("mesh_deposit", "mesh_deposit"), ("mesh_gather", "mesh_gather"), ("fft", "FFT (cuFFT)"),
+    ("sort", "sorts (Morton order, selection top-k)"), ("index", "indexing (gathers, index_put)"),
+    ("scatter", "indexing (gathers, index_put)"), ("gather", "indexing (gathers, index_put)"),
+    ("reduce", "reductions"),
+)
+
+
+def _stage(label: str) -> str:
+    low = label.lower()
+    return next((stage for key, stage in STAGES if key in low), "elementwise and other torch ops")
+
+
+def profile_window(label: str, fn, tries: int = 3, stages: bool = False) -> None:
     """Host wall time, device busy time (the union of the intervals of the
     device's kernels and copies), the idle share 1 - busy / wall and the
-    three largest kernels of one call of ``fn()``.  A trace that misses a
-    launch of the port's kernels (the profiler has dropped device events
-    on the card) is taken again, up to ``tries`` times."""
+    three largest kernels of one call of ``fn()``; with ``stages``, each
+    stage's share of the summed kernel time (:data:`STAGES`).  A trace that
+    misses a launch of the port's kernels (the profiler has dropped device
+    events on the card) is taken again, up to ``tries`` times."""
     for attempt in range(1, tries + 1):
         wall_us, events, complete = _profiled(fn)
         if complete and events:
@@ -730,6 +765,14 @@ def profile_window(label: str, fn, tries: int = 3) -> None:
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / wall_us:.4f} (trace {attempt} of {tries}); top: "
           + ", ".join(f"{n} {t / 1e3:.3f} ms" for n, t in top), flush=True)
+    if stages:
+        by_stage: dict[str, float] = {}
+        for name, t in per_kernel.items():
+            by_stage[_stage(name)] = by_stage.get(_stage(name), 0.0) + t
+        total = sum(by_stage.values())
+        print(f"  profile {label}, stages (share of {total / 1e3:.3f} ms summed kernel time): "
+              + ", ".join(f"{n} {t / 1e3:.3f} ms {t / total:.1%}"
+                          for n, t in sorted(by_stage.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def _grad_agrees(g: torch.Tensor, ref: torch.Tensor, what: str) -> None:
@@ -1425,10 +1468,23 @@ def _p3m_checks_2m(sim: Simulation, samples: int = 4096, chunk: int = 32) -> Non
           f"short range: median {med:.3e} < 2e-3, p99 {p99:.3e} < 1e-2 (max {e_alg.max():.3e})")
 
 
-def _pm_kernels_2m(sim: Simulation) -> None:
+def _grid_sample_call(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int):
+    """The CIC gather as one ``torch.nn.functional.grid_sample`` call
+    (trilinear, ``align_corners=True``) on the ``(1, 3, G, G, G)`` grids: a
+    particle's fractional cell index ``c + f`` in [0, G-1] maps onto
+    [-1, 1], in (z, y, x) order since the last grid axis is z.  The
+    coordinates are made outside the call."""
+    vol = grids.view(1, 3, grid, grid, grid)
+    coords = ((c4[:, :3].float() + fm[:, :3]).flip(1) * (2.0 / (grid - 1)) - 1.0).view(1, 1, 1, -1, 3)
+    return lambda: torch.nn.functional.grid_sample(vol, coords, mode="bilinear", padding_mode="zeros",
+                                                   align_corners=True)
+
+
+def _pm_kernels_2m(sim: Simulation) -> dict:
     """8d's CIC kernels at its shape and data (the state after 8d's run)
     against their twins: the deposit as :func:`_deposit_agrees`, the
-    gather at 1e-5 of the max."""
+    gather at 1e-5 of the max; then the gather beside ``grid_sample``, the
+    library call of the same function (mesh_gather's ``library_ms``)."""
     grid = sim.config.pm_grid
     pos_mass = sim.state.pos_mass
     lo, h = pm._box(pos_mass[: sim.n_real, :3], grid)
@@ -1436,8 +1492,18 @@ def _pm_kernels_2m(sim: Simulation) -> None:
     rho, rho_p = mc.deposit(c4, fm, grid, 2), mc.deposit_plain(c4, fm, grid, 2)
     _deposit_agrees(f"2M PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, rho, rho_p)
     grids = pm.force_grids(pm.solve_potential(rho_p, h, sim.config.eps2), h)
-    e_acc = rel_err(mc.gather(grids, c4, fm, grid, 2), mc.gather_plain(grids, c4, fm, grid, 2))
+    acc = mc.gather(grids, c4, fm, grid, 2)
+    e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2))
     check(e_acc < 1e-5, f"2M PM (CIC, N={fm.shape[0]}): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+    lib_call = _grid_sample_call(grids, c4, fm, grid)
+    e_lib = rel_err(lib_call()[0, :, 0, 0, :].T, acc[:, :3])
+    check(e_lib < 1e-4, f"2M PM (CIC): grid_sample vs mesh_gather max-abs/max {e_lib:.3e} < 1e-4 (the same function)")
+    kernel_ms, lib_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2), reps=20), cuda_ms(lib_call, reps=20)
+    print(f"  mesh_gather CIC at 8d's shape ({fm.shape[0]} particles, {grid}^3): kernel {kernel_ms:.4f} ms, "
+          f"grid_sample {lib_ms:.4f} ms", flush=True)
+    return {"library_ms": lib_ms,
+            "library_note": f"torch.nn.functional.grid_sample (trilinear, align_corners=True) at 8d's CIC shape, "
+                            f"{fm.shape[0]} particles, {grid}^3; mesh_gather there {kernel_ms:.4f} ms"}
 
 
 def phase_mesh_times(dev) -> dict[str, dict]:
@@ -1525,8 +1591,178 @@ def phase_mesh_times(dev) -> dict[str, dict]:
     print(f"  P3M force evaluation at 2M by stage (CUDA events, sum {total:.3f} ms):", flush=True)
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"    {name:45s} {ms:9.3f} ms  {ms / total:6.1%}", flush=True)
-    _pm_kernels_2m(MESH_SIMS.pop("pm"))
+    out["mesh_gather"].update(_pm_kernels_2m(MESH_SIMS.pop("pm")))
     return out
+
+
+# ---------------------------------------------------- the mesh gradients
+MESH_GRAD = MESH_KERNELS + ("short_range_bwd",)
+# The plain twins of the mesh path, patched to raise inside 9b's and 9c's windows.
+MESH_TWINS = ((p3m, "_short_range_tiles"), (p3m, "_short_range_tiles_bwd"), (mc, "deposit_plain"),
+              (mc, "gather_plain"))
+GRAD_2M: dict[str, torch.Tensor] = {}  # 9b's bodies, for the kernel's check after its window
+
+
+@contextlib.contextmanager
+def no_twins():
+    """Every plain twin of the mesh path raises while the block runs: a run
+    that completes ran no fallback."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in MESH_TWINS]
+
+    def refuse(name):
+        def run(*args, **kwargs):
+            raise RuntimeError(f"{name}: a plain twin ran on the kernel path")
+        return run
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _mutual_kills(mask: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``mask`` with every tile pair (t, j), t != j, (t + j) % 5 == 0 killed
+    on both sides: masked slots that keep the pair set mutual."""
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return mask.masked_fill(((rows + idx) % 5 == 0) & (idx != rows), 0.0)
+
+
+def _random_cotangent(n: int, dev, seed: int) -> torch.Tensor:
+    g = np.random.default_rng(seed).standard_normal((n, 4)).astype(np.float32)
+    g[:, 3] = 0.0
+    return torch.from_numpy(g).to(dev)
+
+
+def _bwd_agrees(tag: str, got, want) -> None:
+    """The JAX tests' gradient bounds (tests/test_p3m.py:397, 455): x̄ and m̄
+    each rtol 1e-4 with atol 1e-5 of its scale, σ̄ rel 1e-3."""
+    (dps, dsig), (dps_p, dsig_p) = got, want
+    excess = []
+    for lanes in (slice(0, 3), slice(3, 4)):
+        a, b = dps[:, lanes], dps_p[:, lanes]
+        excess.append(float(((a - b).abs() - 1e-4 * b.abs()).max()) / float(b.abs().max()))
+    e_sig = abs(float(dsig) - float(dsig_p)) / abs(float(dsig_p))
+    check(max(excess) <= 1e-5 and e_sig <= 1e-3 and bool(torch.isfinite(dps).all()),
+          f"{tag}: short_range_bwd vs plain, worst (|diff| - 1e-4 |ref|) / scale x̄ {excess[0]:.3e}, "
+          f"m̄ {excess[1]:.3e} <= 1e-5; σ̄ rel err {e_sig:.3e} <= 1e-3")
+
+
+def phase_mesh_grad_checks(dev) -> None:
+    """9a: ``short_range_bwd`` against its plain twin on 8a's scenes, with
+    tile 3 massless (its rows still get a mass cotangent) and slots masked
+    in mutual pairs, for a random cotangent."""
+    print("[9a mesh grad] short_range_bwd vs plain twin, small shapes", flush=True)
+    for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
+        pos_mass, _, n_real = _clustered(4096, n_pad, dev)
+        x = _p3m_inputs(pos_mass, n_real, 32, block)
+        ps = x["ps"].clone()
+        ps[3 * block : 4 * block, 3] = 0.0
+        mask = _mutual_kills(x["mask"], x["nbr_idx"])
+        args = (ps, _random_cotangent(n_pad, dev, 9), x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, mask)
+        got, want = p3m.short_range_tiles_bwd(*args), p3m.short_range_tiles_bwd(*args, backend="jnp")
+        torch.cuda.synchronize()
+        tag = f"N={n_pad} block={block} ({int((mask == 0).sum())} slots off, tile 3 massless)"
+        _bwd_agrees(tag, got, want)
+        check(float(got[0][3 * block : 4 * block, 3].abs().max()) > 0,
+              f"{tag}: the massless tile's rows get a mass cotangent")
+
+
+def _grad_path(dev, method: str, tag: str):
+    """grad_bench's rollout through ``method`` at full width, with every
+    plain twin of the mesh path raising: forward and gradient ms/step, the
+    peak memory; the gradient rollout for the profile."""
+    n, k = PM_N, 5
+    torch.cuda.reset_peak_memory_stats()
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
+    st = init_state(pm_np, vel_np, n_pad=n, device=dev)
+    step = make_step_fn(SimConfig(method=method, pm_grid=128, p3m_nbr_k=32), n, n, dev)
+    with no_twins():
+        t_f, t_g, g, prof = _rollout_times(step, st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n)
+    print(f"{tag} uniform-sphere N={n} grid 128 k={k}: forward {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, "
+          f"ratio {t_g / t_f:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, f"{tag}: gradient finite and nonzero")
+    GRAD_2M[method] = st.pos_mass
+    gradient = prof[1][1]
+
+    def profiled():
+        with no_twins():
+            gradient()
+
+    return [(f"{method} gradient, {k} steps", profiled, {"stages": True})]
+
+
+def phase_grad_p3m(dev):
+    """9b: the P3M gradient path at grad_bench's configuration (k = 32, tile
+    256: 8,192 tiles, the flat selection)."""
+    return _grad_path(dev, "p3m", "[9b grad p3m]")
+
+
+def phase_grad_pm(dev):
+    """9c: the PM gradient path (CIC, grid 128)."""
+    return _grad_path(dev, "pm", "[9c grad pm]")
+
+
+def phase_mesh_grad_times(dev) -> dict[str, dict]:
+    """``short_range_bwd`` at 9b's shape and data (the rollout's first
+    bodies, selected as ``accel_p3m`` selects them) beside its twin, for a
+    random cotangent."""
+    print("[9b mesh grad] short_range_bwd at the P3M gradient path's shape (CUDA events; plain: host clock, "
+          "one run)", flush=True)
+    pos_mass = GRAD_2M.pop("p3m")
+    GRAD_2M.clear()
+    n, block = pos_mass.shape[0], p3m.DEFAULT_BLOCK
+    x = _p3m_inputs(pos_mass, n, 128, block)
+    args = (x["ps"], _random_cotangent(n, dev, 10), x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    got = p3m.short_range_tiles_bwd(*args)
+    want = None
+
+    def run_plain():
+        nonlocal want
+        want = p3m.short_range_tiles_bwd(*args, backend="jnp")
+
+    plain_ms = host_ms(run_plain)
+    _bwd_agrees(f"2M uniform-sphere (N={n})", got, want)
+    live = int((x["mask"] != 0).sum())
+    pairs = live * block * block
+    nb, k = x["nbr_idx"].shape
+    r = {
+        "max_abs_err": max_abs(got[0], want[0]), "ms": cuda_ms(lambda: p3m.short_range_tiles_bwd(*args), reps=3),
+        "plain_ms": plain_ms, "shape": f"({n}, 4) x 2, {nb} tiles of {block}, k {k}, {live} live slots",
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
+        **bound("short_range_bwd", pairs, 52 * n + 8 * nb * k, rsqrts=SR_MUFU * pairs),
+    }
+    print(f"  short_range_bwd {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
+          flush=True)
+    return {"short_range_bwd": r}
+
+
+def phase_mesh_grad_crosscheck(dev) -> None:
+    """9d: at N = 8,192 (8e's scene) the kernel route's 5-step rollout
+    gradient against the ``backend="jnp"`` route's (the twins, autograd
+    through the mesh twins), for both methods, by v0 and by dt and G (0-d
+    tensors): rtol 2e-3, 6d's bound."""
+    pos_mass, vel, n_real = _clustered(4096, 8192, dev)
+    for method in ("p3m", "pm"):
+        grads = {}
+        for route, cfg in (("kernels", SimConfig(method=method)), ("jnp", SimConfig(method=method, backend="jnp"))):
+            step = make_step_fn(cfg, 8192, n_real, dev)
+            v = vel.clone().requires_grad_()
+            dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (DT_MAIN, G))
+            s = SimState(pos_mass.clone(), v, torch.zeros_like(pos_mass), 0)
+            for _ in range(5):
+                s = step(s, dt, g)
+            loss = (s.pos_mass[:n_real, :3] ** 2).sum() / n_real + (s.vel[:n_real, :3] ** 2).sum()
+            grads[route] = torch.autograd.grad(loss, (v, dt, g))
+        (gv, gdt, gg), (rv, rdt, rg) = grads["kernels"], grads["jnp"]
+        _grad_agrees(gv, rv, f"[9d mesh grad check] N=8192 {method} kernel route vs jnp route, by v0")
+        e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, rdt), (gg, rg)))
+        check(e_dt <= 2e-3 and e_g <= 2e-3,
+              f"[9d mesh grad check] N=8192 {method}: d/d dt {float(gdt):.6e} (rel err {e_dt:.3e}), "
+              f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
 
 
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
@@ -1541,6 +1777,8 @@ PATHS = (
     ("phase 6b (exact gradient path)", phase_grad_exact, ("force_exact",) + VJP_SYM),
     ("phase 8b (P3M path)", phase_p3m, MESH_KERNELS),
     ("phase 8d (PM path)", phase_pm, ("mesh_deposit", "mesh_gather")),
+    ("phase 9b (P3M gradient path)", phase_grad_p3m, MESH_GRAD),
+    ("phase 9c (PM gradient path)", phase_grad_pm, ("mesh_deposit", "mesh_gather")),
 )
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
@@ -1548,9 +1786,10 @@ RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_reso
 SIDE = (
     ("phase 6c (full-grid VJP route)", phase_grad_full, ("force_exact", "vjp_full")),
     ("phase 6d (cross-check)", phase_grad_crosscheck,
-     tuple(k for k in KERNELS if k != "splat_resolve" and k not in MESH_KERNELS)),
+     tuple(k for k in KERNELS if k != "splat_resolve" and k not in MESH_GRAD)),
     ("phase 8c (P3M accuracy probe and run)", phase_p3m_probe, ("force_exact",) + MESH_KERNELS),
     ("phase 8e (mesh cross-check)", phase_mesh_crosscheck, MESH_KERNELS),
+    ("phase 9d (mesh gradient cross-check)", phase_mesh_grad_crosscheck, MESH_GRAD),
 )
 FULL_ROUTE = SIDE[0][0]
 
@@ -1569,8 +1808,8 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
             check(got[name] > 0, f"{path} launched {name} {got[name]} times")
         elif got[name]:
             check(False, f"{path} launched {name}, which is not of this path, {got[name]} times")
-    for label, fn in profiles:
-        profile_window(label, fn)
+    for label, fn, *opts in profiles:
+        profile_window(label, fn, **(opts[0] if opts else {}))
     return got
 
 
@@ -1590,6 +1829,7 @@ def main() -> int:
     phase_vjp_gate(dev)
     phase_render_checks(dev)
     phase_mesh_checks(dev)
+    phase_mesh_grad_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -1601,6 +1841,7 @@ def main() -> int:
         render_path = (RENDER_PATH[0], functools.partial(phase_render_path, out=out), RENDER_PATH[1])
         by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path,)}
     times.update(phase_mesh_times(dev))
+    times.update(phase_mesh_grad_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 
@@ -1624,10 +1865,11 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],
-            # Only the resolve and the deposit have one PyTorch call of the
-            # same function (scatter_reduce_ "amin" and index_add_ over
-            # their pre-expanded pairs).
+            # Only the resolve, the deposit and the (CIC) gather have one
+            # PyTorch call of the same function (scatter_reduce_ "amin" and
+            # index_add_ over their pre-expanded pairs, grid_sample).
             "library_ms": times[name].get("library_ms"),
+            **({"library_note": times[name]["library_note"]} if "library_note" in times[name] else {}),
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
         })
     if FAILURES:

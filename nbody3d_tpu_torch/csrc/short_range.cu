@@ -11,7 +11,7 @@
 //   w = k_short(|d|^2) * m_r  where 0 < |d|^2 < rcut^2, else 0,
 //   k_short = erfc(u) / s^3 + c2 e^{-u^2} / (s r),  u = r a,  s^2 = r^2 + eps2,
 //
-// with scal = [rcut^2, a = 1/(sqrt2 sigma), c2 = (2/sqrt(pi)) a, 0] read
+// with scal = [rcut^2, a = 1/(sqrt2 sigma), c2 = (2/sqrt(pi)) a, ...] read
 // from device memory (sigma is a per-step device value: passing it as a
 // host float would sync the host every step).  The pair arithmetic is the
 // isolated branch of the Pallas kernel (p3m.py:736-761): two rsqrt, one
@@ -93,7 +93,8 @@ __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __r
 
 }  // namespace
 
-// ps (nt*b, 4), nbr and mask (nt, k), scal f32[4], out (nt*b, 4); b <= 1024.
+// ps (nt*b, 4), nbr and mask (nt, k), scal f32[5] (three read), out (nt*b, 4);
+// b <= 1024.
 extern "C" int nb_short_range(const void* ps, const void* nbr, const void* mask, const void* scal,
                               void* out, int nt, int k, int b, float eps2, void* stream) {
     if (nt > 0) {

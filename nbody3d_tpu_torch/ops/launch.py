@@ -1,29 +1,31 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The twelve kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The thirteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
-==================  ===================  ===================================
-kernel              wrapper module       computes
-==================  ===================  ===================================
-``force_exact``     ``cuda_force``       all-pairs f32 force (exact mode)
-``sym_diag_prep``   ``cuda_force``       sym step 1: source rows, in-tile
-``sym_hops``        ``cuda_force``       sym step 2: off-diagonal tile pairs
-``sym_epilogue``    ``cuda_force``       sym step 3: sum, mask, Verlet
-``vjp_full``        ``force_vjp``        force VJP, every target x source
-``vjp_sym_diag``    ``force_vjp``        sym VJP 1: in-tile pairs
-``vjp_sym_hops``    ``force_vjp``        sym VJP 2: off-diagonal tile pairs
-``vjp_combine``     ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
-``splat_resolve``   ``render.resolve``   the renderer's depth-min resolve
-``short_range``     ``p3m``              P3M's block-sparse short-range pass
-``mesh_deposit``    ``mesh_cuda``        TSC/CIC mass deposit onto the mesh
-``mesh_gather``     ``mesh_cuda``        TSC/CIC interpolation of the forces
-==================  ===================  ===================================
+===================  ===================  ===================================
+kernel               wrapper module       computes
+===================  ===================  ===================================
+``force_exact``      ``cuda_force``       all-pairs f32 force (exact mode)
+``sym_diag_prep``    ``cuda_force``       sym step 1: source rows, in-tile
+``sym_hops``         ``cuda_force``       sym step 2: off-diagonal tile pairs
+``sym_epilogue``     ``cuda_force``       sym step 3: sum, mask, Verlet
+``vjp_full``         ``force_vjp``        force VJP, every target x source
+``vjp_sym_diag``     ``force_vjp``        sym VJP 1: in-tile pairs
+``vjp_sym_hops``     ``force_vjp``        sym VJP 2: off-diagonal tile pairs
+``vjp_combine``      ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
+``splat_resolve``    ``render.resolve``   the renderer's depth-min resolve
+``short_range``      ``p3m``              P3M's block-sparse short-range pass
+``short_range_bwd``  ``p3m``              its VJP: x̄, m̄ and σ̄, gather only
+``mesh_deposit``     ``mesh_cuda``        TSC/CIC mass deposit onto the mesh
+``mesh_gather``      ``mesh_cuda``        TSC/CIC interpolation of the forces
+===================  ===================  ===================================
 
 A wrapper checks its tensors (dtype, shape, contiguous, one device, no
 autograd: the kernels never see a tensor that requires grad; gradients
-reach them through ``force_vjp.make_diff_accel`` and the sym step's
-``torch.autograd.Function``), takes its plain twin only because the tensors
+reach them through ``force_vjp.make_diff_accel`` and the
+``torch.autograd.Function``s of the sym step, P3M's short range and the
+mesh legs), takes its plain twin only because the tensors
 lie on the CPU, and otherwise launches through :func:`launch`, which adds
 one to the kernel's count.
 """
@@ -35,7 +37,7 @@ import torch
 KERNELS = (
     "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
-    "splat_resolve", "short_range", "mesh_deposit", "mesh_gather",
+    "splat_resolve", "short_range", "mesh_deposit", "mesh_gather", "short_range_bwd",
 )
 MAX_TILE = 1024  # threads per CUDA block
 

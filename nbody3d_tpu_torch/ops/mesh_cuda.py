@@ -27,7 +27,15 @@ PM needs no Morton sort.
 
 The wrappers launch the kernels on a CUDA tensor and take the twins only
 for a CPU tensor.  ``p3m.accel_p3m`` and ``pm.accel_pm`` run deposit, FFT
-solve and gather; their ``backend="jnp"`` runs the twins on any device.
+solve and gather through :func:`deposit_diff` and :func:`gather_diff`,
+autograd Functions whose backwards are :func:`deposit_vjp` and
+:func:`gather_vjp` (the JAX package differentiates its XLA forms there:
+``jax.vjp`` of ``mesh_accel_jnp``, ``mesh_pallas.py:878-886``, and PM's
+autodiff); their ``backend="jnp"`` runs the twins on any device, and
+autograd goes through them.  The VJPs run the kernels for the scatter (the
+grid cotangent of the gather is a deposit of its output's cotangent, one
+component at a time) and torch ops for the stencil's derivative weights;
+no TPU kernel has a backward of its own here.
 """
 
 from __future__ import annotations
@@ -47,6 +55,14 @@ def axis_weights(f: torch.Tensor, order: int) -> tuple[torch.Tensor, ...]:
     if order == 2:
         return 1.0 - f, f
     raise ValueError(f"assignment order must be 2 (CIC) or 3 (TSC), got {order}")
+
+
+def axis_slopes(f: torch.Tensor, order: int) -> tuple[torch.Tensor, ...]:
+    """d/df of :func:`axis_weights`: TSC ``{-(0.5-f), -2f, 0.5+f}``, CIC
+    ``{-1, 1}``."""
+    if order == 3:
+        return f - 0.5, -2.0 * f, 0.5 + f
+    return -torch.ones_like(f), torch.ones_like(f)
 
 
 def _offsets(order: int) -> tuple[int, ...]:
@@ -134,3 +150,95 @@ def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, o
     launch("mesh_gather", dev, lib().nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order)
     return out
 
+
+# ------------------------------------------------------------ the VJPs
+def _stencil_sums(values, c4: torch.Tensor, f: torch.Tensor, grid: int, order: int):
+    """``(Σ w·v (N,), Σ ∂w/∂f·v (N, 3))`` over each particle's stencil, with
+    ``v = values(idx)`` the ``(N, Z)`` values at the flat cells ``idx``
+    of a z-row of the stencil: the interpolation and its slope along each
+    axis."""
+    w, dw = axis_weights(f, order), axis_slopes(f, order)
+    offs = _offsets(order)
+    dz = torch.tensor(offs, device=c4.device)
+    wz, dwz = torch.stack([x[:, 2] for x in w], 1), torch.stack([x[:, 2] for x in dw], 1)
+    interp = torch.zeros(f.shape[0], dtype=f.dtype, device=f.device)
+    slope = torch.zeros_like(f)
+    for a, dx in enumerate(offs):
+        for b, dy in enumerate(offs):
+            base = ((c4[:, 0] + dx) * grid + (c4[:, 1] + dy)) * grid + c4[:, 2]
+            v = values(base.long()[:, None] + dz)
+            vz, vdz = torch.sum(v * wz, dim=1), torch.sum(v * dwz, dim=1)
+            wx, wy, dwx, dwy = w[a][:, 0], w[b][:, 1], dw[a][:, 0], dw[b][:, 1]
+            interp += vz * wx * wy
+            slope[:, 0] += vz * dwx * wy
+            slope[:, 1] += vz * wx * dwy
+            slope[:, 2] += vdz * wx * wy
+    return interp, slope
+
+
+def deposit_vjp(c4: torch.Tensor, fm: torch.Tensor, rho_bar: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+    """The VJP of the deposit for the cotangent ``rho_bar (grid, grid,
+    grid)``: ``fm_bar (N, 4)``, the fractions' ``m · Σ ∂w/∂f · rho_bar``
+    and the mass's interpolation of ``rho_bar``."""
+    flat = rho_bar.reshape(-1)
+    m_bar, slope = _stencil_sums(lambda idx: flat[idx], c4, fm[:, :3], grid, order)
+    return torch.cat([fm[:, 3:4] * slope, m_bar[:, None]], dim=1)
+
+
+def gather_vjp(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, out_bar: torch.Tensor, grid: int,
+               order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of the gather for its output's cotangent ``out_bar (N, 4)``
+    (w lane not read): ``(grids_bar (3, G³), fm_bar (N, 4))``.  Each grid's
+    cotangent is the deposit of one lane of ``out_bar`` (``mesh_deposit``
+    on a card); the fractions' is ``Σ ∂w/∂f · (out_bar · grids)``, the
+    mass's 0."""
+    gbar = out_bar[:, :3]
+    f = fm[:, :3].contiguous()
+    grids_bar = torch.stack([deposit(c4, torch.cat([f, gbar[:, i : i + 1]], 1).contiguous(), grid, order).view(-1)
+                             for i in range(3)])
+    # A product and a sum over the 3 lanes: as an einsum, cuBLAS runs N
+    # (Z, 3) x (3,) GEMVs, 27 ms a TSC backward at 2M on an H100.
+    _, slope = _stencil_sums(lambda idx: torch.sum(grids[:, idx] * gbar.T[:, :, None], dim=0), c4, f, grid, order)
+    return grids_bar, torch.cat([slope, torch.zeros_like(slope[:, :1])], dim=1)
+
+
+class _Deposit(torch.autograd.Function):
+    """:func:`deposit` with :func:`deposit_vjp` as its backward (by ``fm``)."""
+
+    @staticmethod
+    def forward(ctx, c4, fm, grid, order):
+        ctx.save_for_backward(c4, fm)
+        ctx.opts = (grid, order)
+        return deposit(c4, fm.detach(), grid, order)
+
+    @staticmethod
+    def backward(ctx, rho_bar):
+        c4, fm = ctx.saved_tensors
+        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`gather` with :func:`gather_vjp` as its backward (by ``grids``
+    and ``fm``); the wrapper gets detached grids."""
+
+    @staticmethod
+    def forward(ctx, grids, c4, fm, grid, order):
+        ctx.save_for_backward(grids, c4, fm)
+        ctx.opts = (grid, order)
+        return gather(grids.detach(), c4, fm.detach(), grid, order)
+
+    @staticmethod
+    def backward(ctx, out_bar):
+        grids, c4, fm = ctx.saved_tensors
+        grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
+        return grids_bar, None, fm_bar, None, None
+
+
+def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+    """:func:`deposit`, differentiable in ``fm`` (fractions and mass)."""
+    return _Deposit.apply(c4, fm, grid, order)
+
+
+def gather_diff(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+    """:func:`gather`, differentiable in ``grids`` and ``fm``."""
+    return _Gather.apply(grids, c4, fm, grid, order)

@@ -23,8 +23,16 @@ the JAX package's tiles: the same f32 distances, the same int32 jitter
 hash, and top-k by a stable descending sort, which like ``lax.top_k``
 puts the lower index first among equal values.  Where the JAX package
 maps over row chunks and super-tiles with ``lax.map``, the port runs
-batched tensor ops.  The periodic boundary and the gradient (the
-``_short_range_bwd_kernel``) are not ported.
+batched tensor ops.
+
+Gradients flow through :func:`accel_p3m` as ``jax.grad`` flows through the
+JAX function: the short range is :class:`_ShortRange`, whose backward is
+the ``short_range_bwd`` kernel (:func:`short_range_tiles_bwd`), the mesh
+legs ``mesh_cuda.deposit_diff``/``gather_diff``, and autograd takes the
+FFT solve, the box (``lo``, ``h``: ``sigma = sigma_cells·h`` carries the
+short range's σ cotangent into the positions), the net-force projection
+and the heavy pairs.  The selection runs on detached rows.  The periodic
+boundary is not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from nbody3d_tpu_torch.ops import mesh_cuda
 from nbody3d_tpu_torch.ops.blocks import divisor_block
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
 from nbody3d_tpu_torch.ops.morton import morton_keys
-from nbody3d_tpu_torch.ops.pm import _box, _cic_cells, _offset_axis, _pad
+from nbody3d_tpu_torch.ops.pm import _box, _cic_cells, _offset_axis, _pad, clip
 
 _SQRT2 = 1.4142135623730951
 _TWO_OVER_SQRT_PI = 1.1283791670955126
@@ -102,7 +110,7 @@ def _tsc_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int):
     (``mesh_cuda.axis_weights``)."""
     s = (pos - lo) / h - 0.5
     c = torch.clamp(torch.floor(s + 0.5).to(torch.int32), 1, grid - 2)
-    f = torch.clamp(s - c.to(s.dtype), -0.5, 0.5)
+    f = clip(s - c.to(s.dtype), -0.5, 0.5)
     return c, f
 
 
@@ -356,6 +364,29 @@ def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask) -> torch
     return out
 
 
+def _check_tiles(name: str, block: int, nbr_idx: torch.Tensor, ps: torch.Tensor, *rows: torch.Tensor):
+    """The rows' device, once ``nbr_idx``'s tiles of ``block`` rows make
+    ``ps`` (and each of ``rows``, as :func:`check_rows` holds them)."""
+    dev = check_rows(name, ps, *rows)
+    if nbr_idx.shape[0] * block != ps.shape[0] or not 1 <= block <= 1024:
+        raise ValueError(f"{name}: {nbr_idx.shape[0]} tiles of {block} rows do not make N={ps.shape[0]}")
+    return dev
+
+
+def _kernel_operands(name, dev, nbr_idx, nbr_mask, sigma, rcut):
+    """``(nbr_idx int32, nbr_mask f32, scal)`` as both short-range kernels
+    take them.  ``sigma`` and ``rcut`` are device scalars and reach the
+    kernels as a device ``f32[5] = [rcut², 1/(√2σ), (2/√π)/(√2σ), 0,
+    1/σ]`` (the forward reads the first three), so no host sync happens."""
+    ids = nbr_idx.to(torch.int32).contiguous()
+    msk = nbr_mask.to(torch.float32).contiguous()
+    if ids.device != dev or msk.device != dev or msk.shape != ids.shape:
+        raise ValueError(f"{name}: nbr_idx and nbr_mask must be (nb, k) on the device of ps")
+    a = 1.0 / (_SQRT2 * sigma)
+    scal = torch.stack([rcut * rcut, a, _TWO_OVER_SQRT_PI * a, torch.zeros_like(sigma), 1.0 / sigma])
+    return ids, msk, scal.to(torch.float32)
+
+
 def short_range_tiles(
     ps: torch.Tensor,
     nbr_idx: torch.Tensor,
@@ -370,27 +401,138 @@ def short_range_tiles(
     sorted ``ps (N, 4)``: ``(N, 4)``, w lane 0.  ``nbr_idx (nb, k)`` are
     global tile ids, ``nbr_mask (nb, k)`` the mutual mask.
     ``backend="jnp"`` runs the twin on any device; otherwise the
-    ``short_range`` kernel runs on a CUDA tensor, the twin on a CPU one.
-    ``sigma`` and ``rcut`` are device scalars and reach the kernel as a
-    device ``f32[4]`` (``[rcut², 1/(√2σ), (2/√π)/(√2σ), 0]``), so no host
-    sync happens."""
+    ``short_range`` kernel runs on a CUDA tensor, the twin on a CPU one."""
     nb, k = nbr_idx.shape
     if nbr_mask is None:
         nbr_mask = torch.ones((nb, k), dtype=torch.float32, device=ps.device)
-    dev = check_rows("short_range", ps)
-    if nb * block != ps.shape[0] or not 1 <= block <= 1024:
-        raise ValueError(f"short_range: {nb} tiles of {block} rows do not make N={ps.shape[0]}")
+    dev = _check_tiles("short_range", block, nbr_idx, ps)
     if backend == "jnp" or dev.type == "cpu":
         return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask)
-    ids = nbr_idx.to(torch.int32).contiguous()
-    msk = nbr_mask.to(torch.float32).contiguous()
-    if ids.device != dev or msk.device != dev or msk.shape != ids.shape:
-        raise ValueError("short_range: nbr_idx and nbr_mask must be (nb, k) on the device of ps")
-    scal = torch.stack([rcut * rcut, 1.0 / (_SQRT2 * sigma), _TWO_OVER_SQRT_PI / (_SQRT2 * sigma),
-                        torch.zeros_like(sigma)]).to(torch.float32)
+    ops = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
     out = torch.empty_like(ps)
-    launch("short_range", dev, lib().nb_short_range, ps, ids, msk, scal, out, nb, k, block, float(eps2))
+    launch("short_range", dev, lib().nb_short_range, ps, *ops, out, nb, k, block, float(eps2))
     return out
+
+
+def _k_short_grads(r2: torch.Tensor, eps2: float, sigma: torch.Tensor):
+    """``(k, dk/dr², dk/dσ)`` of :func:`k_short` with the exact ``erfc``, at
+    ``r2 > 0`` (a pair at r = 0 gets finite values that the caller gates
+    out)."""
+    r2s = torch.where(r2 > 0, r2, 1.0)
+    inv_r = torch.rsqrt(r2s)
+    inv_s = torch.rsqrt(r2s + eps2)
+    a = 1.0 / (_SQRT2 * sigma)
+    c2 = _TWO_OVER_SQRT_PI * a
+    u = r2s * inv_r * a
+    e = torch.exp(-u * u)
+    erfc_u = torch.special.erfc(u)
+    inv_s3 = inv_s * inv_s * inv_s
+    sr = inv_s * inv_r
+    k = erfc_u * inv_s3 + c2 * e * sr
+    kp = -1.5 * erfc_u * inv_s3 * inv_s * inv_s - c2 * e * (inv_r * inv_s3 + sr * (a * a + 0.5 * inv_r * inv_r))
+    ks = e * (_SQRT2 * c2 * u * inv_s3 + c2 / sigma * (2.0 * u * u - 1.0) * sr)
+    return k, kp, ks
+
+
+def _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask):
+    """Plain twin of ``short_range_bwd``: the VJP of :func:`_short_range_tiles`
+    for the cotangent ``g`` (its first 3 lanes) as a gather over each row's
+    own neighbour list, exact for a mutual mask (``p3m.py:899-903`` of the
+    JAX package): per pair ``d = x_j - x_i``, ``k``, ``k' = dk/dr²``,
+    ``k_σ = dk/dσ``,
+
+        x̄_i = Σ_j 2k'(m_i (d·g_j) - m_j (d·g_i)) d + k (m_i g_j - m_j g_i)
+        m̄_i = -Σ_j k (d·g_j),   σ̄ = Σ_ij m_j (d·g_i) k_σ.
+
+    ``(dps (N, 4) = [x̄, m̄], σ̄ ())``, σ̄ summed in float64.  Only mask-0
+    slots are left out: unlike the forward, a source tile of zero mass
+    counts (its rows' m̄ and the m_i g_j terms are not 0).  Tiles go in
+    batches of about ``_PAIR_BATCH`` pairs."""
+    nb, k = nbr_idx.shape
+    blocks = ps.view(nb, block, 4)
+    gb = g[:, :3].reshape(nb, block, 3)
+    rcut2 = rcut * rcut
+    live_slot = nbr_mask != 0
+    order = torch.argsort((~live_slot).to(torch.int8), dim=1, stable=True)
+    k_eff = max(int(live_slot.sum(dim=1).max()), 1)
+    slots = torch.gather(nbr_idx.long(), 1, order[:, :k_eff])
+    scale = torch.gather(nbr_mask * live_slot, 1, order[:, :k_eff])
+    dps = torch.zeros_like(ps)
+    dsig = torch.zeros((), dtype=torch.float64, device=ps.device)
+    batch = max(1, _PAIR_BATCH // (block * k_eff * block))
+    for t0 in range(0, nb, batch):
+        tiles = slice(t0, min(t0 + batch, nb))
+        tgt, g_t = blocks[tiles], gb[tiles]  # (T, B, 4), (T, B, 3)
+        src = blocks[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 4)
+        g_s = gb[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 3)
+        d = src[:, None, :, :3] - tgt[:, :, None, :3]  # (T, B, kB, 3)
+        r2 = torch.sum(d * d, dim=-1)
+        k0, k1, k2 = _k_short_grads(r2, eps2, sigma)
+        gate = ((r2 > 0) & (r2 < rcut2)) * scale[tiles].repeat_interleave(block, dim=1)[:, None, :]
+        k0, k1, k2 = k0 * gate, k1 * gate, k2 * gate
+        m_i, m_j = tgt[:, :, 3:4], src[:, None, :, 3]
+        dgi = torch.einsum("tbjc,tbc->tbj", d, g_t)
+        dgj = torch.einsum("tbjc,tjc->tbj", d, g_s)
+        coef = 2.0 * k1 * (m_i * dgj - m_j * dgi)
+        xbar = (torch.einsum("tbj,tbjc->tbc", coef, d) + m_i * torch.einsum("tbj,tjc->tbc", k0, g_s)
+                - g_t * torch.sum(k0 * m_j, dim=2, keepdim=True))
+        rows = slice(tiles.start * block, tiles.stop * block)
+        dps[rows, :3] = xbar.reshape(-1, 3)
+        dps[rows, 3] = -torch.sum(k0 * dgj, dim=2).reshape(-1)
+        dsig += torch.sum(m_j * dgi * k2, dtype=torch.float64)
+    return dps, dsig.to(ps.dtype)
+
+
+def short_range_tiles_bwd(
+    ps: torch.Tensor,
+    g: torch.Tensor,
+    nbr_idx: torch.Tensor,
+    eps2: float,
+    sigma: torch.Tensor,
+    rcut: torch.Tensor,
+    block: int,
+    nbr_mask: torch.Tensor,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of :func:`short_range_tiles` for its output's cotangent ``g
+    (N, 4)`` (w lane not read): ``(dps (N, 4) = [x̄, m̄], σ̄ ())``; rcut's
+    cotangent is 0.  ``backend="jnp"`` runs the twin on any device;
+    otherwise the ``short_range_bwd`` kernel runs on a CUDA tensor, the
+    twin on a CPU one.  The kernel writes σ̄ per row, summed here with
+    ``torch.sum`` (deterministic)."""
+    nb, k = nbr_idx.shape
+    dev = _check_tiles("short_range_bwd", block, nbr_idx, ps, g)
+    if backend == "jnp" or dev.type == "cpu":
+        return _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask)
+    ops = _kernel_operands("short_range_bwd", dev, nbr_idx, nbr_mask, sigma, rcut)
+    dps = torch.empty_like(ps)
+    dsig = torch.empty(ps.shape[0], dtype=torch.float32, device=dev)
+    launch("short_range_bwd", dev, lib().nb_short_range_bwd, ps, g, *ops, dps, dsig, nb, k, block, float(eps2))
+    return dps, torch.sum(dsig)
+
+
+class _ShortRange(torch.autograd.Function):
+    """:func:`short_range_tiles` with :func:`short_range_tiles_bwd` as its
+    backward: the JAX ``_make_sr_pallas_diff`` in its full-range form
+    (every tile a target, the only form one device has).  Cotangents reach
+    ``ps`` and ``sigma``; ``rcut`` only gates (its cotangent is 0), the
+    lists and the mask have none.  Both passes hand their wrappers detached
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend):
+        ctx.save_for_backward(ps, sigma, rcut, nbr_idx, nbr_mask)
+        ctx.opts = (eps2, block, backend)
+        return short_range_tiles(ps.detach(), nbr_idx, eps2, sigma.detach(), rcut.detach(), block, nbr_mask,
+                                 backend=backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        ps, sigma, rcut, nbr_idx, nbr_mask = ctx.saved_tensors
+        eps2, block, backend = ctx.opts
+        dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
+                                          rcut.detach(), block, nbr_mask, backend=backend)
+        return dps, dsig, None, None, None, None, None, None
 
 
 # ------------------------------------------------------------------ solver
@@ -413,7 +555,11 @@ def accel_p3m(
     long range + short-range correction + exact pairs of the ``heavy_k``
     most massive bodies.  ``backend="jnp"`` runs every plain twin; any other
     value the kernel wrappers (``short_range``, ``mesh_deposit``,
-    ``mesh_gather``), which on a CPU tensor take their twins."""
+    ``mesh_gather``), which on a CPU tensor take their twins.  Differentiable
+    in ``pos_mass`` and ``G``: the short range's backward is
+    ``short_range_bwd`` (its twin on ``"jnp"`` or a CPU tensor), the mesh
+    legs' are ``mesh_cuda.deposit_vjp``/``gather_vjp`` (``"jnp"``: autograd
+    through the twins)."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     block = p3m_block(n, block)
@@ -426,7 +572,7 @@ def accel_p3m(
     rcut = rcut_sigmas * sigma
 
     hidx, mass_mesh = heavy_split(pos_mass, heavy_k)
-    perm = torch.argsort(morton_keys(pos_mass, n_real), stable=True)
+    perm = torch.argsort(morton_keys(pos_mass.detach(), n_real), stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(n, device=perm.device)
     ps = torch.cat([pos, mass_mesh[:, None]], dim=1)[perm]
@@ -435,7 +581,8 @@ def accel_p3m(
     c, f = _tsc_cells(ps[:, :3], lo, h, grid) if order == 3 else _cic_cells(ps[:, :3], lo, h, grid)
     c4, fm = mesh_cuda.mesh_operands(c, f, ps[:, 3])
     plain = backend == "jnp"
-    dep, gat = (mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain else (mesh_cuda.deposit, mesh_cuda.gather)
+    dep, gat = ((mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain
+                else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
     acc = gat(solve_accel_long(dep(c4, fm, grid, order), h, eps2, sigma, order=order), c4, fm, grid, order)
     # Project out the mesh's net force (f32 FFT noise): heavy and padding
     # rows carry zero mesh mass, so they do not enter the mean.
@@ -443,10 +590,11 @@ def accel_p3m(
     msum = torch.clamp(torch.sum(mass_s), min=1e-30)
     acc = acc - torch.sum(mass_s[:, None] * acc, dim=0)[None, :] / msum
 
-    lo_b, hi_b = _sorted_aabbs(ps, n_real, block)
-    kth, neg, nbr_idx = _select_neighbors(lo_b, hi_b, h, nbr_k)
+    # The selection is integer and gate arithmetic: no gradient.
+    lo_b, hi_b = _sorted_aabbs(ps.detach(), n_real, block)
+    kth, neg, nbr_idx = _select_neighbors(lo_b, hi_b, h.detach(), nbr_k)
     nbr_mask = mutual_neighbor_mask(neg, nbr_idx, kth)
-    acc = acc + short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, backend=backend)
+    acc = acc + _ShortRange.apply(ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend)
     acc = acc[inv]
 
     a_from, a_on = heavy_direct(pos_mass, hidx, eps2)

@@ -46,12 +46,19 @@ def _box(pos_real: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]
     return box_from_bounds(torch.amin(pos_real, dim=0), torch.amax(pos_real, dim=0), grid)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``torch.clamp``'s values, with JAX's gradient, which a
+    ``maximum`` and a ``minimum`` split in half at a bound (a body exactly
+    on a cell face has ``f = 0``)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _cic_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int):
     """CIC base cell ``i0 (N, 3) int32`` in [0, grid-2] and fraction ``f``
     in [0, 1], with cell values at the centres ``lo + (i + 0.5) h``."""
     s = (pos - lo) / h - 0.5
     i0 = torch.clamp(torch.floor(s).to(torch.int32), 0, grid - 2)
-    f = torch.clamp(s - i0.to(s.dtype), 0.0, 1.0)
+    f = clip(s - i0.to(s.dtype), 0.0, 1.0)
     return i0, f
 
 
@@ -111,15 +118,19 @@ def accel_pm(
     n_real: int | None = None,
     mesh_backend: str = "auto",
 ) -> torch.Tensor:
-    """PM accelerations ``(N, 4)`` (w lane 0) with an isolated boundary.
+    """PM accelerations ``(N, 4)`` (w lane 0) with an isolated boundary,
+    differentiable in ``pos_mass`` and ``G`` (autograd through the box, the
+    FFT solve and the central differences, as the JAX package's autodiff).
     ``mesh_backend="jnp"`` runs the plain twins; otherwise the deposit and
-    gather go through the ``mesh_cuda`` wrappers (the kernels on a card)."""
+    gather go through ``mesh_cuda.deposit_diff``/``gather_diff`` (the
+    kernels on a card, with their VJPs as backwards)."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     lo, h = _box(pos_mass[:n_real, :3], grid)
     i0, f = _cic_cells(pos_mass[:, :3], lo, h, grid)
     c4, fm = mesh_cuda.mesh_operands(i0, f, pos_mass[:, 3])
     plain = mesh_backend == "jnp"
-    dep, gat = (mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain else (mesh_cuda.deposit, mesh_cuda.gather)
+    dep, gat = ((mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain
+                else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
     phi = solve_potential(dep(c4, fm, grid, 2), h, eps2)
     return gat(force_grids(phi, h), c4, fm, grid, 2) * G

@@ -9,11 +9,10 @@ nothing.
 
 Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
 
-- ``method="pm"`` and ``"p3m"`` (isolated, no cosmology, forward only):
-  the mesh solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.
-  On the kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
-  ``short_range``; on ``"jnp"`` their plain twins.  A mesh step raises
-  when anything needs a gradient (the short-range VJP is not ported).
+- ``method="pm"`` and ``"p3m"`` (isolated, no cosmology): the mesh
+  solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On the
+  kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
+  ``short_range``; on ``"jnp"`` their plain twins.
 
 For ``method="direct"``:
 
@@ -28,8 +27,12 @@ For ``method="direct"``:
   ROADMAP.md item; nothing falls back to plain code.
 
 Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
-the JAX package's step) flow on both kernel routes, through the force VJP
-kernels of ``ops/force_vjp.py`` with the Newton-3 schedule:
+the JAX package's step) flow on every route.  The mesh steps are plain
+autograd over ``accel_p3m``/``accel_pm``, whose kernels sit in
+``torch.autograd.Function``s (P3M's short range with the
+``short_range_bwd`` kernel as its backward).  The direct kernel routes go
+through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
+schedule:
 
 - exact: ``force_exact`` is wrapped in ``make_diff_accel`` and autograd
   differentiates the plain-torch integrators (``yoshida4`` included);
@@ -74,7 +77,6 @@ PAD_GRANULE = GPU_TILE
 # Configurations of the JAX package that the port does not run yet.
 _TODO_PERIODIC = "ROADMAP.md queue 1 item 9 (periodic boundary: ops/ewald.py, the kernels' periodic forms)"
 _TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
-_TODO_MESH_GRAD = "ROADMAP.md queue 2 item 10 (_short_range_bwd_kernel: P3M and PM gradients)"
 _TODO_FAST = "ROADMAP.md queue 2 item 8 (fast-mode kernels)"
 _TODO_FUSED = "ROADMAP.md queue 2 item 8 (_fused_kernel_exact/_fused_kernel_fast)"
 _TODO_UNFUSED_SYM = "ROADMAP.md queue 2 item 7 (unfused sym: _combine16_kernel)"
@@ -218,10 +220,6 @@ def make_step_fn(
         accel_fn = make_mesh_accel_fn(config, n_real, route)
 
         def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
-            if torch.is_grad_enabled() and any(
-                map(requires_grad, (state.pos_mass, state.vel, state.accel, dt, G))
-            ):
-                raise NotImplementedError(f"gradients through method={config.method!r}: {_TODO_MESH_GRAD}")
             return integrate_state(
                 config.integrator, lambda pm: accel_fn(pm, G), state, dt, n_real=n_real,
             )

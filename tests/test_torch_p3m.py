@@ -379,19 +379,3 @@ def test_unported_mesh_configs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
         Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
 
-
-@pytest.mark.parametrize("method", ["p3m", "pm"])
-def test_mesh_step_refuses_gradients(method):
-    """No autograd through the kernels' detached outputs: a mesh step that
-    would need a gradient raises, naming the short-range VJP's item."""
-    pm_np, vel_np, n_real = clustered(1000, 1024)
-    step = make_step_fn(SimConfig(method=method, pm_grid=32), 1024, n_real, "cpu")
-    s = SimState(torch.from_numpy(pm_np), torch.from_numpy(vel_np).requires_grad_(), torch.zeros((1024, 4)), 0)
-    with pytest.raises(NotImplementedError, match=r"queue 2 item 10"):
-        step(s, 1e-3, G)
-    g = torch.tensor(G, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"queue 2 item 10"):
-        step(SimState(torch.from_numpy(pm_np), torch.from_numpy(vel_np), torch.zeros((1024, 4)), 0), 1e-3, g)
-    with torch.no_grad():
-        out = step(s, 1e-3, G)
-    assert out.step == 1
