@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the thirteen kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the sixteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -86,16 +86,35 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    (grid 128, CIC); (d) at N = 8,192 (8e's scene) the kernel route's 5-step
    rollout gradient against ``backend="jnp"``'s for both methods, by v0,
    dt and G, rtol 2e-3.
+10. the unfused sym step (``--integrator yoshida4|euler``,
+   ``fuse_epilogue=False``, one tile) and the fused exact step
+   (``fuse_integrate=True``): (a, after 9a) ``sym_diag``, ``sym_combine``
+   and ``fused_step_exact`` against their twins at N = 8,192, 7,936, 512
+   and 256 (nt = 1), padded rows included, ``fused_step_exact`` bit-equal
+   to ``force_exact`` + the torch Verlet, ``accel_sym`` at both ``center``
+   values against ``force_exact`` (< 2e-5); (b) phase 5's run with
+   ``integrator="yoshida4"`` (3 force evaluations a step) and with
+   ``fuse_epilogue=False``, 1 warm and 2 timed chunks of 20 steps each,
+   phase 5's token, the unfused Verlet step beside phase 5's fused one;
+   (c) phase 4's run with ``fuse_integrate=True`` and phase 4's token, then
+   profiled 3-step rollouts of the fused and the unfused exact step; after
+   the windows the three kernels' times at 10b's and 10c's shapes beside
+   their twins, bounds and (``sym_combine``) ``torch.add``; (d) at N =
+   4,096 6d's rollout gradient through the yoshida4 sym route against
+   ``backend="jnp"``'s, rtol 2e-3, and a gradient request through
+   ``fuse_integrate=True`` raises; (e) the uncentred route
+   ``accel_sym(center=False)`` at N = 262,144 against ``center=True``.
 
-Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b and 9c (the main paths) and 6c, 6d,
-8c, 8e and 9d each run with the launch counts set to 0 just before and
-read just after; each must launch every kernel it runs and no other, and
+Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b and 10c (the main paths) and
+6c, 6d, 8c, 8e, 9d, 10d and 10e each run with the launch counts set to 0
+just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
 step of 8b and 8d and one profiled gradient rollout of 9b and 9c (device
 busy time, idle share, largest kernels; for 9b and 9c the share of each
 stage) follow their windows.  The line before the last is ``{"kernels":
-[...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c;
+[...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
+and ``sym_diag``'s from 10e;
 ``bound_ms`` from this run's shapes and the operation counts in each
 kernel's source note); the last is the ``{"ok": true, "device": ...}``
 line.  Without a CUDA card it exits 1 and prints no result.
@@ -124,7 +143,7 @@ from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import force_vjp as fv
 from nbody3d_tpu_torch.ops import mesh_cuda as mc
 from nbody3d_tpu_torch.ops import p3m, pm
-from nbody3d_tpu_torch.ops.integrate import integrate_state
+from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
 from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts
 from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import GPU_TILE, PAD_GRANULE, make_step_fn
@@ -143,6 +162,9 @@ REPLACES = {
     "sym_diag_prep": (SRC + "sym_diag_prep.cu", PALLAS + "770"),
     "sym_hops": (SRC + "sym_hops.cu", PALLAS + "582"),
     "sym_epilogue": (SRC + "sym_epilogue.cu", PALLAS + "1122"),
+    "sym_diag": (SRC + "sym_diag.cu", PALLAS + "545"),
+    "sym_combine": (SRC + "sym_combine.cu", PALLAS + "977"),
+    "fused_step_exact": (SRC + "fused_exact.cu", PALLAS + "217"),
     "vjp_full": (SRC + "vjp_full.cu", VJP + "205"),
     "vjp_sym_diag": (SRC + "vjp_sym_diag.cu", VJP + "434"),
     "vjp_sym_hops": (SRC + "vjp_sym_hops.cu", VJP + "450"),
@@ -167,6 +189,7 @@ MUFU_RATE = 132 * 16 * 1.98e9
 HBM_BYTES = 3.35e12
 FLOP = {
     "force_exact": 18, "sym_diag_prep": 18, "sym_hops": 25, "sym_epilogue": 33,
+    "sym_diag": 18, "sym_combine": 3, "fused_step_exact": 18,
     "vjp_full": 53, "vjp_sym_diag": 53, "vjp_sym_hops": 61, "vjp_combine": 8,
     # short_range and short_range_bwd a pair; mesh_deposit and mesh_gather a particle (TSC).
     "short_range": 47, "short_range_bwd": 100, "mesh_deposit": 82, "mesh_gather": 216,
@@ -289,7 +312,7 @@ def phase_build() -> None:
     path, nvcc_s = _build.build()
     _build.load_library()
     print(
-        f"[2 build] nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s -> "
+        f"[2 build] {len(_build.SIGNATURES)} kernels ({len(KERNELS)} counted), nvcc {nvcc_s:.1f} s, build+load {time.perf_counter() - t0:.1f} s -> "
         f"{path.relative_to(_build.BUILD_ROOT.parent.parent)}",
         flush=True,
     )
@@ -422,10 +445,7 @@ def phase_kernel_times(dev) -> dict[str, dict]:
     }
     del flush
     out.update(phase_vjp_times(dev, pm, b))
-    for name, r in out.items():
-        print(f"  {name:14s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}"
-              + (f"  [{r['note']}]" if "note" in r else ""), flush=True)
+    _print_times(out)
     return out
 
 
@@ -888,8 +908,11 @@ def _timed_chunks(sim: Simulation, chunks: int, chunk: int) -> list[float]:
     return times
 
 
-def phase_exact(dev) -> None:
-    sim = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+def _exact_run(dev, tag: str, **kw) -> float:
+    """two-galaxy N = 40,002 (the reference default) with ``kw``: 200 steps
+    in chunks of 50, energy drift <= 1e-3, momentum error <= 1e-5.
+    Returns the median ms/step."""
+    sim = Simulation.from_preset("two-galaxy", SimConfig(**kw), device=dev)
     d0 = sim.diagnostics()
     times = _timed_chunks(sim, 4, 50)
     d1 = sim.diagnostics()
@@ -897,39 +920,57 @@ def phase_exact(dev) -> None:
     med = statistics.median(times)
     gints = sim.pair_interactions_per_step * 50 / med / 1e9
     print(
-        f"[4 exact] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) 200 steps: "
+        f"[{tag}] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) {kw} 200 steps: "
         f"median chunk {med:.4f} s = {med / 50 * 1e3:.4f} ms/step, {gints:.2f} G-int/s; "
         f"chunks {[round(t, 4) for t in times]}; energy drift {drift:.3e}, momentum err {mom:.3e}",
         flush=True,
     )
-    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), "exact: finite state of shape (n_pad, 4)")
-    check(drift <= 1e-3, f"exact: energy drift {drift:.3e} <= 1e-3")
-    check(mom <= 1e-5, f"exact: momentum error {mom:.3e} <= 1e-5")
+    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), f"{tag}: finite state of shape (n_pad, 4)")
+    check(drift <= 1e-3, f"{tag}: energy drift {drift:.3e} <= 1e-3")
+    check(mom <= 1e-5, f"{tag}: momentum error {mom:.3e} <= 1e-5")
+    return med / 50 * 1e3
 
 
-def phase_sym(dev) -> None:
+def _sym_run(dev, tag: str, chunk: int, **kw) -> float:
+    """uniform-sphere N = 262,144, ``morton_every=64``, sym with ``kw``: 1
+    warm and 2 timed chunks, energy drift <= 1e-4 * max(steps, 140) / 140,
+    momentum error <= 1e-5.  Returns the median ms/step."""
     sim = Simulation.from_preset(
-        "uniform-sphere", SimConfig(force_mode="sym", morton_every=64), n=262144, device=dev
+        "uniform-sphere", SimConfig(force_mode="sym", morton_every=64, **kw), n=262144, device=dev
     )
     d0 = sim.diagnostics()
-    warm = _timed_chunks(sim, 1, 50)
-    times = _timed_chunks(sim, 2, 50)
+    warm = _timed_chunks(sim, 1, chunk)
+    times = _timed_chunks(sim, 2, chunk)
     d1 = sim.diagnostics()
-    nsteps = 150
+    nsteps = 3 * chunk
     drift, mom, finite = _conservation(sim, d0, d1)
     med = statistics.median(times)
-    gints = sim.pair_interactions_per_step * 50 / med / 1e9
+    gints = sim.pair_interactions_per_step * chunk / med / 1e9
     bound = 1e-4 * max(nsteps, 140) / 140.0
+    evals = sim.pair_interactions_per_step // (sim.n_real * sim.n_real - sim.n_real)
     print(
-        f"[5 sym] uniform-sphere N={sim.n_real} morton_every=64 {nsteps} steps: "
-        f"median chunk {med:.4f} s = {med / 50 * 1e3:.4f} ms/step, {gints:.2f} G-int/s; "
+        f"[{tag}] uniform-sphere N={sim.n_real} morton_every=64 {kw} {nsteps} steps: median chunk "
+        f"{med:.4f} s = {med / chunk * 1e3:.4f} ms/step, {gints:.2f} G-int/s ({evals} force evaluations a step); "
         f"warm {warm[0]:.4f} s, timed {[round(t, 4) for t in times]}; energy drift {drift:.3e} "
         f"({drift / nsteps:.3e}/step), momentum err {mom:.3e}",
         flush=True,
     )
-    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), "sym: finite state of shape (n_pad, 4)")
-    check(drift <= bound, f"sym: energy drift {drift:.3e} <= {bound:.3e}")
-    check(mom <= 1e-5, f"sym: momentum error {mom:.3e} <= 1e-5")
+    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), f"{tag}: finite state of shape (n_pad, 4)")
+    check(drift <= bound, f"{tag}: energy drift {drift:.3e} <= {bound:.3e}")
+    check(mom <= 1e-5, f"{tag}: momentum error {mom:.3e} <= 1e-5")
+    return med / chunk * 1e3
+
+
+# Phase 4's and 5's ms/step, printed beside phase 10's.
+MAIN: dict[str, float] = {}
+
+
+def phase_exact(dev) -> None:
+    MAIN["phase 4"] = _exact_run(dev, "4 exact")
+
+
+def phase_sym(dev) -> None:
+    MAIN["phase 5"] = _sym_run(dev, "5 sym", chunk=50)
 
 
 # ------------------------------------------------------- the render path
@@ -1765,6 +1806,221 @@ def phase_mesh_grad_crosscheck(dev) -> None:
               f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
 
 
+# ------------------------------- the unfused sym step and the fused exact step
+SYM_FORCE = ("sym_diag_prep", "sym_hops", "sym_combine")
+
+
+def _verlet_on_card(pm, vel, aold, a, n_real):
+    """The torch Verlet of ``ops/integrate.py`` on the card, what the
+    unfused exact step runs after ``force_exact``."""
+    return apply_integrator("verlet", pm, vel, aold, a, DT, valid_mask(pm.shape[0], n_real, pm.device))
+
+
+def phase_unfused_checks(dev) -> None:
+    """10a: ``sym_diag``, ``sym_combine`` and ``fused_step_exact`` against
+    their twins at N = 8,192 (nt even), 7,936 (nt odd), 512 (nt = 2) and
+    256 (nt = 1), padded rows included; ``fused_step_exact`` against
+    ``force_exact`` + the torch Verlet bit for bit; ``accel_sym`` at both
+    ``center`` values against ``force_exact``, max-abs over scale < 2e-5."""
+    print("[10a unfused sym, fused exact] kernel vs plain twin, small shapes", flush=True)
+    rng = np.random.default_rng(10)
+    for n_pad, b, n_real in [(8192, 256, 8000), (7936, 256, 7900), (512, 256, 500), (256, 256, 250)]:
+        tag = f"N={n_pad} nt={n_pad // b}"
+        pm, vel, aold = _inputs(rng, n_pad, n_real, dev)
+        pm[0, 3] = 1e5
+        src = cf.sym_source_rows(pm, G)
+        acc_d, acc_d_p = cf.sym_diag(src, EPS2, b), cf.sym_diag_plain(src, EPS2, b)
+        same = torch.equal(acc_d, cf.sym_diag_prep(pm, G, EPS2, b)[1])
+        torch.cuda.synchronize()
+        check(rel_err(acc_d, acc_d_p) < 1e-5 and same,
+              f"{tag}: sym_diag vs plain {rel_err(acc_d, acc_d_p):.3e} < 1e-5, bit-equal to sym_diag_prep's")
+        acc_h = cf.sym_hops(src, EPS2, b)
+        comb = cf.sym_combine(acc_d, acc_h)
+        torch.cuda.synchronize()
+        check(torch.equal(comb, cf.sym_combine_plain(acc_d, acc_h)), f"{tag}: sym_combine vs plain bit-equal")
+        ex = cf.force_exact(pm, pm, G, EPS2)
+        for center in (True, False):
+            e = rel_err(cf.accel_sym(pm, G, eps2=EPS2, b=b, center=center)[:n_real], ex[:n_real])
+            check(e < 2e-5, f"{tag}: accel_sym center={center} vs force_exact {e:.3e} < 2e-5")
+        got = cf.fused_step_exact(pm, vel, aold, DT, G, eps2=EPS2, n_real=n_real)
+        want = _verlet_on_card(pm, vel, aold, ex, n_real)
+        twin = cf.fused_step_exact_plain(pm, vel, aold, DT, G, EPS2, n_real)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, w) for x, w in zip(got, want)),
+              f"{tag}: fused_step_exact bit-equal to force_exact + torch Verlet")
+        ea, ep, ev = rel_err(got[2], twin[2]), max_abs(got[0], twin[0]), max_abs(got[1], twin[1])
+        check(ea < 1e-5 and ep <= 1e-6 and ev <= 1e-6,
+              f"{tag}: fused_step_exact vs plain accel {ea:.3e} < 1e-5, |dp| {ep:.3e}, |dv| {ev:.3e} <= 1e-6")
+
+
+def phase_sym_yoshida4(dev) -> None:
+    """10b: the unfused sym path at full width with ``integrator="yoshida4"``."""
+    _sym_run(dev, "10b unfused sym, yoshida4", chunk=20, integrator="yoshida4")
+
+
+def phase_sym_unfused_verlet(dev) -> None:
+    """10b: ``fuse_epilogue=False`` with Verlet, beside phase 5's fused step."""
+    ms = _sym_run(dev, "10b unfused sym, verlet", chunk=20, fuse_epilogue=False)
+    fused = MAIN.get("phase 5", float("nan"))
+    print(f"  unfused {ms:.4f} vs fused (phase 5) {fused:.4f} ms/step: not fusing the epilogue costs "
+          f"{ms - fused:.4f} ms/step ({ms / fused - 1:.2%})", flush=True)
+
+
+def _exact_forward(step, st, k: int = 3):
+    def run():
+        s = SimState(st.pos_mass.clone(), st.vel.clone(), torch.zeros_like(st.pos_mass), 0)
+        for _ in range(k):
+            s = step(s, DT_MAIN, G)
+        return s
+
+    return run
+
+
+def phase_fused_exact(dev):
+    """10c: ``fuse_integrate=True`` at the reference default, two-galaxy N =
+    40,002, 200 steps, phase 4's token; then (after the counts) profiles of
+    a 3-step rollout of the fused step and of phase 4's unfused step."""
+    ms = _exact_run(dev, "10c fused exact", fuse_integrate=True)
+    unfused = MAIN.get("phase 4", float("nan"))
+    print(f"  fused {ms:.4f} vs unfused (phase 4) {unfused:.4f} ms/step ({ms / unfused - 1:+.2%})", flush=True)
+    st, n_real = _two_galaxy(dev)
+    return [
+        ("fused exact forward, 3 steps", _exact_forward(make_step_fn(SimConfig(fuse_integrate=True), st.n_pad, n_real, dev), st)),
+        ("unfused exact forward (phase 4's step), 3 steps", _exact_forward(make_step_fn(SimConfig(), st.n_pad, n_real, dev), st)),
+    ]
+
+
+def phase_sym_grad_crosscheck(dev, n: int = 4096) -> None:
+    """10d: 6d's rollout at N = 4,096 through the unfused sym route with
+    yoshida4 against the ``backend="jnp"`` route, by v0, dt and G, rtol
+    2e-3; and a gradient request through ``fuse_integrate=True`` raises."""
+    rng = np.random.default_rng(7)
+    pm = torch.from_numpy(np.concatenate(
+        [rng.standard_normal((n, 3)), rng.uniform(10, 50, (n, 1))], axis=1).astype(np.float32)).to(dev)
+    grads = {}
+    for name, cfg in (("sym yoshida4", SimConfig(force_mode="sym", integrator="yoshida4")),
+                      ("jnp yoshida4", SimConfig(backend="jnp", integrator="yoshida4"))):
+        step = make_step_fn(cfg, n, n, dev)
+        v = torch.zeros((n, 4), device=dev, requires_grad=True)
+        dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (1e-2, G))
+        s = SimState(pm.clone(), v, torch.zeros_like(pm), 0)
+        for _ in range(10):
+            s = step(s, dt, g)
+        grads[name] = torch.autograd.grad((s.pos_mass[0, :3] ** 2).sum(), (v, dt, g))
+    (gv, gdt, gg), (rv, rdt, rg) = grads["sym yoshida4"], grads["jnp yoshida4"]
+    _grad_agrees(gv, rv, f"[10d grad check] N={n} yoshida4 sym route vs jnp route, by v0")
+    e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, rdt), (gg, rg)))
+    check(e_dt <= 2e-3 and e_g <= 2e-3,
+          f"[10d grad check] N={n} yoshida4 sym: d/d dt {float(gdt):.6e} (rel err {e_dt:.3e}), "
+          f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
+    step = make_step_fn(SimConfig(fuse_integrate=True), n, n, dev)
+    v = torch.zeros((n, 4), device=dev, requires_grad=True)
+    try:
+        step(SimState(pm.clone(), v, torch.zeros_like(pm), 0), 1e-2, G)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("no gradient" in raised, f"[10d grad check] a gradient request through fuse_integrate=True raises: {raised!r}")
+
+
+def phase_uncentred_sym(dev) -> None:
+    """The uncentred route (``accel_sym(center=False)``: torch-built source
+    rows -> ``sym_diag`` -> ``sym_hops`` -> ``sym_combine``), on no main
+    path, at uniform-sphere N = 262,144, against ``center=True``."""
+    n = 262144
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
+    st = init_state(pm_np, vel_np, n_pad=n, device=dev)
+    pm = morton_reorder(st.pos_mass, st.vel, st.accel, n_real=n)[0]
+    a_c = cf.accel_sym(pm, G, eps2=EPS2, b=GPU_TILE, center=True)
+    for _ in range(3):
+        a_u = cf.accel_sym(pm, G, eps2=EPS2, b=GPU_TILE, center=False)
+    torch.cuda.synchronize()
+    e = rel_err(a_u, a_c)
+    check(e < 2e-5, f"[10e uncentred sym] N={n}: center=False vs center=True {e:.3e} < 2e-5")
+
+
+def phase_unfused_times(dev) -> dict[str, dict]:
+    """The three kernels beside their twins at the main-path shapes:
+    ``sym_combine`` and ``sym_diag`` at 10b's (uniform-sphere N = 262,144,
+    tile 256), ``sym_combine`` with L2 warm and flushed and beside
+    ``torch.add`` (its library call); ``fused_step_exact`` at 10c's
+    (two-galaxy n_pad 40,192)."""
+    print("[10 unfused sym, fused exact] times at main-path shapes (CUDA events)", flush=True)
+    out: dict[str, dict] = {}
+    n, b = 262144, GPU_TILE
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
+    st = init_state(pm_np, vel_np, n_pad=n, device=dev)
+    pm = morton_reorder(st.pos_mass, st.vel, st.accel, n_real=n)[0]
+    src = cf.sym_source_rows(pm, G)
+    acc_d, acc_d_p = cf.sym_diag(src, EPS2, b), cf.sym_diag_plain(src, EPS2, b)
+    torch.cuda.synchronize()
+    check(rel_err(acc_d, acc_d_p) < 1e-5, f"uniform-sphere N={n}: sym_diag vs plain {rel_err(acc_d, acc_d_p):.3e} < 1e-5")
+    out["sym_diag"] = {
+        "max_abs_err": max_abs(acc_d, acc_d_p),
+        "ms": cuda_ms(lambda: cf.sym_diag(src, EPS2, b), reps=20),
+        "plain_ms": cuda_ms(lambda: cf.sym_diag_plain(src, EPS2, b), reps=2),
+        "shape": f"({n}, 4), tile {b}",
+        **bound("sym_diag", n * (b - 1), 32 * n, rsqrts=n * (b - 1)),
+    }
+    del acc_d_p
+    acc_h = cf.sym_hops(src, EPS2, b)
+    comb, comb_p = cf.sym_combine(acc_d, acc_h), cf.sym_combine_plain(acc_d, acc_h)
+    torch.cuda.synchronize()
+    check(torch.equal(comb, comb_p), f"uniform-sphere N={n}: sym_combine vs plain bit-equal")
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)  # 128 MB > the 50 MB L2
+    calls = {
+        "kernel": lambda: cf.sym_combine(acc_d, acc_h),
+        "plain": lambda: cf.sym_combine_plain(acc_d, acc_h),
+        "library": lambda: torch.add(acc_d, acc_h),
+    }
+    warm = {k: cuda_ms(f, reps=50) for k, f in calls.items()}
+    cold = {k: cuda_ms_cold(f, 50, flush) for k, f in calls.items()}
+    out["sym_combine"] = {
+        "max_abs_err": max_abs(comb, comb_p),
+        "ms": cold["kernel"],
+        "plain_ms": cold["plain"],
+        "library_ms": cold["library"],
+        "library_note": "torch.add(acc_diag, acc_hop), L2 flushed",
+        "shape": f"2 x ({n}, 4) in, ({n}, 4) out",
+        "note": "L2 flushed; L2 warm " + ", ".join(f"{k} {t:.4f} ms" for k, t in warm.items()),
+        **bound("sym_combine", n, 48 * n),
+    }
+    del flush
+
+    st, n_real = _two_galaxy(dev)
+    n = st.n_pad
+    pm, vel = st.pos_mass, st.vel
+    aold = cf.force_exact(pm, pm, G, EPS2)
+    got = cf.fused_step_exact(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real)
+    twin = cf.fused_step_exact_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real)
+    want = apply_integrator("verlet", pm, vel, aold, cf.force_exact(pm, pm, G, EPS2), DT_MAIN,
+                            valid_mask(n, n_real, dev))
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, w) for x, w in zip(got, want)),
+          f"two-galaxy N={n}: fused_step_exact bit-equal to force_exact + torch Verlet")
+    check(rel_err(got[2], twin[2]) < 1e-5, f"two-galaxy N={n}: fused_step_exact vs plain {rel_err(got[2], twin[2]):.3e} < 1e-5")
+    # Pairs only: the Verlet's ~33 FLOP a row is 1e-6 of them here.
+    out["fused_step_exact"] = {
+        "max_abs_err": max_abs(got[2], twin[2]),
+        "ms": cuda_ms(lambda: cf.fused_step_exact(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real), reps=20),
+        "plain_ms": cuda_ms(lambda: cf.fused_step_exact_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real), reps=3),
+        "shape": f"3 x ({n}, 4) in, 3 x ({n}, 4) out",
+        "note": "force_exact + torch Verlet "
+                f"{cuda_ms(lambda: _verlet_on_card(pm, vel, aold, cf.force_exact(pm, pm, G, EPS2), n_real), reps=20):.4f} ms",
+        **bound("fused_step_exact", n * n, 96 * n, rsqrts=n * n),
+    }
+    _print_times(out)
+    return out
+
+
+def _print_times(out: dict[str, dict]) -> None:
+    for name, r in out.items():
+        print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}"
+              + (f"  library {r['library_ms']:.4f} ms" if r.get("library_ms") is not None else "")
+              + (f"  [{r['note']}]" if "note" in r else ""), flush=True)
+
+
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
 VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # The main paths, each with the kernels it runs; a kernel's "launches" is
@@ -1779,19 +2035,25 @@ PATHS = (
     ("phase 8d (PM path)", phase_pm, ("mesh_deposit", "mesh_gather")),
     ("phase 9b (P3M gradient path)", phase_grad_p3m, MESH_GRAD),
     ("phase 9c (PM gradient path)", phase_grad_pm, ("mesh_deposit", "mesh_gather")),
+    ("phase 10b (unfused sym path, yoshida4)", phase_sym_yoshida4, SYM_FORCE),
+    ("phase 10b (unfused sym path, verlet)", phase_sym_unfused_verlet, SYM_FORCE),
+    ("phase 10c (fused exact path)", phase_fused_exact, ("fused_step_exact",)),
 )
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
 SIDE = (
     ("phase 6c (full-grid VJP route)", phase_grad_full, ("force_exact", "vjp_full")),
-    ("phase 6d (cross-check)", phase_grad_crosscheck,
-     tuple(k for k in KERNELS if k != "splat_resolve" and k not in MESH_GRAD)),
+    ("phase 6d (cross-check)", phase_grad_crosscheck, ("force_exact", "vjp_full") + SYM + VJP_SYM),
     ("phase 8c (P3M accuracy probe and run)", phase_p3m_probe, ("force_exact",) + MESH_KERNELS),
     ("phase 8e (mesh cross-check)", phase_mesh_crosscheck, MESH_KERNELS),
     ("phase 9d (mesh gradient cross-check)", phase_mesh_grad_crosscheck, MESH_GRAD),
+    ("phase 10d (unfused sym gradient cross-check)", phase_sym_grad_crosscheck, SYM_FORCE + VJP_SYM),
+    ("phase 10e (uncentred sym route)", phase_uncentred_sym, ("sym_diag", "sym_hops", "sym_combine", "sym_diag_prep")),
 )
 FULL_ROUTE = SIDE[0][0]
+# Kernels on no main path: their launches come from these side windows.
+LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": SIDE[-1][0]}
 
 
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
@@ -1830,6 +2092,7 @@ def main() -> int:
     phase_render_checks(dev)
     phase_mesh_checks(dev)
     phase_mesh_grad_checks(dev)
+    phase_unfused_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -1842,13 +2105,15 @@ def main() -> int:
         by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path,)}
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
+    times.update(phase_unfused_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 
     kernels = []
     for name in KERNELS:
-        if name == "vjp_full":
-            launches = {"launches": side[FULL_ROUTE][name], "launches_from": FULL_ROUTE}
+        if name in LAUNCHES_FROM:
+            window = LAUNCHES_FROM[name]
+            launches = {"launches": side[window][name], "launches_from": window}
         else:
             launches = {
                 "launches": sum(c[name] for c in by_path.values()),
@@ -1865,9 +2130,10 @@ def main() -> int:
             "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"],
             "bound_by": times[name]["bound_by"],
-            # Only the resolve, the deposit and the (CIC) gather have one
-            # PyTorch call of the same function (scatter_reduce_ "amin" and
-            # index_add_ over their pre-expanded pairs, grid_sample).
+            # Only the resolve, the deposit, the (CIC) gather and the sym
+            # combine have one PyTorch call of the same function
+            # (scatter_reduce_ "amin" and index_add_ over their pre-expanded
+            # pairs, grid_sample, torch.add).
             "library_ms": times[name].get("library_ms"),
             **({"library_note": times[name]["library_note"]} if "library_note" in times[name] else {}),
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),

@@ -46,8 +46,9 @@ class SimConfig:
     ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"`` only),
     ``cosmology`` (``"none"`` only), ``backend``, ``block_target`` (capped
     at the GPU tile), ``force_mode`` (``"exact"`` or ``"sym"``, direct
-    only), ``morton_every``, ``fuse_integrate`` (``False`` only, direct),
-    ``fuse_epilogue``, ``grad_precision``, ``seed`` and ``size_factor``.
+    only), ``morton_every``, ``fuse_integrate`` (exact with Verlet: the
+    one-launch force + Verlet kernel), ``fuse_epilogue``,
+    ``grad_precision``, ``seed`` and ``size_factor``.
     ``box_size``, ``mesh_interlace`` and ``p3m_halo_tiles`` belong to the
     periodic boundary and the sharded P3M step, which are not ported.
     """
@@ -81,7 +82,8 @@ class SimConfig:
     block_target: int = 2048
     block_source: int = 2048
     # "exact": one f32 all-pairs force kernel, then the integrator.
-    # "sym": the fused Newton-3 step (each unordered pair evaluated once).
+    # "sym": Newton-3 (each unordered pair evaluated once): the fused step
+    # with Verlet, the sym force and the integrator otherwise.
     # "fast": not ported.
     force_mode: str = "exact"
     # Re-sort bodies along the Morton curve every this many steps (0 =

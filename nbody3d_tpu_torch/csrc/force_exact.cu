@@ -20,11 +20,9 @@
 // thread sweeps the tile as a broadcast read.  The TPU version streamed
 // (4, BS) source tiles through VMEM and reduced over lanes; here the
 // reduction is a register accumulator and needs no cross-thread step.
-// Each tile is summed into its own partial before the running total takes
-// it (as the TPU kernel summed each source tile before accumulating): one
-// sequential f32 sum over all 40k sources of the two-galaxy run measured
-// 3.0e-5 max-abs/scale against the plain twin on an H100, above the 1e-5
-// bound, because a central body's term dwarfs the rest of its row.
+// The loop is pair.cuh's all_pairs_pull, which sums each source tile into
+// its own partial first (its note says why) and which fused_step_exact
+// shares, so the two kernels' forces are the same bits.
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
@@ -39,31 +37,8 @@ force_exact_kernel(const float4* __restrict__ tgt, const float4* __restrict__ sr
     __shared__ float4 tile[kTile];
     const int row = blockIdx.x * kTile + threadIdx.x;
     const float4 me = row < n_t ? tgt[row] : make_float4(0.f, 0.f, 0.f, 0.f);
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int base = 0; base < n_s; base += kTile) {
-        const int s = base + threadIdx.x;
-        float4 q = s < n_s ? src[s] : make_float4(0.f, 0.f, 0.f, 0.f);
-        q.w = G * q.w;
-        tile[threadIdx.x] = q;
-        __syncthreads();
-        float tx = 0.f, ty = 0.f, tz = 0.f;
-#pragma unroll 8
-        for (int r = 0; r < kTile; ++r) {
-            const float4 p = tile[r];
-            const float dx = p.x - me.x;
-            const float dy = p.y - me.y;
-            const float dz = p.z - me.z;
-            const float w = p.w * pair_inv3(dx, dy, dz, eps2);
-            tx = fmaf(w, dx, tx);
-            ty = fmaf(w, dy, ty);
-            tz = fmaf(w, dz, tz);
-        }
-        ax += tx;
-        ay += ty;
-        az += tz;
-        __syncthreads();
-    }
-    if (row < n_t) out[row] = make_float4(ax, ay, az, 0.f);
+    const float3 a = all_pairs_pull<kTile>(src, n_s, G, eps2, me, tile);
+    if (row < n_t) out[row] = make_float4(a.x, a.y, a.z, 0.f);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
-// sym_diag_prep: first stage of the fused Newton-3 ("sym") step.
+// sym_diag_prep: first stage of the Newton-3 ("sym") step and force.
 //
 // Replaces: nbody3d_tpu/ops/pallas_force.py::_sym_diag_prep_kernel
-// (reached by sym_diag_prep_pallas from sym_verlet_step_pallas).
+// (reached by sym_diag_prep_pallas from sym_verlet_step_pallas and from
+// accel_sym_pallas(center=True)).
 //
 // What it computes, per tile of b bodies (one CUDA block, one thread a body):
 //   - src[row] = [x, y, z, G*m], the G-folded source rows the hops read;
@@ -18,10 +19,11 @@
 // small share of the step's N^2/2), so FP32 issue and MUFU rsqrt again;
 // the O(N) row reads and writes are coalesced float4 accesses.
 //
-// Design: the tile is staged once in shared memory as four SoA arrays;
-// thread t visits sources in the staggered order (t + r) mod b, r = 1..b-1,
-// which skips the self pair without a branch and keeps the 32 lanes of a
-// warp on 32 consecutive banks.
+// Design: the tile is staged once in shared memory as four SoA arrays and
+// each thread sums its row with pair.cuh's in_tile_pull (the staggered
+// order (t + r) mod b, r = 1..b-1, skips the self pair without a branch and
+// keeps the 32 lanes of a warp on 32 consecutive banks).  sym_diag runs the
+// same loop on source rows built outside the kernel.
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
@@ -46,19 +48,8 @@ sym_diag_prep_kernel(const float4* __restrict__ pm, float4* __restrict__ src,
     sz[t] = p.z;
     sg[t] = gm;
     __syncthreads();
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int r = 1; r < b; ++r) {
-        int s = t + r;
-        if (s >= b) s -= b;
-        const float dx = sx[s] - p.x;
-        const float dy = sy[s] - p.y;
-        const float dz = sz[s] - p.z;
-        const float w = sg[s] * pair_inv3(dx, dy, dz, eps2);
-        ax = fmaf(w, dx, ax);
-        ay = fmaf(w, dy, ay);
-        az = fmaf(w, dz, az);
-    }
-    acc[row] = make_float4(ax, ay, az, 0.f);
+    const float3 a = in_tile_pull(sx, sy, sz, sg, b, t, p, eps2);
+    acc[row] = make_float4(a.x, a.y, a.z, 0.f);
 }
 
 }  // namespace

@@ -20,25 +20,20 @@
 // and writes three, 128 bytes a row, and does a few flops a row.
 //
 // Design: one thread per row, float4 loads and stores (coalesced, 16 bytes
-// a thread).  Every operation is an explicit round-to-nearest add or
-// multiply, so nvcc forms no fused multiply-add and the result equals the
-// plain PyTorch version bit for bit on the same accumulators.  The state
-// is updated in place: each thread reads its whole row before it writes.
+// a thread).  The update is verlet.cuh's verlet_row, whose explicit
+// round-to-nearest adds and multiplies leave nvcc no fused multiply-add to
+// form, so the result equals the plain PyTorch version bit for bit on the
+// same accumulators.  The state is updated in place: each thread reads its
+// whole row before it writes.
 // It is an elementwise pass and Triton would serve; it stays CUDA C++ so
 // that the port has one build path.
 #include <cuda_runtime.h>
 
+#include "verlet.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float verlet_v(float v, float ao, float a, float half_dt) {
-    return __fadd_rn(v, __fmul_rn(__fadd_rn(ao, a), half_dt));
-}
-
-__device__ __forceinline__ float verlet_x(float x, float vn, float a, float half_dt, float dt) {
-    return __fadd_rn(x, __fmul_rn(__fadd_rn(vn, __fmul_rn(a, half_dt)), dt));
-}
 
 __global__ void __launch_bounds__(kThreads)
 sym_epilogue_kernel(const float4* __restrict__ acc_diag, const float4* __restrict__ acc_hop,
@@ -53,16 +48,8 @@ sym_epilogue_kernel(const float4* __restrict__ acc_diag, const float4* __restric
     const float4 h = acc_hop[row];
     const float4 a = make_float4(__fadd_rn(d.x, h.x), __fadd_rn(d.y, h.y),
                                  __fadd_rn(d.z, h.z), __fadd_rn(d.w, h.w));
-    const float4 p = pm[row];
-    const float4 v = vel[row];
-    const float4 ao = accel[row];
-    const float half_dt = __fmul_rn(dt, 0.5f);
-    const float4 vn = make_float4(verlet_v(v.x, ao.x, a.x, half_dt), verlet_v(v.y, ao.y, a.y, half_dt),
-                                  verlet_v(v.z, ao.z, a.z, half_dt), verlet_v(v.w, ao.w, a.w, half_dt));
-    const float4 pn = make_float4(verlet_x(p.x, vn.x, a.x, half_dt, dt),
-                                  verlet_x(p.y, vn.y, a.y, half_dt, dt),
-                                  verlet_x(p.z, vn.z, a.z, half_dt, dt),
-                                  verlet_x(p.w, vn.w, a.w, half_dt, dt));
+    float4 pn, vn;
+    verlet_row(pm[row], vel[row], accel[row], a, dt, pn, vn);
     pm[row] = pn;
     vel[row] = vn;
     accel[row] = a;

@@ -1,13 +1,16 @@
 """The forward kernels' wrappers and plain twins.
 
-Four kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
+Seven kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 
-==================  =========================================================
-``force_exact``     all-pairs f32 force, targets x sources (exact mode)
-``sym_diag_prep``   sym step 1: G-folded source rows + in-tile partials
-``sym_hops``        sym step 2: off-diagonal tile pairs, both directions
-``sym_epilogue_``   sym step 3: sum the partials, mask padding, Verlet
-==================  =========================================================
+====================  =======================================================
+``force_exact``       all-pairs f32 force, targets x sources (exact mode)
+``fused_step_exact``  ``force_exact``'s sum and the Verlet update, one launch
+``sym_diag_prep``     sym 1: G-folded source rows + in-tile partials
+``sym_diag``          sym 1, uncentred route: in-tile partials of given rows
+``sym_hops``          sym 2: off-diagonal tile pairs, both directions
+``sym_epilogue_``     fused sym step 3: sum the partials, mask padding, Verlet
+``sym_combine``       sym force 3: sum the partials
+====================  =======================================================
 
 Each wrapper checks its tensors (``ops/launch.py``: float32, ``(N, 4)``,
 contiguous, one device, no autograd) and then takes its plain PyTorch twin
@@ -17,12 +20,15 @@ nothing and do not synchronise.  Each launch adds one to the kernel's count
 (``ops.launch.launch_counts``, shared with the VJP kernels of ``force_vjp``), so a
 run can show that it went through the kernels.
 
-The sym step keeps f32 vector accumulators in global memory:
-``acc_diag`` (written by ``sym_diag_prep``) and ``acc_hop`` (zeroed by
-the wrapper, summed into with atomics by ``sym_hops``).  Tile size ``b``
-is the CUDA block size (one thread a body, ``b <= 1024``); ``nt = N / b``
-tiles.  Any ``nt >= 2`` works: odd ``nt`` has no half hop, ``nt = 2`` only
-the half hop.
+The sym passes keep f32 vector accumulators in global memory:
+``acc_diag`` (written by ``sym_diag_prep`` or ``sym_diag``) and ``acc_hop``
+(zeroed by the wrapper, summed into with atomics by ``sym_hops``).  Tile
+size ``b`` is the CUDA block size (one thread a body, ``b <= 1024``);
+``nt = N / b`` tiles.  Any ``nt >= 1`` works: odd ``nt`` has no half hop,
+``nt = 2`` only the half hop, ``nt = 1`` no hop launch at all.  Two
+routes use them: the fused sym step :func:`sym_step_` (diag_prep -> hops
+-> epilogue, in place) and the sym force :func:`accel_sym` (-> combine),
+which the unfused sym step differentiates and integrates.
 """
 
 from __future__ import annotations
@@ -74,27 +80,63 @@ def force_exact(tgt: torch.Tensor, src: torch.Tensor, G: float, eps2: float) -> 
     return out
 
 
+# ------------------------------------------------------- fused_step_exact
+def fused_step_exact_plain(
+    pos_mass: torch.Tensor,
+    vel: torch.Tensor,
+    accel: torch.Tensor,
+    dt: float,
+    G: float,
+    eps2: float,
+    n_real: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of ``fused_step_exact``: :func:`force_exact_plain`, then
+    the Verlet update of ``ops/integrate.py`` with the valid mask."""
+    a = force_exact_plain(pos_mass, pos_mass, G, eps2)
+    valid = valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+    return apply_integrator("verlet", pos_mass, vel, accel, a, dt, valid)
+
+
+def fused_step_exact(
+    pos_mass: torch.Tensor,
+    vel: torch.Tensor,
+    accel: torch.Tensor,
+    dt: float,
+    G: float,
+    *,
+    eps2: float,
+    n_real: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One exact force + Verlet step in one launch
+    (``fused_step_pallas(mode="exact")``'s counterpart).  Returns new
+    ``(pos_mass, vel, accel)``, each ``(N, 4)``: rows ``>= n_real`` keep
+    their position and velocity and store a zero acceleration.  On the
+    card it equals :func:`force_exact` followed by the torch Verlet bit for
+    bit.  No gradient: the inputs may not require grad (nor does the JAX
+    fused step have a VJP)."""
+    dev = check_rows("fused_step_exact", pos_mass, vel, accel)
+    if len({t.shape for t in (pos_mass, vel, accel)}) != 1:
+        raise ValueError("fused_step_exact: pos_mass, vel and accel must have one shape")
+    if eps2 <= 0:
+        raise ValueError("eps2 must be > 0 (softening keeps the self pair finite)")
+    if dev.type == "cpu":
+        return fused_step_exact_plain(pos_mass, vel, accel, dt, G, eps2, n_real)
+    n = pos_mass.shape[0]
+    out = tuple(torch.empty_like(pos_mass) for _ in range(3))
+    launch(
+        "fused_step_exact", dev, lib().nb_fused_step_exact,
+        pos_mass, vel, accel, *out, n, min(int(n_real), n), float(dt), float(G), float(eps2),
+    )
+    return out
+
+
 # ---------------------------------------------------------- sym_diag_prep
 def sym_diag_prep_plain(
     pos_mass: torch.Tensor, G: float, eps2: float, b: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of ``sym_diag_prep``: ``(src, acc_diag)``."""
-    n = pos_mass.shape[0]
-    nt = n // b
-    gm = pos_mass[:, 3:4] * float(G)
-    src = torch.cat([pos_mass[:, :3], gm], dim=1)
-    tiles = src.view(nt, b, 4)
-    d = tiles[:, None, :, :3] - tiles[:, :, None, :3]  # (nt, t, s, 3): x_s - x_t
-    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
-    d2 = dx * dx + (dy * dy + (dz * dz + eps2))
-    w = tiles[:, None, :, 3] * torch.rsqrt(d2 * (d2 * d2))
-    w = w * (1.0 - torch.eye(b, dtype=w.dtype, device=w.device))
-    acc = torch.stack(
-        [torch.sum(w * dx, dim=2), torch.sum(w * dy, dim=2), torch.sum(w * dz, dim=2),
-         torch.zeros_like(dx[..., 0])],
-        dim=2,
-    ).reshape(n, 4)
-    return src, acc
+    src = sym_source_rows(pos_mass, G)
+    return src, sym_diag_plain(src, eps2, b)
 
 
 def sym_diag_prep(
@@ -104,7 +146,7 @@ def sym_diag_prep(
     ``[x, y, z, G*m]`` and each tile's in-tile partial accelerations (all
     ordered pairs of the tile, self pair skipped), both ``(N, 4)``."""
     dev = check_rows("sym_diag_prep", pos_mass)
-    nt = check_tile("sym_diag_prep", pos_mass.shape[0], b)
+    nt = check_tile("sym_diag_prep", pos_mass.shape[0], b, min_tiles=1)
     if dev.type == "cpu":
         return sym_diag_prep_plain(pos_mass, G, eps2, b)
     src = torch.empty_like(pos_mass)
@@ -114,6 +156,44 @@ def sym_diag_prep(
         pos_mass, src, acc, nt, b, float(G), float(eps2),
     )
     return src, acc
+
+
+# --------------------------------------------------------------- sym_diag
+def sym_source_rows(pos_mass: torch.Tensor, G: float) -> torch.Tensor:
+    """The G-folded source rows ``[x, y, z, G*m]`` that the sym passes read
+    (what ``sym_diag_prep`` writes, the same f32 product)."""
+    return torch.cat([pos_mass[:, :3], pos_mass[:, 3:4] * float(G)], dim=1)
+
+
+def sym_diag_plain(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
+    """Plain twin of ``sym_diag``: ``sym_diag_prep_plain``'s in-tile sum on
+    the given source rows."""
+    n = src.shape[0]
+    nt = n // b
+    tiles = src.view(nt, b, 4)
+    d = tiles[:, None, :, :3] - tiles[:, :, None, :3]  # (nt, t, s, 3): x_s - x_t
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    d2 = dx * dx + (dy * dy + (dz * dz + eps2))
+    w = tiles[:, None, :, 3] * torch.rsqrt(d2 * (d2 * d2))
+    w = w * (1.0 - torch.eye(b, dtype=w.dtype, device=w.device))
+    return torch.stack(
+        [torch.sum(w * dx, dim=2), torch.sum(w * dy, dim=2), torch.sum(w * dz, dim=2),
+         torch.zeros_like(dx[..., 0])],
+        dim=2,
+    ).reshape(n, 4)
+
+
+def sym_diag(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
+    """The uncentred route's first pass.  ``src`` are the prepared source
+    rows ``[x, y, z, G*m]`` (:func:`sym_source_rows`); returns ``acc_diag
+    (N, 4)``: each tile's in-tile partial accelerations, self pair skipped."""
+    dev = check_rows("sym_diag", src)
+    nt = check_tile("sym_diag", src.shape[0], b, min_tiles=1)
+    if dev.type == "cpu":
+        return sym_diag_plain(src, eps2, b)
+    acc = torch.empty_like(src)
+    launch("sym_diag", dev, lib().nb_sym_diag, src, acc, nt, b, float(eps2))
+    return acc
 
 
 # --------------------------------------------------------------- sym_hops
@@ -148,9 +228,11 @@ def sym_hops_plain(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
 def sym_hops(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
     """Sym step 2.  Returns ``acc_hop (N, 4)``: for every unordered tile
     pair, the forward partial on the target tile and the reverse (Newton-3)
-    partial on the source tile, each pair's weight computed once."""
+    partial on the source tile, each pair's weight computed once.  One tile
+    has no pair: zeros, and no launch (the JAX package skips its hop calls
+    there)."""
     dev = check_rows("sym_hops", src)
-    nt = check_tile("sym_hops", src.shape[0], b)
+    nt = check_tile("sym_hops", src.shape[0], b, min_tiles=1)
     if dev.type == "cpu":
         return sym_hops_plain(src, eps2, b)
     acc = torch.zeros_like(src)
@@ -224,3 +306,45 @@ def sym_step_(
     src, acc_diag = sym_diag_prep(pos_mass, G, eps2, b)
     acc_hop = sym_hops(src, eps2, b)
     sym_epilogue_(acc_diag, acc_hop, pos_mass, vel, accel, dt, n_real)
+
+
+# ------------------------------------------------------------ sym_combine
+def sym_combine_plain(acc_diag: torch.Tensor, acc_hop: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``sym_combine``: the same adds, w lane 0."""
+    a = acc_diag + acc_hop
+    a[:, 3] = 0.0
+    return a
+
+
+def sym_combine(acc_diag: torch.Tensor, acc_hop: torch.Tensor) -> torch.Tensor:
+    """Sym force 3: ``a = acc_diag + acc_hop``, w lane 0, on every row
+    (``combine16_pallas``'s counterpart: no ``n_real``; padded rows carry
+    the pull of the real bodies, and the integrator's mask freezes them)."""
+    dev = check_rows("sym_combine", acc_diag, acc_hop)
+    if acc_diag.shape != acc_hop.shape:
+        raise ValueError("sym_combine: acc_diag and acc_hop must have one shape")
+    if dev.type == "cpu":
+        return sym_combine_plain(acc_diag, acc_hop)
+    out = torch.empty_like(acc_diag)
+    launch("sym_combine", dev, lib().nb_sym_combine, acc_diag, acc_hop, out, acc_diag.shape[0])
+    return out
+
+
+def accel_sym(
+    pos_mass: torch.Tensor, G: float, *, eps2: float, b: int, center: bool = True
+) -> torch.Tensor:
+    """All-pairs accelerations ``(N, 4)`` through the Newton-3 schedule with
+    tile ``b`` (``accel_sym_pallas``'s counterpart), any ``nt = N / b >= 1``.
+    ``center=True``: ``sym_diag_prep`` -> ``sym_hops`` -> ``sym_combine``;
+    ``center=False`` (the JAX package's ablation route, operands built
+    outside the kernels): torch builds the source rows, then ``sym_diag`` ->
+    ``sym_hops`` -> ``sym_combine``.  With no limbs to centre, both routes
+    compute the same sums: on one device they give the same bits."""
+    if eps2 <= 0:
+        raise ValueError("eps2 must be > 0 (softening keeps the self pair finite)")
+    if center:
+        src, acc_diag = sym_diag_prep(pos_mass, G, eps2, b)
+    else:
+        src = sym_source_rows(pos_mass, G)
+        acc_diag = sym_diag(src, eps2, b)
+    return sym_combine(acc_diag, sym_hops(src, eps2, b))

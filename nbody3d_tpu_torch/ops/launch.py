@@ -1,25 +1,28 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The thirteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The sixteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
-===================  ===================  ===================================
-kernel               wrapper module       computes
-===================  ===================  ===================================
-``force_exact``      ``cuda_force``       all-pairs f32 force (exact mode)
-``sym_diag_prep``    ``cuda_force``       sym step 1: source rows, in-tile
-``sym_hops``         ``cuda_force``       sym step 2: off-diagonal tile pairs
-``sym_epilogue``     ``cuda_force``       sym step 3: sum, mask, Verlet
-``vjp_full``         ``force_vjp``        force VJP, every target x source
-``vjp_sym_diag``     ``force_vjp``        sym VJP 1: in-tile pairs
-``vjp_sym_hops``     ``force_vjp``        sym VJP 2: off-diagonal tile pairs
-``vjp_combine``      ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
-``splat_resolve``    ``render.resolve``   the renderer's depth-min resolve
-``short_range``      ``p3m``              P3M's block-sparse short-range pass
-``short_range_bwd``  ``p3m``              its VJP: x̄, m̄ and σ̄, gather only
-``mesh_deposit``     ``mesh_cuda``        TSC/CIC mass deposit onto the mesh
-``mesh_gather``      ``mesh_cuda``        TSC/CIC interpolation of the forces
-===================  ===================  ===================================
+====================  ===================  ===================================
+kernel                wrapper module       computes
+====================  ===================  ===================================
+``force_exact``       ``cuda_force``       all-pairs f32 force (exact mode)
+``sym_diag_prep``     ``cuda_force``       sym step 1: source rows, in-tile
+``sym_hops``          ``cuda_force``       sym step 2: off-diagonal tile pairs
+``sym_epilogue``      ``cuda_force``       sym step 3: sum, mask, Verlet
+``sym_diag``          ``cuda_force``       uncentred sym force 1: in-tile
+``sym_combine``       ``cuda_force``       sym force 3: sum the partials
+``fused_step_exact``  ``cuda_force``       exact force + Verlet, one launch
+``vjp_full``          ``force_vjp``        force VJP, every target x source
+``vjp_sym_diag``      ``force_vjp``        sym VJP 1: in-tile pairs
+``vjp_sym_hops``      ``force_vjp``        sym VJP 2: off-diagonal tile pairs
+``vjp_combine``       ``force_vjp``        sym VJP 3: sum, scale by G, Ḡ
+``splat_resolve``     ``render.resolve``   the renderer's depth-min resolve
+``short_range``       ``p3m``              P3M's block-sparse short-range pass
+``short_range_bwd``   ``p3m``              its VJP: x̄, m̄ and σ̄, gather only
+``mesh_deposit``      ``mesh_cuda``        TSC/CIC mass deposit onto the mesh
+``mesh_gather``       ``mesh_cuda``        TSC/CIC interpolation of the forces
+====================  ===================  ===================================
 
 A wrapper checks its tensors (dtype, shape, contiguous, one device, no
 autograd: the kernels never see a tensor that requires grad; gradients
@@ -35,7 +38,8 @@ from __future__ import annotations
 import torch
 
 KERNELS = (
-    "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue",
+    "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue", "sym_diag", "sym_combine",
+    "fused_step_exact",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
     "splat_resolve", "short_range", "mesh_deposit", "mesh_gather", "short_range_bwd",
 )

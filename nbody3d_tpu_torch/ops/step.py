@@ -18,13 +18,23 @@ For ``method="direct"``:
 
 - ``"jnp"``: the plain oracle (``ops/force_torch.py``) and the
   integrator, on any device.  The only way plain code runs on the card.
-- ``"auto"`` (any device) and ``"pallas"`` (CUDA only): the kernel path.
-  ``force_mode="exact"`` runs ``force_exact`` and the integrator;
-  ``force_mode="sym"`` with ``integrator="verlet"``, ``fuse_epilogue`` and
-  ``nt >= 2`` tiles runs the fused sym step.  On a CPU device the kernel
-  wrappers run their plain twins, because the tensors lie on the CPU.
-  Every other combination raises ``NotImplementedError`` naming its
-  ROADMAP.md item; nothing falls back to plain code.
+- ``"auto"`` (any device) and ``"pallas"`` (CUDA only): the kernel path,
+  in the JAX package's order:
+
+  1. ``force_mode="sym"`` with ``integrator="verlet"``, ``fuse_epilogue``
+     and ``nt >= 2`` tiles: the fused sym step (``sym_step_``);
+  2. any other ``"sym"`` (euler, yoshida4, ``fuse_epilogue=False``, one
+     tile; ``fuse_integrate`` is not read, as in JAX): the sym force
+     ``accel_sym`` (``sym_diag_prep`` -> ``sym_hops`` -> ``sym_combine``)
+     and the integrator;
+  3. ``"exact"`` with ``fuse_integrate`` and ``verlet``: the one-launch
+     ``fused_step_exact``, which has no gradient (a request raises);
+  4. ``"exact"`` otherwise: ``force_exact`` and the integrator.
+
+  On a CPU device the kernel wrappers run their plain twins, because the
+  tensors lie on the CPU.  ``"fast"``, with or without ``fuse_integrate``,
+  raises ``NotImplementedError`` naming its ROADMAP.md item; nothing falls
+  back to plain code.
 
 Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
 the JAX package's step) flow on every route.  The mesh steps are plain
@@ -34,13 +44,16 @@ autograd over ``accel_p3m``/``accel_pm``, whose kernels sit in
 through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 
-- exact: ``force_exact`` is wrapped in ``make_diff_accel`` and autograd
+- exact and the unfused sym force: ``force_exact`` and ``accel_sym`` are
+  wrapped in ``make_diff_accel`` (the sym VJP kernels) and autograd
   differentiates the plain-torch integrators (``yoshida4`` included);
-- sym: :class:`_SymStep` mirrors the JAX ``make_fused_sym_step``: its
-  forward runs the fused kernels on copies, its backward differentiates
-  the Verlet update with autograd and sends the force cotangent through
-  ``force_vjp_sym``.  When nothing needs a gradient the step updates the
-  state in place, as before.
+- the fused sym step: :class:`_SymStep` mirrors the JAX
+  ``make_fused_sym_step``: its forward runs the fused kernels on copies,
+  its backward differentiates the Verlet update with autograd and sends
+  the force cotangent through ``force_vjp_sym``.  When nothing needs a
+  gradient the step updates the state in place, as before;
+- the fused exact step has none, as the JAX ``fused_step_pallas`` has no
+  VJP: a step whose input requires grad raises.
 
 ``dt`` and ``G`` are Python floats or 0-d float32 tensors.  A tensor that
 requires grad gets its gradient as in the JAX fused step's VJP: ``dt``'s
@@ -56,7 +69,7 @@ from typing import Callable
 import torch
 
 from nbody3d_tpu_torch.config import SimConfig
-from nbody3d_tpu_torch.ops.cuda_force import force_exact, sym_step_
+from nbody3d_tpu_torch.ops.cuda_force import accel_sym, force_exact, fused_step_exact, sym_step_
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
 from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel, requires_grad
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
@@ -78,8 +91,7 @@ PAD_GRANULE = GPU_TILE
 _TODO_PERIODIC = "ROADMAP.md queue 1 item 9 (periodic boundary: ops/ewald.py, the kernels' periodic forms)"
 _TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
 _TODO_FAST = "ROADMAP.md queue 2 item 8 (fast-mode kernels)"
-_TODO_FUSED = "ROADMAP.md queue 2 item 8 (_fused_kernel_exact/_fused_kernel_fast)"
-_TODO_UNFUSED_SYM = "ROADMAP.md queue 2 item 7 (unfused sym: _combine16_kernel)"
+_TODO_FUSED = "ROADMAP.md queue 2 item 8 (_fused_kernel_fast)"
 
 
 def fit_block(n: int, want: int, floor: int = 8) -> int:
@@ -217,65 +229,74 @@ def make_step_fn(
     eps2 = config.eps2
 
     if config.method != "direct":
-        accel_fn = make_mesh_accel_fn(config, n_real, route)
-
-        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm: accel_fn(pm, G), state, dt, n_real=n_real,
-            )
-
-        return step
+        return _integrated_step(config.integrator, make_mesh_accel_fn(config, n_real, route), n_real)
 
     if route == "plain":
         chunk = fit_block(n_pad, 256) if n_pad > 4096 else None
+        return _integrated_step(
+            config.integrator, lambda pm, G: accel_direct(pm, G, eps2=eps2, chunk=chunk), n_real
+        )
 
-        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
-            return integrate_state(
-                config.integrator,
-                lambda pm: accel_direct(pm, G, eps2=eps2, chunk=chunk),
-                state, dt, n_real=n_real,
-            )
-
-        return step
-
-    if config.fuse_integrate:
-        raise NotImplementedError(f"fuse_integrate=True: {_TODO_FUSED}")
     mode = config.force_mode
+    if mode == "sym":
+        b = fit_block(n_pad, min(config.block_target, GPU_TILE))
+        if config.integrator == "verlet" and config.fuse_epilogue and n_pad // b >= 2:
+            return _fused_sym_step(eps2, b, n_real)
+        accel = make_diff_accel(lambda pm, G: accel_sym(pm, G, eps2=eps2, b=b), eps2=eps2, b=b)
+        return _integrated_step(config.integrator, accel, n_real)
+
     if mode == "exact":
+        if config.fuse_integrate and config.integrator == "verlet":
+            return _fused_exact_step(eps2, n_real)
         # The VJP's tile: any divisor of n_pad serves (nt = 1 included).
         b_vjp = fit_block(n_pad, min(config.block_target, GPU_TILE), floor=1)
         accel = make_diff_accel(lambda pm, G: force_exact(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
-
-        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
-            return integrate_state(
-                config.integrator, lambda pm: accel(pm, G), state, dt, n_real=n_real,
-            )
-
-        return step
-
-    if mode == "sym":
-        b = fit_block(n_pad, min(config.block_target, GPU_TILE))
-        if not (config.integrator == "verlet" and config.fuse_epilogue and n_pad // b >= 2):
-            raise NotImplementedError(
-                f"sym with integrator={config.integrator!r}, "
-                f"fuse_epilogue={config.fuse_epilogue}, nt={n_pad // b}: "
-                f"only the fused verlet step with nt >= 2 is ported; {_TODO_UNFUSED_SYM}"
-            )
-
-        opts = (eps2, b, n_real)
-
-        def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
-            p, v, a = state.pos_mass, state.vel, state.accel
-            if torch.is_grad_enabled() and any(map(requires_grad, (p, v, a, dt, G))):
-                return SimState(*_SymStep.apply(p, v, a, dt, G, opts), state.step + 1)
-            sym_step_(p, v, a, float(dt), float(G), eps2=eps2, b=b, n_real=n_real)
-            return SimState(p, v, a, state.step + 1)
-
-        return step
+        return _integrated_step(config.integrator, accel, n_real)
 
     if mode == "fast":
-        raise NotImplementedError(f"force_mode='fast': {_TODO_FAST}")
+        todo = _TODO_FUSED if config.fuse_integrate and config.integrator == "verlet" else _TODO_FAST
+        raise NotImplementedError(f"force_mode='fast' (fuse_integrate={config.fuse_integrate}): {todo}")
     raise ValueError(f"unknown force_mode {mode!r}")
+
+
+def _integrated_step(integrator: str, accel: Callable, n_real: int) -> StepFn:
+    """``integrate_state`` over the force ``accel(pm, G)``."""
+
+    def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
+        return integrate_state(integrator, lambda pm: accel(pm, G), state, dt, n_real=n_real)
+
+    return step
+
+
+def _fused_sym_step(eps2: float, b: int, n_real: int) -> StepFn:
+    """The fused sym Verlet step: in place without grad, :class:`_SymStep`
+    with it."""
+    opts = (eps2, b, n_real)
+
+    def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
+        p, v, a = state.pos_mass, state.vel, state.accel
+        if torch.is_grad_enabled() and any(map(requires_grad, (p, v, a, dt, G))):
+            return SimState(*_SymStep.apply(p, v, a, dt, G, opts), state.step + 1)
+        sym_step_(p, v, a, float(dt), float(G), eps2=eps2, b=b, n_real=n_real)
+        return SimState(p, v, a, state.step + 1)
+
+    return step
+
+
+def _fused_exact_step(eps2: float, n_real: int) -> StepFn:
+    """``fused_step_exact`` into fresh state tensors.  Gradients raise."""
+
+    def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
+        p, v, a = state.pos_mass, state.vel, state.accel
+        if torch.is_grad_enabled() and any(map(requires_grad, (p, v, a, dt, G))):
+            raise RuntimeError(
+                "fuse_integrate=True: the fused force+Verlet kernel has no gradient (nor has "
+                "the JAX package's fused_step_pallas); differentiate with fuse_integrate=False"
+            )
+        out = fused_step_exact(p, v, a, float(dt), float(G), eps2=eps2, n_real=n_real)
+        return SimState(*out, state.step + 1)
+
+    return step
 
 
 def run_chunk(step_fn: StepFn, state: SimState, dt: Scalar, G: Scalar, k: int) -> SimState:

@@ -110,10 +110,7 @@ def test_pallas_backend_on_cpu_raises():
         {"method": "p3m", "boundary": "periodic", "box_size": 10.0},
         {"boundary": "periodic", "box_size": 10.0},
         {"cosmology": "eds"},
-        {"fuse_integrate": True},
-        {"force_mode": "sym", "integrator": "yoshida4"},
-        {"force_mode": "sym", "fuse_epilogue": False},
-        {"force_mode": "sym", "block_target": 512},  # one tile: nt = 1
+        {"force_mode": "fast", "fuse_integrate": True},
     ],
 )
 def test_unported_configs_raise(kw):

@@ -128,6 +128,48 @@ def test_short_range_bwd_twin_matches_jax(scene, block, zero_tile):
         assert (tmask == 0).any() and not tps[rows, 3].any() and got[rows, 3].abs().max() > 0
 
 
+@pytest.mark.parametrize("nbr_k", [32, 8])
+def test_short_range_bwd_is_exact_vjp_under_two_level_selection(monkeypatch, nbr_k):
+    """The two-level selection (``_FLAT_MAX_TILES`` patched to 4) at an odd
+    tile count: 157 tiles of 16 rows (n = 2,500 two-galaxy bodies padded to
+    2,512), so its supers are single tiles and rows run short of admitted
+    candidates, as at 8,193 tiles for two-galaxy 2M.  The port's mask kills
+    the non-admitted slots and stays symmetric, so the backward twin's
+    gather is the exact VJP: it matches autograd through the forward twin
+    (x̄, m̄ rtol 1e-4 with atol 1e-5 of the scale, σ̄ rel 1e-3).  No tile is
+    massless, so the forward twin, which skips massless source tiles, leaves
+    no slot out that the backward counts."""
+    monkeypatch.setattr(p3m, "_FLAT_MAX_TILES", 4)
+    block = 16
+    pm_np, _, n_real = clustered(2500, 157 * block)
+    tpm = t(pm_np)
+    _, h = pm._box(tpm[:n_real, :3], GRID)
+    ps = tpm[torch.argsort(p3m.morton_keys(tpm, n_real), stable=True)]
+    lo, hi = p3m._sorted_aabbs(ps, n_real, block)
+    kth, neg, idx = p3m._select_neighbors(lo, hi, h, nbr_k)
+    mask = p3m.mutual_neighbor_mask(neg, idx, kth)
+    assert (-neg == p3m._NOT_ADMITTED).any() and (mask == 0).any()
+    nb = 157
+    keep = np.zeros((nb, nb), bool)
+    live = mask.numpy() > 0
+    keep[np.nonzero(live)[0], idx.numpy()[live]] = True
+    assert not (keep & ~keep.T).any()
+    assert (ps.view(nb, block, 4)[:, :, 3].sum(dim=1) > 0).all()
+
+    sigma = p3m.DEFAULT_SIGMA_CELLS * h
+    rcut = p3m.DEFAULT_RCUT_SIGMAS * sigma
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal((ps.shape[0], 4)).astype(np.float32))
+    g[:, 3] = 0.0
+    ps_, sig_ = ps.clone().requires_grad_(), sigma.clone().requires_grad_()
+    out = p3m._short_range_tiles(ps_, idx, EPS2, sig_, rcut, block, mask)
+    auto, auto_sig = torch.autograd.grad(out, (ps_, sig_), g)
+    got, got_sig = p3m.short_range_tiles_bwd(ps, g, idx, EPS2, sigma, rcut, block, mask)
+    assert got[:, :3].abs().max() > 0 and got[:, 3].abs().max() > 0
+    assert_close(got[:, :3], auto[:, :3])
+    assert_close(got[:, 3], auto[:, 3])
+    assert float(got_sig) == pytest.approx(float(auto_sig), rel=1e-3)
+
+
 # ---------------------------------------------------------------- mesh VJPs
 def cells(order):
     return (p3m._tsc_cells, jp3m._tsc_cells) if order == 3 else (pm._cic_cells, jpm._cic_cells)

@@ -119,8 +119,8 @@ def test_epilogue_plain_order_matches_integrator(rng):
 
 def test_sym_wrappers_refuse_bad_input(rng):
     pm = torch.from_numpy(inputs(rng, 256, 256)[0])
-    with pytest.raises(ValueError, match="nt >= 2"):
-        cf.sym_diag_prep(pm, G, EPS2, 256)
+    with pytest.raises(ValueError, match="must divide"):
+        cf.sym_diag_prep(pm, G, EPS2, 2048)
     with pytest.raises(ValueError):
         cf.sym_hops(pm, EPS2, 100)
     with pytest.raises(RuntimeError, match="never take such tensors"):
