@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the sixteen kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the eighteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -104,9 +104,30 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``backend="jnp"``'s, rtol 2e-3, and a gradient request through
    ``fuse_integrate=True`` raises; (e) the uncentred route
    ``accel_sym(center=False)`` at N = 262,144 against ``center=True``.
+11. fast mode (``force_mode="fast"``: bf16 weights on the tensor cores):
+   (a, after 10a) ``force_fast`` and ``fused_step_fast`` against their
+   twins at N = 8,192, 7,936, 512 and 256 (a 1e7 body, padded rows;
+   max-abs/scale < 2e-4, the tensor cores' f32 sums against the twin's
+   f64), ``force_fast`` on disjoint source sets (1,999 sources: ragged)
+   and with the diagonal at offsets 1,000 (all rows, and a restricted row
+   range) and -1,000, ``fused_step_fast``
+   bit-equal to ``force_fast`` + the torch Verlet, and ``force_fast``
+   against an f64 numpy direct sum on the two-galaxy scene (2,048 rows
+   with both centres) and on a near-coincident pair (N = 4,096): max-abs
+   over scale <= 5e-3, a centre's own row <= 6e-3, the momentum rate
+   printed; (b) bench.py's fast configuration, uniform-sphere N =
+   262,144, ``morton_every=64``, 1 warm and 2 timed chunks of 20 steps,
+   phase 5's token; (c) phase 4's run with ``force_mode="fast"`` and then
+   with ``fuse_integrate=True``, phase 4's token, each with a profiled
+   3-step rollout; after the windows both kernels' times beside their
+   twins, their bounds and ``force_exact``/``fused_step_exact`` at the
+   same shapes; (d) at N = 4,096 6d's rollout gradient through the fast
+   route against ``backend="jnp"``'s, by v0, dt and G, within 5e-3 of
+   scale, and a gradient request through the fused fast step raises.
 
-Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b and 10c (the main paths) and
-6c, 6d, 8c, 8e, 9d, 10d and 10e each run with the launch counts set to 0
+Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b and 11c (the main
+paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e and 11d each run with the launch
+counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
@@ -165,6 +186,9 @@ REPLACES = {
     "sym_diag": (SRC + "sym_diag.cu", PALLAS + "545"),
     "sym_combine": (SRC + "sym_combine.cu", PALLAS + "977"),
     "fused_step_exact": (SRC + "fused_exact.cu", PALLAS + "217"),
+    # _force_kernel_fast_nomask (the main path's), _fast_diag and _fast.
+    "force_fast": (SRC + "force_fast.cu", PALLAS + "293", PALLAS + "320", PALLAS + "270"),
+    "fused_step_fast": (SRC + "fused_fast.cu", PALLAS + "239"),
     "vjp_full": (SRC + "vjp_full.cu", VJP + "205"),
     "vjp_sym_diag": (SRC + "vjp_sym_diag.cu", VJP + "434"),
     "vjp_sym_hops": (SRC + "vjp_sym_hops.cu", VJP + "450"),
@@ -190,6 +214,10 @@ HBM_BYTES = 3.35e12
 FLOP = {
     "force_exact": 18, "sym_diag_prep": 18, "sym_hops": 25, "sym_epilogue": 33,
     "sym_diag": 18, "sym_combine": 3, "fused_step_exact": 18,
+    # fast: 3 subtractions, 3 FMA (d2) and 2 multiplies (d2^3) a pair on the
+    # FP32 pipe; the 32 bf16 FLOP a pair on the tensor cores are ~1/7 of
+    # the MUFU time, which binds.
+    "force_fast": 11, "fused_step_fast": 11,
     "vjp_full": 53, "vjp_sym_diag": 53, "vjp_sym_hops": 61, "vjp_combine": 8,
     # short_range and short_range_bwd a pair; mesh_deposit and mesh_gather a particle (TSC).
     "short_range": 47, "short_range_bwd": 100, "mesh_deposit": 82, "mesh_gather": 216,
@@ -931,13 +959,13 @@ def _exact_run(dev, tag: str, **kw) -> float:
     return med / 50 * 1e3
 
 
-def _sym_run(dev, tag: str, chunk: int, **kw) -> float:
-    """uniform-sphere N = 262,144, ``morton_every=64``, sym with ``kw``: 1
-    warm and 2 timed chunks, energy drift <= 1e-4 * max(steps, 140) / 140,
-    momentum error <= 1e-5.  Returns the median ms/step."""
-    sim = Simulation.from_preset(
-        "uniform-sphere", SimConfig(force_mode="sym", morton_every=64, **kw), n=262144, device=dev
-    )
+def _sphere_run(dev, tag: str, chunk: int, **kw) -> float:
+    """uniform-sphere N = 262,144, ``morton_every=64``, sym unless ``kw``
+    names another force_mode: 1 warm and 2 timed chunks, energy drift <=
+    1e-4 * max(steps, 140) / 140, momentum error <= 1e-5.  Returns the
+    median ms/step."""
+    cfg = SimConfig(**{"force_mode": "sym", "morton_every": 64, **kw})
+    sim = Simulation.from_preset("uniform-sphere", cfg, n=262144, device=dev)
     d0 = sim.diagnostics()
     warm = _timed_chunks(sim, 1, chunk)
     times = _timed_chunks(sim, 2, chunk)
@@ -970,7 +998,7 @@ def phase_exact(dev) -> None:
 
 
 def phase_sym(dev) -> None:
-    MAIN["phase 5"] = _sym_run(dev, "5 sym", chunk=50)
+    MAIN["phase 5"] = _sphere_run(dev, "5 sym", chunk=50)
 
 
 # ------------------------------------------------------- the render path
@@ -1855,12 +1883,12 @@ def phase_unfused_checks(dev) -> None:
 
 def phase_sym_yoshida4(dev) -> None:
     """10b: the unfused sym path at full width with ``integrator="yoshida4"``."""
-    _sym_run(dev, "10b unfused sym, yoshida4", chunk=20, integrator="yoshida4")
+    _sphere_run(dev, "10b unfused sym, yoshida4", chunk=20, integrator="yoshida4")
 
 
 def phase_sym_unfused_verlet(dev) -> None:
     """10b: ``fuse_epilogue=False`` with Verlet, beside phase 5's fused step."""
-    ms = _sym_run(dev, "10b unfused sym, verlet", chunk=20, fuse_epilogue=False)
+    ms = _sphere_run(dev, "10b unfused sym, verlet", chunk=20, fuse_epilogue=False)
     fused = MAIN.get("phase 5", float("nan"))
     print(f"  unfused {ms:.4f} vs fused (phase 5) {fused:.4f} ms/step: not fusing the epilogue costs "
           f"{ms - fused:.4f} ms/step ({ms / fused - 1:.2%})", flush=True)
@@ -1880,7 +1908,7 @@ def phase_fused_exact(dev):
     """10c: ``fuse_integrate=True`` at the reference default, two-galaxy N =
     40,002, 200 steps, phase 4's token; then (after the counts) profiles of
     a 3-step rollout of the fused step and of phase 4's unfused step."""
-    ms = _exact_run(dev, "10c fused exact", fuse_integrate=True)
+    ms = MAIN["phase 10c"] = _exact_run(dev, "10c fused exact", fuse_integrate=True)
     unfused = MAIN.get("phase 4", float("nan"))
     print(f"  fused {ms:.4f} vs unfused (phase 4) {unfused:.4f} ms/step ({ms / unfused - 1:+.2%})", flush=True)
     st, n_real = _two_galaxy(dev)
@@ -2013,6 +2041,246 @@ def phase_unfused_times(dev) -> dict[str, dict]:
     return out
 
 
+# --------------------------------------------------------------- fast mode
+# Kernel vs twin: the kernel's sums are f32 (csrc/mma.cuh: each 16-source
+# chunk on the tensor cores, round-to-nearest adds within a 128-source tile,
+# TwoSum across tiles), the twin's f64.  A numpy emulation of f32 tile sums
+# on 256 two-galaxy rows gave 3.3e-5 of scale; the bound leaves 6x of room.
+FAST_TWIN_TOL = 2e-4
+# Against f64: the bf16 weight noise (tests/test_pallas.py:50-68), and a
+# heavy body's own row (tests/test_sym.py:149-172).
+FAST_F64_TOL, FAST_CENTRAL_TOL = 5e-3, 6e-3
+
+
+def _accel_f64(pm: np.ndarray, rows: np.ndarray, chunk: int = 128) -> np.ndarray:
+    """float64 numpy direct sum for the target ``rows`` against every row of
+    ``pm`` (the self pair adds zero: its separation is zero)."""
+    x = pm[:, :3].astype(np.float64)
+    gm = G * pm[:, 3].astype(np.float64)
+    out = np.empty((len(rows), 3))
+    for c0 in range(0, len(rows), chunk):
+        k = rows[c0 : c0 + chunk]
+        d = x[None, :, :] - x[k, None, :]
+        w = gm[None, :] * (np.sum(d * d, axis=-1) + EPS2) ** -1.5
+        out[c0 : c0 + len(k)] = np.einsum("kj,kjc->kc", w, d)
+    return out
+
+
+def _fast_vs_f64(tag: str, pm: torch.Tensor, rows: np.ndarray, heavy: np.ndarray) -> None:
+    """``force_fast`` on the card against f64 on ``rows``: max error over
+    scale, the ``heavy`` bodies' own rows, and the momentum rate (net force
+    over the summed |m a|, which bf16 weights need not keep at 0)."""
+    a = cf.force_fast(pm, pm, G, EPS2)
+    pm_np, a_np = pm.cpu().numpy(), a.cpu().numpy()[:, :3].astype(np.float64)
+    want = _accel_f64(pm_np, rows)
+    err = float(np.abs(a_np[rows] - want).max() / np.abs(want).max())
+    at = {int(r): i for i, r in enumerate(rows)}
+    central = [float(np.abs(a_np[h] - want[at[h]]).max() / np.abs(want[at[h]]).max()) for h in heavy]
+    m = pm_np[:, 3:4].astype(np.float64)
+    mom = float(np.abs((m * a_np).sum(0)).max() / (np.abs(m * a_np).sum(0).max()))
+    check(err <= FAST_F64_TOL and max(central, default=0.0) <= FAST_CENTRAL_TOL,
+          f"[11a fast vs f64] {tag}: max-abs/scale {err:.3e} <= {FAST_F64_TOL}, heavy rows "
+          f"{[f'{c:.3e}' for c in central]} <= {FAST_CENTRAL_TOL}; momentum rate |sum m a| / sum |m a| {mom:.3e}")
+
+
+def phase_fast_checks(dev) -> None:
+    """11a: ``force_fast`` and ``fused_step_fast`` against their twins at N =
+    8,192, 7,936, 512 and 256 (a heavy body, padded rows); ``force_fast``
+    on a disjoint source set (and a ragged one) and with the diagonal at
+    unaligned offsets, negative and restricted too; ``fused_step_fast`` bit-equal to ``force_fast`` +
+    the torch Verlet; then against f64 on the two-galaxy scene and on a
+    planted near-coincident pair."""
+    print("[11a fast mode] kernel vs plain twin, small shapes", flush=True)
+    rng = np.random.default_rng(11)
+    for n_pad, n_real in [(8192, 8000), (7936, 7900), (512, 500), (256, 250)]:
+        tag = f"N={n_pad}"
+        pm, vel, aold = _inputs(rng, n_pad, n_real, dev)
+        pm[0, 3] = 1e7
+        ff, ff_p = cf.force_fast(pm, pm, G, EPS2), cf.force_fast_plain(pm, pm, G, EPS2)
+        torch.cuda.synchronize()
+        check(rel_err(ff, ff_p) < FAST_TWIN_TOL and bool((ff[:, 3] == 0).all()),
+              f"{tag}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}, w lane 0")
+        got = cf.fused_step_fast(pm, vel, aold, DT, G, eps2=EPS2, n_real=n_real)
+        want = _verlet_on_card(pm, vel, aold, ff, n_real)
+        twin = cf.fused_step_fast_plain(pm, vel, aold, DT, G, EPS2, n_real)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, w) for x, w in zip(got, want)),
+              f"{tag}: fused_step_fast bit-equal to force_fast + torch Verlet")
+        # What the accel bound moves in one step: dt/2 of it in v, dt^2 in x.
+        da = FAST_TWIN_TOL * float(twin[2].abs().max())
+        ea, ep, ev = rel_err(got[2], twin[2]), max_abs(got[0], twin[0]), max_abs(got[1], twin[1])
+        check(ea < FAST_TWIN_TOL and ep <= 1e-6 + da * DT * DT and ev <= 1e-6 + da * DT / 2,
+              f"{tag}: fused_step_fast vs plain accel {ea:.3e} < {FAST_TWIN_TOL}, |dp| {ep:.3e} <= "
+              f"{1e-6 + da * DT * DT:.3e}, |dv| {ev:.3e} <= {1e-6 + da * DT / 2:.3e}")
+        frozen = (torch.equal(got[0][n_real:], pm[n_real:]) and torch.equal(got[1][n_real:], vel[n_real:])
+                  and bool((got[2][n_real:] == 0).all()))
+        check(frozen, f"{tag}: fused_step_fast padded rows frozen, stored accel zero")
+    # pm is the N = 256 scene; the diagonal forms at N = 8,192.
+    pm, _, _ = _inputs(rng, 8192, 8192, dev)
+    pm[4000, 3] = 1e7
+    for what, tgt, src, diag, rows in (
+        ("disjoint sets (NO_DIAG)", pm[:4096], pm[4096:], (cf.NO_DIAG, 0, cf.NO_DIAG), slice(None)),
+        ("diagonal at offset 1,000", pm[1000:5000], pm, (1000, 0, 4000), slice(None)),
+        ("diagonal at offset 1,000, rows [500, 3,100)", pm[1000:5000], pm, (1000, 500, 3100), slice(500, 3100)),
+        ("diagonal at offset -1,000, rows [1,000, 4,000)", pm[:4000], pm[1000:], (-1000, 1000, 4000), slice(None)),
+        ("1,000 targets x 1,999 sources (ragged)", pm[:1000], pm[1000:2999], (cf.NO_DIAG, 0, cf.NO_DIAG), slice(None)),
+    ):
+        k, p = cf.force_fast(tgt, src, G, EPS2, diag), cf.force_fast_plain(tgt, src, G, EPS2, diag)
+        torch.cuda.synchronize()
+        e = rel_err(k[rows], p[rows])
+        check(e < FAST_TWIN_TOL, f"N=8192 force_fast {what} vs plain {e:.3e} < {FAST_TWIN_TOL}")
+    st, n_real = _two_galaxy(dev)
+    heavy = np.argsort(-st.pos_mass[:, 3].cpu().numpy())[:2]
+    rows = np.unique(np.concatenate([heavy, np.random.default_rng(12).choice(n_real, 2046, replace=False)]))
+    _fast_vs_f64(f"two-galaxy N={n_real} (n_pad {st.n_pad}), {len(rows)} rows", st.pos_mass, rows, heavy)
+    n = 4096
+    pm_np = np.concatenate([rng.normal(scale=2.0, size=(n, 3)), rng.uniform(1, 50, (n, 1))], axis=1).astype(np.float32)
+    pm_np[1, :3] = pm_np[0, :3] + 1e-4  # closer than the softening length
+    _fast_vs_f64(f"near-coincident pair N={n}", torch.from_numpy(pm_np).to(dev), np.arange(n), np.array([0, 1]))
+
+
+def phase_fast_sphere(dev) -> None:
+    """11b: bench.py's fast configuration, uniform-sphere N = 262,144,
+    ``morton_every=64``, 1 warm and 2 timed chunks of 20 steps, phase 5's
+    token."""
+    MAIN["phase 11b"] = _sphere_run(dev, "11b fast", chunk=20, force_mode="fast")
+
+
+def phase_fast_two_galaxy(dev):
+    """11c: phase 4's run with ``force_mode="fast"`` and phase 4's token."""
+    ms = _exact_run(dev, "11c fast", force_mode="fast")
+    print(f"  fast {ms:.4f} vs exact (phase 4) {MAIN.get('phase 4', float('nan')):.4f} ms/step", flush=True)
+    st, n_real = _two_galaxy(dev)
+    cfg = SimConfig(force_mode="fast")
+    return [("fast forward, 3 steps", _exact_forward(make_step_fn(cfg, st.n_pad, n_real, dev), st))]
+
+
+def phase_fused_fast(dev):
+    """11c: the same with ``fuse_integrate=True``."""
+    ms = _exact_run(dev, "11c fused fast", force_mode="fast", fuse_integrate=True)
+    print(f"  fused fast {ms:.4f} vs fused exact (phase 10c) {MAIN.get('phase 10c', float('nan')):.4f} ms/step",
+          flush=True)
+    st, n_real = _two_galaxy(dev)
+    cfg = SimConfig(force_mode="fast", fuse_integrate=True)
+    return [("fused fast forward, 3 steps", _exact_forward(make_step_fn(cfg, st.n_pad, n_real, dev), st))]
+
+
+def phase_fast_grad_crosscheck(dev, n: int = 4096) -> None:
+    """11d: 6d's rollout at N = 4,096 through the fast route against the
+    ``backend="jnp"`` route, by v0, dt and G, within 5e-3 of scale (the
+    JAX package's fast-class gradient bound, BASELINE.md:262); and a
+    gradient request through the fused fast step raises."""
+    rng = np.random.default_rng(7)
+    pm = torch.from_numpy(np.concatenate(
+        [rng.standard_normal((n, 3)), rng.uniform(10, 50, (n, 1))], axis=1).astype(np.float32)).to(dev)
+    grads = {}
+    for name, cfg in (("fast", SimConfig(force_mode="fast")), ("jnp", SimConfig(backend="jnp"))):
+        step = make_step_fn(cfg, n, n, dev)
+        v = torch.zeros((n, 4), device=dev, requires_grad=True)
+        dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (1e-2, G))
+        s = SimState(pm.clone(), v, torch.zeros_like(pm), 0)
+        for _ in range(10):
+            s = step(s, dt, g)
+        grads[name] = torch.autograd.grad((s.pos_mass[0, :3] ** 2).sum(), (v, dt, g))
+    (gv, gdt, gg), (rv, rdt, rg) = grads["fast"], grads["jnp"]
+    e_v = max_abs(gv, rv) / float(rv.abs().max())
+    e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, rdt), (gg, rg)))
+    check(max(e_v, e_dt, e_g) <= 5e-3,
+          f"[11d grad check] N={n} fast route vs jnp route: by v0 {e_v:.3e}, d/d dt {float(gdt):.6e} "
+          f"(rel err {e_dt:.3e}), d/dG {float(gg):.6e} (rel err {e_g:.3e}) <= 5e-3")
+    step = make_step_fn(SimConfig(force_mode="fast", fuse_integrate=True), n, n, dev)
+    v = torch.zeros((n, 4), device=dev, requires_grad=True)
+    try:
+        step(SimState(pm.clone(), v, torch.zeros_like(pm), 0), 1e-2, G)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    check("no gradient" in raised, f"[11d grad check] a gradient request through the fused fast step raises: {raised!r}")
+
+
+def phase_fast_times(dev) -> dict[str, dict]:
+    """The two kernels beside their twins and ``force_exact`` at the main
+    paths' shapes: ``force_fast`` at 11b's (uniform-sphere N = 262,144,
+    Morton order) and 11c's (two-galaxy n_pad 40,192), ``fused_step_fast``
+    at 11c's.  No one PyTorch call computes either function."""
+    print("[11 fast mode] times at main-path shapes (CUDA events)", flush=True)
+    out: dict[str, dict] = {}
+    n = 262144
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
+    st = init_state(pm_np, vel_np, n_pad=n, device=dev)
+    pm = morton_reorder(st.pos_mass, st.vel, st.accel, n_real=n)[0]
+    ff = cf.force_fast(pm, pm, G, EPS2)
+    t0 = time.perf_counter()
+    ff_p = cf.force_fast_plain(pm, pm, G, EPS2)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(rel_err(ff, ff_p) < FAST_TWIN_TOL, f"uniform-sphere N={n}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}")
+    t = _fast_times(dev, pm, reps=5)
+    out["force_fast"] = {
+        "max_abs_err": max_abs(ff, ff_p),
+        "ms": t["kernel"],
+        "plain_ms": plain_ms,
+        "shape": f"({n}, 4) x ({n}, 4)",
+        "note": f"the launch alone; with the wrapper's limb prep {t['wrapper']:.4f} ms; force_exact "
+                f"{t['exact']:.4f} ms; plain one run, host clock",
+        # pm, the (N, 16) bf16 limbs and the output: 64 B a row.
+        **bound("force_fast", n * n, 64 * n, rsqrts=n * n),
+    }
+    del ff_p
+    st, n_real = _two_galaxy(dev)
+    n = st.n_pad
+    pm, vel = st.pos_mass, st.vel
+    ff, ff_p = cf.force_fast(pm, pm, G, EPS2), cf.force_fast_plain(pm, pm, G, EPS2)
+    torch.cuda.synchronize()
+    check(rel_err(ff, ff_p) < FAST_TWIN_TOL, f"two-galaxy N={n}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}")
+    t = _fast_times(dev, pm, reps=20)
+    out["force_fast"]["note"] += (
+        f"; two-galaxy n_pad {n}: kernel {t['kernel']:.4f} ms (with prep {t['wrapper']:.4f}), plain "
+        f"{cuda_ms(lambda: cf.force_fast_plain(pm, pm, G, EPS2), reps=3):.4f} ms, bound "
+        f"{bound('force_fast', n * n, 64 * n, rsqrts=n * n)['bound_ms']:.4f} ms, force_exact {t['exact']:.4f} ms, "
+        f"max-abs err {max_abs(ff, ff_p):.3e} (scale {float(ff_p.abs().max()):.4e})")
+    aold = ff
+    got = cf.fused_step_fast(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real)
+    twin = cf.fused_step_fast_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real)
+    want = apply_integrator("verlet", pm, vel, aold, cf.force_fast(pm, pm, G, EPS2), DT_MAIN,
+                            valid_mask(n, n_real, dev))
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, w) for x, w in zip(got, want)),
+          f"two-galaxy N={n}: fused_step_fast bit-equal to force_fast + torch Verlet")
+    check(rel_err(got[2], twin[2]) < FAST_TWIN_TOL, f"two-galaxy N={n}: fused_step_fast vs plain {rel_err(got[2], twin[2]):.3e} < {FAST_TWIN_TOL}")
+    frag = cf.fragment_order(cf.limbs_bf16(pm, G))
+    outs = tuple(torch.empty_like(pm) for _ in range(3))
+    lib = _build.load_library()
+    fused = lambda: launch("fused_step_fast", dev, lib.nb_fused_step_fast, pm, frag, vel, aold, *outs,  # noqa: E731
+                           n, n_real, DT_MAIN, EPS2)
+    wrapper = cuda_ms(lambda: cf.fused_step_fast(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real), reps=20)
+    fused_exact = cuda_ms(lambda: cf.fused_step_exact(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real), reps=20)
+    out["fused_step_fast"] = {
+        "max_abs_err": max_abs(got[2], twin[2]),
+        "ms": cuda_ms(fused, reps=20),
+        "plain_ms": cuda_ms(lambda: cf.fused_step_fast_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real), reps=3),
+        "shape": f"3 x ({n}, 4) in, 3 x ({n}, 4) out",
+        "note": f"the launch alone; with the wrapper's limb prep {wrapper:.4f} ms; fused_step_exact {fused_exact:.4f} ms",
+        # 3 rows in, the limbs, 3 rows out: 128 B a row; pairs only.
+        **bound("fused_step_fast", n * n, 128 * n, rsqrts=n * n),
+    }
+    _print_times(out)
+    return out
+
+
+def _fast_times(dev, pm: torch.Tensor, reps: int) -> dict[str, float]:
+    """``force_fast(pm, pm)``'s launch alone (the limb matrix made once,
+    outside the events), the whole wrapper, and ``force_exact``."""
+    frag = cf.fragment_order(cf.limbs_bf16(pm, G))
+    o = torch.empty_like(pm)
+    fn = _build.load_library().nb_force_fast
+    n = pm.shape[0]
+    kernel = lambda: launch("force_fast", dev, fn, pm, pm, frag, o, n, n, EPS2, *cf.SELF_DIAG)  # noqa: E731
+    return {"kernel": cuda_ms(kernel, reps=reps),
+            "wrapper": cuda_ms(lambda: cf.force_fast(pm, pm, G, EPS2), reps=reps),
+            "exact": cuda_ms(lambda: cf.force_exact(pm, pm, G, EPS2), reps=reps)}
+
+
 def _print_times(out: dict[str, dict]) -> None:
     for name, r in out.items():
         print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -2038,6 +2306,9 @@ PATHS = (
     ("phase 10b (unfused sym path, yoshida4)", phase_sym_yoshida4, SYM_FORCE),
     ("phase 10b (unfused sym path, verlet)", phase_sym_unfused_verlet, SYM_FORCE),
     ("phase 10c (fused exact path)", phase_fused_exact, ("fused_step_exact",)),
+    ("phase 11b (fast path, sphere)", phase_fast_sphere, ("force_fast",)),
+    ("phase 11c (fast path, two-galaxy)", phase_fast_two_galaxy, ("force_fast",)),
+    ("phase 11c (fused fast path)", phase_fused_fast, ("fused_step_fast",)),
 )
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
@@ -2050,10 +2321,11 @@ SIDE = (
     ("phase 9d (mesh gradient cross-check)", phase_mesh_grad_crosscheck, MESH_GRAD),
     ("phase 10d (unfused sym gradient cross-check)", phase_sym_grad_crosscheck, SYM_FORCE + VJP_SYM),
     ("phase 10e (uncentred sym route)", phase_uncentred_sym, ("sym_diag", "sym_hops", "sym_combine", "sym_diag_prep")),
+    ("phase 11d (fast gradient cross-check)", phase_fast_grad_crosscheck, ("force_fast",) + VJP_SYM),
 )
 FULL_ROUTE = SIDE[0][0]
 # Kernels on no main path: their launches come from these side windows.
-LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": SIDE[-1][0]}
+LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": SIDE[-2][0]}
 
 
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
@@ -2093,6 +2365,7 @@ def main() -> int:
     phase_mesh_checks(dev)
     phase_mesh_grad_checks(dev)
     phase_unfused_checks(dev)
+    phase_fast_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -2106,6 +2379,7 @@ def main() -> int:
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))
+    times.update(phase_fast_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 
@@ -2124,6 +2398,7 @@ def main() -> int:
             "route": "cuda",
             "source": REPLACES[name][0],
             "replaces": REPLACES[name][1],
+            **({"also_replaces": list(REPLACES[name][2:])} if len(REPLACES[name]) > 2 else {}),
             **launches,
             "max_abs_err": times[name]["max_abs_err"],
             "ms": times[name]["ms"],

@@ -40,6 +40,8 @@ SIGNATURES = {
     "nb_sym_diag": [P, P, I, I, F, P],
     "nb_sym_combine": [P, P, P, I, P],
     "nb_fused_step_exact": [P, P, P, P, P, P, I, I, F, F, F, P],
+    "nb_force_fast": [P, P, P, P, I, I, F, I, I, I, P],
+    "nb_fused_step_fast": [P, P, P, P, P, P, P, I, I, F, F, P],
     "nb_vjp_full": [P, P, P, P, I, F, F, P],
     "nb_vjp_sym_diag": [P, P, P, I, I, F, P],
     "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, F, P],

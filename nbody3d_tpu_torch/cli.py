@@ -39,7 +39,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--backend", default=None, choices=["auto", "pallas", "jnp"],
                    help="auto/pallas = the CUDA kernels, jnp = the plain oracle")
-    p.add_argument("--force-mode", default=None, choices=["exact", "sym"])
+    p.add_argument("--force-mode", default=None, choices=["exact", "fast", "sym"],
+                   help="exact = f32 all pairs; fast = bf16 weights on the tensor cores; "
+                        "sym = Newton-3 pairs")
     p.add_argument("--method", default=None, choices=["direct", "pm", "p3m"],
                    help="force algorithm: direct = all pairs; pm = particle mesh (CIC + FFT); "
                         "p3m = PM + exact short-range correction (~1e-3 of direct)")
@@ -112,7 +114,13 @@ def cmd_run(args) -> int:
     if args.checkpoint:
         sim = _load_sim(args.checkpoint, args)
     else:
-        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n, device=args.device)
+        kw = {}
+        if args.preset == "reference-random":
+            # The reference's run-config controls (index.html:68-75).
+            kw = dict(num_galaxies=args.num_galaxies, min_bodies=args.min_bodies,
+                      max_bodies=args.max_bodies)
+        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n,
+                                     device=args.device, **kw)
     os.makedirs(args.outdir, exist_ok=True)
     if args.metrics:
         sim.metrics_path = args.metrics
@@ -257,6 +265,9 @@ def main(argv=None) -> int:
     p.add_argument("--diagnostics", action="store_true")
     p.add_argument("--outdir", default="out", help="frames, checkpoints and final.npz go here")
     p.add_argument("--metrics", default=None, help="append JSONL metrics to this file")
+    p.add_argument("--num-galaxies", type=int, default=2, help="reference-random: galaxies")
+    p.add_argument("--min-bodies", type=int, default=20000, help="reference-random: least bodies a galaxy")
+    p.add_argument("--max-bodies", type=int, default=20000, help="reference-random: most bodies a galaxy")
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 

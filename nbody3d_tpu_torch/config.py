@@ -3,8 +3,8 @@
 ``SimConfig`` keeps the JAX package's field names, defaults and JSON
 (``to_json``/``from_json``), so a config written by either package loads
 in the other.  Fields that select paths the port does not have yet
-(periodic boundary, cosmology, multi-device strategies, the ``fast``
-mode) are kept for that interchange; choosing them raises
+(periodic boundary, cosmology, multi-device strategies) are kept for
+that interchange; choosing them raises
 ``NotImplementedError`` in :mod:`nbody3d_tpu_torch.ops.step`.
 
 ``dt`` and ``G`` stored here are defaults: the engine passes them to every
@@ -45,9 +45,9 @@ class SimConfig:
     ``p3m_sigma_cells``, ``p3m_rcut_sigmas``, ``p3m_nbr_k``,
     ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"`` only),
     ``cosmology`` (``"none"`` only), ``backend``, ``block_target`` (capped
-    at the GPU tile), ``force_mode`` (``"exact"`` or ``"sym"``, direct
-    only), ``morton_every``, ``fuse_integrate`` (exact with Verlet: the
-    one-launch force + Verlet kernel), ``fuse_epilogue``,
+    at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
+    direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
+    Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,
     ``grad_precision``, ``seed`` and ``size_factor``.
     ``box_size``, ``mesh_interlace`` and ``p3m_halo_tiles`` belong to the
     periodic boundary and the sharded P3M step, which are not ported.
@@ -84,7 +84,9 @@ class SimConfig:
     # "exact": one f32 all-pairs force kernel, then the integrator.
     # "sym": Newton-3 (each unordered pair evaluated once): the fused step
     # with Verlet, the sym force and the integrator otherwise.
-    # "fast": not ported.
+    # "fast": bf16 weights on the tensor cores against 3-limb sources
+    # (force_fast, fused_step_fast); the bf16 weight noise is held within
+    # 5e-3 of the force's scale.
     force_mode: str = "exact"
     # Re-sort bodies along the Morton curve every this many steps (0 =
     # never), at chunk boundaries.
@@ -93,8 +95,9 @@ class SimConfig:
     fuse_epilogue: bool = True
     # The force VJP's precision: "precise" | "fast".  Checked by
     # ops/step.py, and both values run the same f32 CUDA kernels.  In the JAX package "fast" skips a
-    # bf16 limb split of the MXU's weight matrices; CUDA cores do the
-    # pair math in f32 and round no weights, so the port has one path.
+    # bf16 limb split of the MXU's weight matrices; the port's VJP kernels
+    # do the pair math in f32 on CUDA cores and round no weights, so it has
+    # one path.  (Only the forward of force_mode="fast" rounds weights.)
     grad_precision: str = "precise"
 
     # Multi-device (not ported).

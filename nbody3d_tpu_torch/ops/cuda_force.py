@@ -1,10 +1,12 @@
 """The forward kernels' wrappers and plain twins.
 
-Seven kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
+Nine kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 
 ====================  =======================================================
 ``force_exact``       all-pairs f32 force, targets x sources (exact mode)
 ``fused_step_exact``  ``force_exact``'s sum and the Verlet update, one launch
+``force_fast``        fast mode: bf16 weights x 3-limb sources, tensor cores
+``fused_step_fast``   ``force_fast``'s sum and the Verlet update, one launch
 ``sym_diag_prep``     sym 1: G-folded source rows + in-tile partials
 ``sym_diag``          sym 1, uncentred route: in-tile partials of given rows
 ``sym_hops``          sym 2: off-diagonal tile pairs, both directions
@@ -29,6 +31,14 @@ size ``b`` is the CUDA block size (one thread a body, ``b <= 1024``);
 routes use them: the fused sym step :func:`sym_step_` (diag_prep -> hops
 -> epilogue, in place) and the sym force :func:`accel_sym` (-> combine),
 which the unfused sym step differentiates and integrates.
+
+Fast mode (``force_fast``, ``fused_step_fast``) keeps the JAX package's
+operands: the sources as the ``(N, 16)`` limb matrix of :func:`src_limbs`
+(three bf16 limbs each of ``G*m*x``, ``G*m*y``, ``G*m*z`` and ``G*m``),
+converted to bf16 once a call (the l limb rounds there, as the MXU rounds
+its inputs), and the weights ``rsqrt(d2^3)`` rounded to bf16.  The kernel
+and its twin read the same bf16 matrix; the kernel in the MMA B-fragment
+order of :func:`fragment_order`.
 """
 
 from __future__ import annotations
@@ -81,6 +91,16 @@ def force_exact(tgt: torch.Tensor, src: torch.Tensor, G: float, eps2: float) -> 
 
 
 # ------------------------------------------------------- fused_step_exact
+def _check_step(name: str, pos_mass, vel, accel, eps2: float) -> torch.device:
+    """A fused step's inputs: ``check_rows``, one shape, ``eps2 > 0``."""
+    dev = check_rows(name, pos_mass, vel, accel)
+    if len({t.shape for t in (pos_mass, vel, accel)}) != 1:
+        raise ValueError(f"{name}: pos_mass, vel and accel must have one shape")
+    if eps2 <= 0:
+        raise ValueError("eps2 must be > 0 (softening keeps the self pair finite)")
+    return dev
+
+
 def fused_step_exact_plain(
     pos_mass: torch.Tensor,
     vel: torch.Tensor,
@@ -114,11 +134,7 @@ def fused_step_exact(
     card it equals :func:`force_exact` followed by the torch Verlet bit for
     bit.  No gradient: the inputs may not require grad (nor does the JAX
     fused step have a VJP)."""
-    dev = check_rows("fused_step_exact", pos_mass, vel, accel)
-    if len({t.shape for t in (pos_mass, vel, accel)}) != 1:
-        raise ValueError("fused_step_exact: pos_mass, vel and accel must have one shape")
-    if eps2 <= 0:
-        raise ValueError("eps2 must be > 0 (softening keeps the self pair finite)")
+    dev = _check_step("fused_step_exact", pos_mass, vel, accel, eps2)
     if dev.type == "cpu":
         return fused_step_exact_plain(pos_mass, vel, accel, dt, G, eps2, n_real)
     n = pos_mass.shape[0]
@@ -126,6 +142,184 @@ def fused_step_exact(
     launch(
         "fused_step_exact", dev, lib().nb_fused_step_exact,
         pos_mass, vel, accel, *out, n, min(int(n_real), n), float(dt), float(G), float(eps2),
+    )
+    return out
+
+
+# ------------------------------------------------------- fast-mode operands
+# The diagonal sentinel: targets and sources share no global index.
+NO_DIAG = 1 << 30
+# The single-device diagonal: targets == sources.
+SELF_DIAG = (0, 0, NO_DIAG)
+
+
+def round_to_bf16(v: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to the nearest bf16 value (ties to even), kept in f32, by
+    ``_round_to_bf16_f32``'s bit rule on the int32 view.  Bit patterns above
+    +inf's (positive NaNs) are clamped first, so no add can overflow; every
+    NaN is put back at the end, so NaN stays NaN."""
+    u = v.contiguous().view(torch.int32).clamp(max=0x7F800000)
+    r = ((u + ((u >> 16) & 1)) + 0x7FFF) & -0x10000  # & 0xFFFF0000
+    return torch.where(torch.isnan(v), v, r.view(torch.float32))
+
+
+def src_limbs(pos_mass: torch.Tensor, G: float) -> torch.Tensor:
+    """``(N, 16)`` f32 fast-mode source matrix, bit for bit the JAX
+    package's ``src_limbs``: three bf16-valued limbs (h = bf16(v), m =
+    bf16(v - h), l = v - h - m) each of ``G*m*x``, ``G*m*y``, ``G*m*z`` and
+    ``G*m``, then four zero columns.  Every column is limb-split, gm too
+    (``csrc/mma.cuh`` says why).  The four quantities go through the limb
+    split together: a few ops a call, not one set per column."""
+    gm = pos_mass[:, 3:4] * float(G)
+    q = torch.cat([gm * pos_mass[:, :3], gm], dim=1)  # (N, 4)
+    h = round_to_bf16(q)
+    rem = q - h
+    m = round_to_bf16(rem)
+    limbs = torch.stack([h, m, rem - m], dim=2).reshape(q.shape[0], 12)  # [q0 h m l, q1 h m l, ...]
+    return torch.nn.functional.pad(limbs, (0, 4))
+
+
+def limbs_bf16(pos_mass: torch.Tensor, G: float) -> torch.Tensor:
+    """:func:`src_limbs` in bf16, the one matrix the kernel and its twin
+    read (h and m are bf16 values already; l rounds once, to nearest even)."""
+    return src_limbs(pos_mass, G).to(torch.bfloat16)
+
+
+def fragment_order(limbs: torch.Tensor) -> torch.Tensor:
+    """The ``(N, 16)`` bf16 limb matrix in the B-fragment order of
+    ``mma.sync.m16n8k16`` (``csrc/mma.cuh``): ``(ceil(N/16) * 32, 8)``, one
+    row of 8 bf16 (16 bytes) a chunk of 16 sources and a lane.  Lane ``4g +
+    t`` holds ``B[k][n]`` for ``n = 8nb + g`` and ``k = 8h + 2t + e`` at
+    position ``4nb + 2h + e``: b0, b1 of the MMA of columns 0-7, then of
+    columns 8-15.  Rows past N are zero."""
+    n = limbs.shape[0]
+    chunks = -(-n // 16)
+    if chunks * 16 != n:
+        limbs = torch.cat([limbs, limbs.new_zeros((chunks * 16 - n, 16))])
+    # (chunk, h, t, e, nb, g) -> (chunk, g, t, nb, h, e)
+    b = limbs.reshape(chunks, 2, 4, 2, 2, 8).permute(0, 5, 2, 4, 1, 3)
+    return b.contiguous().view(chunks * 32, 8)
+
+
+def _check_diag(name: str, diag) -> tuple[int, int, int]:
+    off, lo, hi = (int(x) for x in diag)
+    if not all(-(1 << 31) <= x < 1 << 31 for x in (off, lo, hi)):
+        raise ValueError(f"{name}: diag {diag} must be three int32 values (off, lo, hi)")
+    return off, lo, hi
+
+
+def _fast_epilogue(a: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """``(n, 16)`` limb sums -> ``(n, 4)`` accelerations, w lane 0, in
+    ``_fast_epilogue``'s order (the kernel's, operation for operation)."""
+    s = (a[:, 9] + a[:, 10]) + a[:, 11]
+    out = torch.zeros((a.shape[0], 4), dtype=tgt.dtype, device=tgt.device)
+    for c in range(3):
+        out[:, c] = ((a[:, 3 * c] + a[:, 3 * c + 1]) + a[:, 3 * c + 2]) - tgt[:, c] * s
+    return out
+
+
+# ------------------------------------------------------------- force_fast
+def force_fast_plain(
+    tgt: torch.Tensor,
+    src: torch.Tensor,
+    G: float,
+    eps2: float,
+    diag=SELF_DIAG,
+    *,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Plain twin of ``force_fast``, chunked over targets.  The weights are
+    the kernel's: f32 ``rsqrt(d2^3)``, self pairs (``col == row + off``,
+    ``lo <= row < hi``) set to 0, rounded to bf16.  They multiply the same
+    bf16 limb matrix; each row's sums are taken in f64 (the products of two
+    bf16 values are exact there) and rounded once, so the twin carries no
+    summation-order error of its own, then the f32 epilogue."""
+    off, lo, hi = diag
+    limbs = limbs_bf16(src, G).double()
+    sx, sy, sz = src[:, 0], src[:, 1], src[:, 2]
+    cols = torch.arange(src.shape[0], device=src.device)[None, :]
+    out = torch.zeros_like(tgt)
+    for s in range(0, tgt.shape[0], chunk):
+        t = tgt[s : s + chunk]
+        dx = sx[None, :] - t[:, 0:1]
+        dy = sy[None, :] - t[:, 1:2]
+        dz = sz[None, :] - t[:, 2:3]
+        d2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        inv3 = torch.rsqrt(d2 * (d2 * d2))
+        rows = torch.arange(s, s + t.shape[0], device=src.device)[:, None]
+        self_pair = (cols - rows == off) & (rows >= lo) & (rows < hi)
+        w = round_to_bf16(torch.where(self_pair, 0.0, inv3))
+        out[s : s + chunk] = _fast_epilogue((w.double() @ limbs).to(tgt.dtype), t)
+    return out
+
+
+def force_fast(
+    tgt: torch.Tensor, src: torch.Tensor, G: float, eps2: float, diag=SELF_DIAG
+) -> torch.Tensor:
+    """Fast-mode accelerations of ``tgt`` rows against ``src`` rows (both
+    ``(N, 4)`` pos_mass), ``accel_pallas(mode="fast")``'s counterpart:
+    bf16 weights on the tensor cores against the sources' bf16 limbs.
+    ``diag = (off, lo, hi)`` names the self pairs (source ``row + off`` for
+    target rows in ``[lo, hi)``), whose weights are 0: ``SELF_DIAG`` when
+    the targets are the sources, ``(NO_DIAG, 0, NO_DIAG)`` for disjoint
+    sets.  Returns ``(N_t, 4)``, w lane 0."""
+    dev = check_rows("force_fast", tgt, src)
+    if eps2 <= 0:
+        raise ValueError("eps2 must be > 0 (softening keeps the weights finite)")
+    diag = _check_diag("force_fast", diag)
+    if dev.type == "cpu":
+        return force_fast_plain(tgt, src, G, eps2, diag)
+    out = torch.empty_like(tgt)
+    frag = fragment_order(limbs_bf16(src, G))
+    launch(
+        "force_fast", dev, lib().nb_force_fast,
+        tgt, src, frag, out, tgt.shape[0], src.shape[0], float(eps2), *diag,
+    )
+    return out
+
+
+# -------------------------------------------------------- fused_step_fast
+def fused_step_fast_plain(
+    pos_mass: torch.Tensor,
+    vel: torch.Tensor,
+    accel: torch.Tensor,
+    dt: float,
+    G: float,
+    eps2: float,
+    n_real: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of ``fused_step_fast``: :func:`force_fast_plain` with the
+    self diagonal, then the Verlet update of ``ops/integrate.py``."""
+    a = force_fast_plain(pos_mass, pos_mass, G, eps2)
+    valid = valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+    return apply_integrator("verlet", pos_mass, vel, accel, a, dt, valid)
+
+
+def fused_step_fast(
+    pos_mass: torch.Tensor,
+    vel: torch.Tensor,
+    accel: torch.Tensor,
+    dt: float,
+    G: float,
+    *,
+    eps2: float,
+    n_real: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fast force + Verlet step in one launch
+    (``fused_step_pallas(mode="fast")``'s counterpart), with
+    :func:`fused_step_exact`'s contract: new ``(pos_mass, vel, accel)``,
+    rows ``>= n_real`` frozen with a zero acceleration, no gradient.  On
+    the card it equals :func:`force_fast` followed by the torch Verlet bit
+    for bit."""
+    dev = _check_step("fused_step_fast", pos_mass, vel, accel, eps2)
+    if dev.type == "cpu":
+        return fused_step_fast_plain(pos_mass, vel, accel, dt, G, eps2, n_real)
+    n = pos_mass.shape[0]
+    frag = fragment_order(limbs_bf16(pos_mass, G))
+    out = tuple(torch.empty_like(pos_mass) for _ in range(3))
+    launch(
+        "fused_step_fast", dev, lib().nb_fused_step_fast,
+        pos_mass, frag, vel, accel, *out, n, min(int(n_real), n), float(dt), float(eps2),
     )
     return out
 

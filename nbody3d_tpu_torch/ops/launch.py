@@ -1,6 +1,6 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The sixteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The eighteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
 ====================  ===================  ===================================
@@ -13,6 +13,8 @@ kernel                wrapper module       computes
 ``sym_diag``          ``cuda_force``       uncentred sym force 1: in-tile
 ``sym_combine``       ``cuda_force``       sym force 3: sum the partials
 ``fused_step_exact``  ``cuda_force``       exact force + Verlet, one launch
+``force_fast``        ``cuda_force``       fast mode: bf16 tensor-core force
+``fused_step_fast``   ``cuda_force``       fast force + Verlet, one launch
 ``vjp_full``          ``force_vjp``        force VJP, every target x source
 ``vjp_sym_diag``      ``force_vjp``        sym VJP 1: in-tile pairs
 ``vjp_sym_hops``      ``force_vjp``        sym VJP 2: off-diagonal tile pairs
@@ -39,7 +41,7 @@ import torch
 
 KERNELS = (
     "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue", "sym_diag", "sym_combine",
-    "fused_step_exact",
+    "fused_step_exact", "force_fast", "fused_step_fast",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
     "splat_resolve", "short_range", "mesh_deposit", "mesh_gather", "short_range_bwd",
 )

@@ -27,14 +27,14 @@ For ``method="direct"``:
      tile; ``fuse_integrate`` is not read, as in JAX): the sym force
      ``accel_sym`` (``sym_diag_prep`` -> ``sym_hops`` -> ``sym_combine``)
      and the integrator;
-  3. ``"exact"`` with ``fuse_integrate`` and ``verlet``: the one-launch
-     ``fused_step_exact``, which has no gradient (a request raises);
-  4. ``"exact"`` otherwise: ``force_exact`` and the integrator.
+  3. ``"exact"`` or ``"fast"`` with ``fuse_integrate`` and ``verlet``: the
+     one-launch ``fused_step_exact`` or ``fused_step_fast``, which have no
+     gradient (a request raises);
+  4. ``"exact"`` or ``"fast"`` otherwise: ``force_exact`` or
+     ``force_fast`` (bf16 weights on the tensor cores) and the integrator.
 
   On a CPU device the kernel wrappers run their plain twins, because the
-  tensors lie on the CPU.  ``"fast"``, with or without ``fuse_integrate``,
-  raises ``NotImplementedError`` naming its ROADMAP.md item; nothing falls
-  back to plain code.
+  tensors lie on the CPU; nothing falls back to plain code.
 
 Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
 the JAX package's step) flow on every route.  The mesh steps are plain
@@ -44,16 +44,19 @@ autograd over ``accel_p3m``/``accel_pm``, whose kernels sit in
 through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 
-- exact and the unfused sym force: ``force_exact`` and ``accel_sym`` are
-  wrapped in ``make_diff_accel`` (the sym VJP kernels) and autograd
-  differentiates the plain-torch integrators (``yoshida4`` included);
+- exact, fast and the unfused sym force: ``force_exact``, ``force_fast``
+  and ``accel_sym`` are wrapped in ``make_diff_accel`` (the sym VJP
+  kernels: the VJP of the ideal f32 pair math, as the JAX package pairs
+  fast mode with it) and autograd differentiates the plain-torch
+  integrators (``yoshida4`` included);
 - the fused sym step: :class:`_SymStep` mirrors the JAX
   ``make_fused_sym_step``: its forward runs the fused kernels on copies,
   its backward differentiates the Verlet update with autograd and sends
   the force cotangent through ``force_vjp_sym``.  When nothing needs a
   gradient the step updates the state in place, as before;
-- the fused exact step has none, as the JAX ``fused_step_pallas`` has no
-  VJP: a step whose input requires grad raises.
+- the fused exact and fast steps have none, as the JAX
+  ``fused_step_pallas`` has no VJP: a step whose input requires grad
+  raises.
 
 ``dt`` and ``G`` are Python floats or 0-d float32 tensors.  A tensor that
 requires grad gets its gradient as in the JAX fused step's VJP: ``dt``'s
@@ -69,7 +72,9 @@ from typing import Callable
 import torch
 
 from nbody3d_tpu_torch.config import SimConfig
-from nbody3d_tpu_torch.ops.cuda_force import accel_sym, force_exact, fused_step_exact, sym_step_
+from nbody3d_tpu_torch.ops.cuda_force import (
+    accel_sym, force_exact, force_fast, fused_step_exact, fused_step_fast, sym_step_,
+)
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
 from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel, requires_grad
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
@@ -90,8 +95,6 @@ PAD_GRANULE = GPU_TILE
 # Configurations of the JAX package that the port does not run yet.
 _TODO_PERIODIC = "ROADMAP.md queue 1 item 9 (periodic boundary: ops/ewald.py, the kernels' periodic forms)"
 _TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
-_TODO_FAST = "ROADMAP.md queue 2 item 8 (fast-mode kernels)"
-_TODO_FUSED = "ROADMAP.md queue 2 item 8 (_fused_kernel_fast)"
 
 
 def fit_block(n: int, want: int, floor: int = 8) -> int:
@@ -245,17 +248,14 @@ def make_step_fn(
         accel = make_diff_accel(lambda pm, G: accel_sym(pm, G, eps2=eps2, b=b), eps2=eps2, b=b)
         return _integrated_step(config.integrator, accel, n_real)
 
-    if mode == "exact":
+    if mode in ("exact", "fast"):
         if config.fuse_integrate and config.integrator == "verlet":
-            return _fused_exact_step(eps2, n_real)
+            return _fused_step(fused_step_exact if mode == "exact" else fused_step_fast, eps2, n_real)
+        force = force_exact if mode == "exact" else force_fast
         # The VJP's tile: any divisor of n_pad serves (nt = 1 included).
         b_vjp = fit_block(n_pad, min(config.block_target, GPU_TILE), floor=1)
-        accel = make_diff_accel(lambda pm, G: force_exact(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
+        accel = make_diff_accel(lambda pm, G: force(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
         return _integrated_step(config.integrator, accel, n_real)
-
-    if mode == "fast":
-        todo = _TODO_FUSED if config.fuse_integrate and config.integrator == "verlet" else _TODO_FAST
-        raise NotImplementedError(f"force_mode='fast' (fuse_integrate={config.fuse_integrate}): {todo}")
     raise ValueError(f"unknown force_mode {mode!r}")
 
 
@@ -283,8 +283,9 @@ def _fused_sym_step(eps2: float, b: int, n_real: int) -> StepFn:
     return step
 
 
-def _fused_exact_step(eps2: float, n_real: int) -> StepFn:
-    """``fused_step_exact`` into fresh state tensors.  Gradients raise."""
+def _fused_step(fused: Callable, eps2: float, n_real: int) -> StepFn:
+    """``fused_step_exact`` or ``fused_step_fast`` into fresh state
+    tensors.  Gradients raise."""
 
     def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
         p, v, a = state.pos_mass, state.vel, state.accel
@@ -293,7 +294,7 @@ def _fused_exact_step(eps2: float, n_real: int) -> StepFn:
                 "fuse_integrate=True: the fused force+Verlet kernel has no gradient (nor has "
                 "the JAX package's fused_step_pallas); differentiate with fuse_integrate=False"
             )
-        out = fused_step_exact(p, v, a, float(dt), float(G), eps2=eps2, n_real=n_real)
+        out = fused(p, v, a, float(dt), float(G), eps2=eps2, n_real=n_real)
         return SimState(*out, state.step + 1)
 
     return step

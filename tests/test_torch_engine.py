@@ -105,12 +105,10 @@ def test_pallas_backend_on_cpu_raises():
 @pytest.mark.parametrize(
     "kw",
     [
-        {"force_mode": "fast"},
         {"method": "pm", "cosmology": "eds"},
         {"method": "p3m", "boundary": "periodic", "box_size": 10.0},
         {"boundary": "periodic", "box_size": 10.0},
         {"cosmology": "eds"},
-        {"force_mode": "fast", "fuse_integrate": True},
     ],
 )
 def test_unported_configs_raise(kw):
@@ -118,12 +116,35 @@ def test_unported_configs_raise(kw):
         Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
 
 
-def test_launch_counters_stay_zero_on_cpu():
+@pytest.mark.parametrize(
+    "kw",
+    [{"force_mode": "exact"}, {"force_mode": "sym"}, {"force_mode": "fast"},
+     {"force_mode": "fast", "fuse_integrate": True}],
+)
+def test_launch_counters_stay_zero_on_cpu(kw):
     reset_launch_counts()
-    for mode in ("exact", "sym"):
-        sim = Simulation.from_preset("uniform-sphere", SimConfig(force_mode=mode), n=512, device="cpu")
-        sim.run(2)
+    sim = Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=512, device="cpu")
+    sim.run(2)
+    assert sim.step_count == 2
     assert launch_counts() == dict.fromkeys(KERNELS, 0)
+
+
+def test_cli_reference_random_counts(tmp_path):
+    """``run --preset reference-random --num-galaxies --min-bodies
+    --max-bodies`` (the reference's run-config controls): the saved
+    initial state (0 steps) is the JAX package's preset of the same seed,
+    body count and all."""
+    from nbody3d_tpu.models.registry import make_preset as jax_make_preset
+
+    assert cli.main(["run", "--device", "cpu", "--preset", "reference-random", "--num-galaxies", "3",
+                     "--min-bodies", "40", "--max-bodies", "90", "--seed", "5", "--steps", "0",
+                     "--outdir", str(tmp_path)]) == 0
+    sim = Simulation.load(str(tmp_path / "final.npz"), device="cpu")
+    pm, vel, _ = jax_make_preset("reference-random", seed=5, num_galaxies=3, min_bodies=40, max_bodies=90)
+    assert sim.n_real == pm.shape[0] != 2 * 41
+    p, v, _ = sim.arrays()
+    np.testing.assert_array_equal(p, pm)
+    np.testing.assert_array_equal(v, vel)
 
 
 def test_cli_run_bench_info(capsys, tmp_path):
