@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a, 12a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
@@ -124,18 +124,43 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    same shapes; (d) at N = 4,096 6d's rollout gradient through the fast
    route against ``backend="jnp"``'s, by v0, dt and G, within 5e-3 of
    scale, and a gradient request through the fused fast step raises.
+12. the periodic box (``boundary="periodic"``, forward only): (a, after
+   11a) the periodic forms of ``short_range``, ``mesh_deposit`` and
+   ``mesh_gather`` against their twins on the unit box with bodies on the
+   seams, N = 8,192 and 7,936, tiles 128 and 256, grids 32 and 128, TSC and
+   CIC: the deposit per cell within its f32 summation bound, bit for bit
+   on exact terms with the first and last cells written, the gather within
+   1e-5 of the max, ``short_range`` rtol 2e-4, atol 3e-6 of the max against
+   the twin and the twin in f64; (b) p3m_bench's periodic configuration
+   (uniform-box N = 2,097,152, box 10, grid 128, k = 32), plain and
+   ``--interlace``, 30 warm steps with the momentum error (<= 1e-5 of
+   sum |m v| after them) and 2 timed chunks of 10; after the windows the
+   inherited ``nbr_k`` fault, reported and not gated (2,048 sampled bodies
+   against the f64 Ewald oracle, the tile overflow, the quantiles of the
+   tiles within rcut) and the three kernels at that shape beside their
+   twins, bounds and (deposit) ``index_add_``; (c) the accuracy gate:
+   uniform-box N = 32,768, box 1, grid 32, k = 128 (overflow 0), interlace
+   off and on, 2,048 sampled bodies against the f64 Ewald oracle, median <
+   3e-3 and p99 < 2e-2; ``cli run --boundary periodic`` (the JAX collapse
+   test: 200 steps, |dE|/KE < 1e-2, momentum < 1e-4 of sum |m v|); and at
+   N = 8,192 the kernel route of periodic P3M and PM against
+   ``backend="jnp"`` (8e's bounds); (d) periodic PM (CIC) at 12b's box, 30
+   warm steps and 5 timed chunks of 50, then the net force < 3e-5 of
+   sum |f| and its CIC kernels against their twins.
 
-Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b and 11c (the main
-paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e and 11d each run with the launch
-counts set to 0
+Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice)
+and 12d (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e, 11d and 12c each
+run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b and 8d and one profiled gradient rollout of 9b and 9c (device
+step of 8b, 8d, 12b (each) and 12d and one profiled gradient rollout of 9b and 9c (device
 busy time, idle share, largest kernels; for 9b and 9c the share of each
 stage) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
-and ``sym_diag``'s from 10e;
+and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit`` and
+``mesh_gather`` carry a ``periodic`` entry with 12b's and 12d's launches and
+the periodic form's numbers at 12b's shape;
 ``bound_ms`` from this run's shapes and the operation counts in each
 kernel's source note); the last is the ``{"ok": true, "device": ...}``
 line.  Without a CUDA card it exits 1 and prints no result.
@@ -161,6 +186,7 @@ import torch
 from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
+from nbody3d_tpu_torch.ops import ewald
 from nbody3d_tpu_torch.ops import force_vjp as fv
 from nbody3d_tpu_torch.ops import mesh_cuda as mc
 from nbody3d_tpu_torch.ops import p3m, pm
@@ -1286,12 +1312,18 @@ def _momentum(sim: Simulation) -> torch.Tensor:
 
 def _mesh_run(sim: Simulation, tag: str, chunks: int, chunk: int, warm: int = 30) -> float:
     """``warm`` untimed steps, over which the momentum error is checked
-    against 1e-5 of sum |m v|, then ``chunks`` timed chunks of ``chunk``
+    against 1e-5 of sum |m v| (of the start; of the state after them for a
+    cold start, sum |m v| = 0), then ``chunks`` timed chunks of ``chunk``
     steps.  Prints ms/step (the median chunk) and the momentum error over
     all steps; returns the ms/step."""
+
+    def abs_momentum():
+        return float((sim.state.pos_mass[:, 3:4].double() * sim.state.vel[:, :3].double()).abs().sum())
+
     p0 = _momentum(sim)
-    pscale = float((sim.state.pos_mass[:, 3:4].double() * sim.state.vel[:, :3].double()).abs().sum())
+    pscale = abs_momentum()
     warm_s = _timed_chunks(sim, 1, warm)[0]
+    pscale = pscale or abs_momentum()
     mom = float((_momentum(sim) - p0).abs().max()) / pscale
     times = _timed_chunks(sim, chunks, chunk)
     mom_all = float((_momentum(sim) - p0).abs().max()) / pscale
@@ -1420,7 +1452,8 @@ def _stage_ms(x: dict, n_real: int, grid: int, block: int) -> dict[str, float]:
     return {name: cuda_ms(fn, reps=3) for name, fn in stages.items()}
 
 
-def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p):
+def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p, periodic: bool = False,
+                    seam: bool = False):
     """Holds a full-size deposit (kernel ``rho`` and twin ``rho_p``) against
     the same f32 terms summed in f64, and returns the terms ``(idx, val)``.
 
@@ -1432,8 +1465,12 @@ def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p):
     second deposit on the same cells gives every body exact terms (TSC
     f = 1/2: weights 0, 1/2, 1/2 an axis; CIC f = 0: 1, 0; mass 1), whose
     sums are exact in any order: the kernel must match them bit for bit,
-    which a lost or repeated atomic add would break."""
-    idx, val = zip(*mc._stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3]))
+    which a lost or repeated atomic add would break.  ``periodic``: the
+    stencil wraps, and the exact terms take f = 1/2 at both orders (CIC:
+    1/2, 1/2 an axis), so that a body in the far corner, whose stencil
+    wraps, writes the first and the last cell; with ``seam`` (a scene with
+    such a body) both must be written."""
+    idx, val = zip(*mc._stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3], periodic=periodic))
     idx, val = torch.cat(idx), torch.cat(val)
     rho64 = torch.zeros(grid**3, dtype=torch.float64, device=fm.device).index_add_(0, idx, val.double())
     adds = torch.bincount(idx, minlength=grid**3).double()
@@ -1452,13 +1489,15 @@ def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p):
           f"{tag}: total mass vs f64, relative error kernel {mass_err['kernel']:.3e}, twin {mass_err['twin']:.3e} "
           f"<= {mass_bound:.3e} (the summed cell bounds)")
     exact = fm.clone()
-    exact[:, :3] = 0.5 if order == 3 else 0.0
+    exact[:, :3] = 0.5 if order == 3 or periodic else 0.0
     exact[:, 3] = 1.0
-    got = mc.deposit(c4, exact, grid, order).view(-1).double()
-    want = mc.deposit_plain(c4, exact.double(), grid, order).view(-1)
-    check(torch.equal(got, want) and float(got.sum()) == fm.shape[0],
+    got = mc.deposit(c4, exact, grid, order, periodic).view(-1).double()
+    want = mc.deposit_plain(c4, exact.double(), grid, order, periodic).view(-1)
+    cells = f", first cell {float(got[0]):.3f}, last cell {float(got[-1]):.3f}" if periodic else ""
+    check(torch.equal(got, want) and float(got.sum()) == fm.shape[0] and (not seam or got[0] * got[-1] > 0),
           f"{tag}: mesh_deposit with exact terms (mass 1 a body) equal to their f64 sums in every cell, total "
-          f"{float(got.sum()):.1f} = {fm.shape[0]} bodies (worst cell |diff| {float((got - want).abs().max()):.3e})")
+          f"{float(got.sum()):.1f} = {fm.shape[0]} bodies (worst cell |diff| {float((got - want).abs().max()):.3e})"
+          + cells)
     return idx, val
 
 
@@ -2281,6 +2320,356 @@ def _fast_times(dev, pm: torch.Tensor, reps: int) -> dict[str, float]:
             "exact": cuda_ms(lambda: cf.force_exact(pm, pm, G, EPS2), reps=reps)}
 
 
+# ------------------------------------------------------ the periodic box
+PERIODIC = "nbody3d_tpu/ops/"
+# The periodic forms: the TPU kernels' periodic branches.
+PERIODIC_REPLACES = {
+    "short_range": PERIODIC + "p3m.py:730",  # the minimum image :730-735, k_short_periodic :748-755
+    "mesh_deposit": PERIODIC + "mesh_pallas.py:270",  # the zmod wrap of _deposit_kernel
+    "mesh_gather": PERIODIC + "mesh_pallas.py:315",  # the zmod wrap of _gather_kernel
+}
+# FP32 FLOP a live-slot pair of the periodic short_range: the isolated 47
+# less the A-S erfc's 16, plus the minimum image's 6 selected adds, erff's
+# polynomial (about 20) and 3 more in 1/s^3 - erf(u)/r^3 + c2 e/r^2; MUFU
+# results: two rsqrt and the ex2 of expf (erff's own ex2 for u > 1 is not
+# counted, so the bound is a least time).
+FLOP["short_range_periodic"] = 60
+SR_MUFU_PERIODIC = 3
+# 12b's and 12d's box: benchmarks/p3m_bench.py --boundary periodic (uniform
+# box, N = 2,097,152, box 10, grid 128, k = 32: p3m_bench.py:39-56, 109-116).
+BOX_N = 2_097_152
+BOX_L = 10.0
+PERIODIC_SIMS: dict[str, Simulation] = {}  # 12b's and 12d's simulations, for the checks after their windows
+
+
+def _box_rows(n: int, n_pad: int, dev, seed: int = 0) -> torch.Tensor:
+    """``n`` bodies uniform in the unit box (masses U(1, 3)), eight on the
+    seams (one in the far corner, whose stencil wraps onto the first and
+    the last cell, 3.5e-3 from the padding rows at the origin: a much
+    closer pair cancels 1/s^3 - 1/r^3 to nothing in f32), zero-padded to
+    ``n_pad`` rows and Morton-sorted as ``accel_p3m`` sorts them."""
+    rng = np.random.default_rng(seed)
+    pm_np = np.concatenate([rng.uniform(0, 1, (n, 3)), rng.uniform(1.0, 3.0, (n, 1))], axis=1)
+    pm_np[:8, :3] = [[0.0, 0.5, 0.0], [1 - 1e-7, 0.5, 0.5], [0.5, 0.0, 1 - 1e-7], [1 - 2e-3, 1 - 2e-3, 1 - 2e-3],
+                     [1e-7, 0.25, 0.75], [0.75, 1e-7, 1 - 1e-7], [0.5, 0.5, 0.0], [1 - 2e-7, 2e-7, 0.3]]
+    pos_mass = torch.from_numpy(np.pad(pm_np, ((0, n_pad - n), (0, 0))).astype(np.float32)).to(dev)
+    return pos_mass[torch.argsort(p3m.morton_keys(pos_mass, n), stable=True)].contiguous()
+
+
+def _periodic_inputs(ps: torch.Tensor, n_real: int, grid: int, block: int, L: float, nbr_k: int = 32):
+    """What the periodic ``accel_p3m`` hands ``short_range`` for the
+    wrapped, sorted rows ``ps``: the scales and the neighbour lists."""
+    Lt, h, sigma, rcut = (t.to(ps.device) for t in p3m.periodic_scales(grid, L, p3m.DEFAULT_SIGMA_CELLS,
+                                                                        p3m.DEFAULT_RCUT_SIGMAS))
+    lo_b, hi_b = p3m._sorted_aabbs(ps, n_real, block)
+    kth, neg, idx = p3m._select_neighbors(lo_b, hi_b, h, min(nbr_k, ps.shape[0] // block), L=Lt)
+    return dict(L=Lt, h=h, sigma=sigma, rcut=rcut, nbr_idx=idx, mask=p3m.mutual_neighbor_mask(neg, idx, kth))
+
+
+def _periodic_cells(pos_mass: torch.Tensor, h: torch.Tensor, grid: int, order: int):
+    """The mesh kernels' operands ``(c4, fm)`` on the torus (TSC at order
+    3, CIC at 2) of wrapped rows."""
+    cells = p3m._tsc_cells if order == 3 else pm._cic_cells
+    lo = torch.zeros(3, device=pos_mass.device)
+    return mc.mesh_operands(*cells(pos_mass[:, :3], lo, h, grid, periodic=True), pos_mass[:, 3])
+
+
+def phase_periodic_checks(dev) -> None:
+    """12a: the periodic forms of the three mesh kernels against their plain
+    twins on the card, on the unit box with bodies on the seams, at N =
+    8,192 and 7,936 (192 padding rows), tiles 128 and 256, grids 32 and
+    128, TSC and CIC: the deposit against f64 sums of its terms (each cell
+    within its f32 summation bound, exact terms bit for bit, the first and
+    last cells written), the gather within 1e-5 of the max, ``short_range``
+    (rtol 2e-4, atol 3e-6 of the max) against its twin and against the twin
+    run in f64, also with slots masked."""
+    print("[12a periodic] short_range, mesh_deposit, mesh_gather periodic forms vs plain twins", flush=True)
+    for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
+        n_real = n_pad - 192
+        ps = _box_rows(n_real, n_pad, dev)
+        for grid in (32, 128):
+            tag = f"periodic N={n_pad} block={block} grid={grid}"
+            x = _periodic_inputs(ps, n_real, grid, block, 1.0)
+            for order in (3, 2):
+                c4, fm = _periodic_cells(ps, x["h"], grid, order)
+                rho, rho_p = mc.deposit(c4, fm, grid, order, True), mc.deposit_plain(c4, fm, grid, order, True)
+                _deposit_agrees(f"{tag} order {order}", c4, fm, grid, order, rho, rho_p, periodic=True, seam=True)
+                grids = ewald.spectral_accel_grids(rho_p, x["L"], x["sigma"], order=order)
+                acc = mc.gather(grids, c4, fm, grid, order, True)
+                acc_p = mc.gather_plain(grids, c4, fm, grid, order, True)
+                e_acc = rel_err(acc, acc_p)
+                check(e_acc < 1e-5 and not acc[:, 3].any(),
+                      f"{tag} order {order}: periodic mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+            mask = x["mask"].clone()
+            mask[::3, 1] = 0.0
+            args = (ps, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block)
+            args64 = (ps.double(), x["nbr_idx"], EPS2, x["sigma"].double(), x["rcut"].double(), block)
+            for what, m in (("mutual mask", x["mask"]), ("mask with slots zeroed", mask)):
+                got = p3m.short_range_tiles(*args, m, box=1.0)
+                want = p3m.short_range_tiles(*args, m, backend="jnp", box=1.0)
+                f64 = p3m._short_range_tiles(*args64, m.double(), box=1.0)
+                torch.cuda.synchronize()
+                ok, err = _sr_agree(got, want)
+                ok64, err64 = _sr_agree(got.double(), f64)
+                check(ok and ok64 and not got[:, 3].any(),
+                      f"{tag}: periodic short_range ({what}, {int((m == 0).sum())} slots off) rtol 2e-4, atol "
+                      f"3e-6 of max against the twin (max-abs/max {err:.3e}) and the f64 sum ({err64:.3e})")
+
+
+def _box_run(dev, tag: str, method: str, chunks: int, chunk: int, **cfg):
+    """p3m_bench's periodic box (uniform-box, N = 2,097,152, box 10, grid
+    128) through ``Simulation``: 30 warm steps with the momentum gate, then
+    the timed chunks (:func:`_mesh_run`)."""
+    torch.cuda.reset_peak_memory_stats()
+    config = SimConfig(method=method, pm_grid=128, p3m_nbr_k=32, boundary="periodic", box_size=BOX_L, **cfg)
+    sim = Simulation.from_preset("uniform-box", config, n=BOX_N, box_size=BOX_L, device=dev)
+    _mesh_run(sim, f"{tag} uniform-box N={sim.n_real} box {BOX_L:g} grid 128"
+              + (" k 32" if method == "p3m" else "") + (" interlaced" if cfg.get("mesh_interlace") else ""),
+              chunks=chunks, chunk=chunk)
+    PERIODIC_SIMS[tag] = sim
+    return [(f"{tag} one step", lambda: sim.run(1, chunk=1))]
+
+
+def phase_periodic_p3m(dev):
+    """12b: periodic P3M at p3m_bench's periodic configuration, 2 timed
+    chunks of 10."""
+    return _box_run(dev, "[12b periodic p3m]", "p3m", 2, 10)
+
+
+def phase_periodic_p3m_interlaced(dev):
+    """12b with ``--interlace`` (two mesh legs a step)."""
+    return _box_run(dev, "[12b periodic p3m interlaced]", "p3m", 2, 10, mesh_interlace=True)
+
+
+def phase_periodic_pm(dev):
+    """12d: periodic PM (CIC) at the same box, 5 timed chunks of 50."""
+    return _box_run(dev, "[12d periodic pm]", "pm", 5, 50)
+
+
+def _ewald_errors(pos_mass: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor, L: float, sigma: float,
+                  eps2: float, n_images: int) -> np.ndarray:
+    """Per-body relative error of ``acc`` (per unit G, at ``rows``) against
+    the f64 Ewald oracle, ``kmax`` as tests/test_periodic.py sets it."""
+    kmax = max(10, int(5.5 * L / (2 * np.pi * sigma)) + 1)
+    ref = ewald.ewald_accel_reference(pos_mass.double(), L, sigma, eps2=eps2, n_images=n_images, kmax=kmax,
+                                      rows=rows, pair_batch=1 << 25)
+    return (torch.linalg.norm(acc.double() - ref, dim=1) / torch.linalg.norm(ref, dim=1).clamp(min=1e-300)).cpu().numpy()
+
+
+def _box_fault(sim: Simulation, samples: int = 2048) -> None:
+    """12b's inherited ``nbr_k`` fault, reported and not gated: the force
+    of ``samples`` sampled bodies against the f64 Ewald oracle (its split
+    width L/16 and the minimum image alone: past it erfc(5.66) = 1.6e-15),
+    the tile overflow and the quantiles of each tile's count of tiles
+    within rcut (k = 32 covers a tile only if that count is <= 32)."""
+    from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
+
+    cfg, pos_mass = sim.config, sim.state.pos_mass
+    rows = torch.from_numpy(np.random.default_rng(0).choice(sim.n_real, samples, replace=False)).to(pos_mass.device)
+    acc = make_mesh_accel_fn(cfg, sim.n_real, "kernels")(pos_mass, 1.0)[rows, :3]
+    t0 = time.perf_counter()
+    rel = _ewald_errors(pos_mass, acc, rows, BOX_L, BOX_L / 16, cfg.eps2, 0)
+    oracle_s = time.perf_counter() - t0
+    within = p3m.tiles_within_rcut(pos_mass, grid=cfg.pm_grid, n_real=sim.n_real, box_size=BOX_L).float()
+    ov = p3m.p3m_neighbor_overflow(pos_mass, grid=cfg.pm_grid, n_real=sim.n_real, nbr_k=cfg.p3m_nbr_k,
+                                   box_size=BOX_L)
+    q = torch.quantile(within, torch.tensor([0.0, 0.5, 0.99, 1.0], device=within.device)).tolist()
+    print(f"[12b inherited nbr_k fault{' interlaced' if cfg.mesh_interlace else ''}] N={sim.n_real}, {samples} "
+          f"sampled bodies against the f64 Ewald oracle ({oracle_s:.1f} s): median {np.median(rel):.3e}, p99 "
+          f"{np.percentile(rel, 99):.3e}, max {rel.max():.3e}; tile overflow {ov} of {within.numel()} at k = "
+          f"{cfg.p3m_nbr_k}; tiles within rcut min {q[0]:.0f}, median {q[1]:.0f}, p99 {q[2]:.0f}, max {q[3]:.0f}",
+          flush=True)
+    check(bool(np.isfinite(rel).all()), "[12b] the sampled forces are finite (accuracy not gated: ROADMAP queue 3)")
+
+
+def phase_periodic_times(dev) -> dict[str, dict]:
+    """After 12b's and 12d's windows: 12b's fault report (both runs), the
+    three kernels' periodic forms at 12b's shape and data beside their
+    twins, bounds and (deposit) ``index_add_``, then 12d's net force and its
+    CIC kernels against their twins."""
+    print("[12b periodic] kernel times at the periodic P3M path's shape (CUDA events; plain: host clock, one run)",
+          flush=True)
+    for tag in ("[12b periodic p3m]", "[12b periodic p3m interlaced]"):
+        _box_fault(PERIODIC_SIMS[tag])
+    sim = PERIODIC_SIMS.pop("[12b periodic p3m]")
+    del PERIODIC_SIMS["[12b periodic p3m interlaced]"]
+    grid, block = sim.config.pm_grid, p3m.DEFAULT_BLOCK
+    pos = ewald.wrap_box(sim.state.pos_mass[:, :3], BOX_L)
+    pm_w = torch.cat([pos, sim.state.pos_mass[:, 3:]], 1)
+    ps = pm_w[torch.argsort(p3m.morton_keys(pm_w, sim.n_real), stable=True)].contiguous()
+    x = _periodic_inputs(ps, sim.n_real, grid, block, BOX_L)
+    del sim
+    (c4, fm), n = _periodic_cells(ps, x["h"], grid, 3), ps.shape[0]
+    out: dict[str, dict] = {}
+
+    rho = mc.deposit(c4, fm, grid, 3, True)
+    rho_p = None
+
+    def run_dep_plain():
+        nonlocal rho_p
+        rho_p = mc.deposit_plain(c4, fm, grid, 3, True)
+
+    dep_plain_ms = host_ms(run_dep_plain)
+    idx, val = _deposit_agrees(f"2M periodic P3M (TSC, N={n})", c4, fm, grid, 3, rho, rho_p, periodic=True)
+    lib_call = lambda: torch.zeros(grid**3, device=dev).index_add_(0, idx, val)  # noqa: E731
+    out["mesh_deposit"] = {
+        "max_abs_err": max_abs(rho, rho_p), "ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 3, True), reps=20),
+        "plain_ms": dep_plain_ms, "library_ms": cuda_ms(lib_call, reps=20),
+        "shape": f"({n}, 4) x 2 -> {grid}^3 torus, TSC",
+        "note": "library: index_add_ over the 27N pre-expanded wrapped (cell, weight) pairs, with the grid's zero "
+                "fill; plain: one run, host clock",
+        **bound("mesh_deposit", n, 32 * n + 4 * grid**3),
+    }
+    del idx, val, rho_p
+
+    grids = ewald.spectral_accel_grids(rho, x["L"], x["sigma"], order=3)
+    acc = mc.gather(grids, c4, fm, grid, 3, True)
+    acc_p = None
+
+    def run_gat_plain():
+        nonlocal acc_p
+        acc_p = mc.gather_plain(grids, c4, fm, grid, 3, True)
+
+    gat_plain_ms = host_ms(run_gat_plain)
+    e_acc = rel_err(acc, acc_p)
+    check(e_acc < 1e-5, f"2M periodic: mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+    out["mesh_gather"] = {
+        "max_abs_err": max_abs(acc, acc_p), "ms": cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 3, True), reps=20),
+        "plain_ms": gat_plain_ms, "library_ms": None, "shape": f"3 x {grid}^3 torus + ({n}, 4) x 2 -> ({n}, 4), TSC",
+        "note": "library: none (grid_sample pads with zeros, the border or a reflection, and has no wrap mode; "
+                "nor does it take TSC weights); plain: one run, host clock",
+        **bound("mesh_gather", n, 48 * n + 12 * grid**3),
+    }
+    del acc_p
+
+    args = (ps, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    sr = p3m.short_range_tiles(*args, box=BOX_L)
+    sr_p = None
+
+    def run_sr_plain():
+        nonlocal sr_p
+        sr_p = p3m.short_range_tiles(*args, backend="jnp", box=BOX_L)
+
+    sr_plain_ms = host_ms(run_sr_plain)
+    ok, err = _sr_agree(sr, sr_p)
+    check(ok, f"2M periodic: short_range vs plain rtol 2e-4, atol 3e-6 of max (max-abs/max {err:.3e})")
+    live = int((x["mask"] != 0).sum())
+    pairs = live * block * block
+    nb, k = x["nbr_idx"].shape
+    out["short_range"] = {
+        "max_abs_err": max_abs(sr, sr_p), "ms": cuda_ms(lambda: p3m.short_range_tiles(*args, box=BOX_L), reps=5),
+        "plain_ms": sr_plain_ms, "library_ms": None,
+        "shape": f"({n}, 4) torus, {nb} tiles of {block}, k {k}, {live} live slots",
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
+        **bound("short_range_periodic", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU_PERIODIC * pairs),
+    }
+    del sr_p
+    _print_times(out)
+    out["mesh_gather"]["cic"] = _periodic_pm_checks(PERIODIC_SIMS.pop("[12d periodic pm]"))
+    return out
+
+
+def _periodic_pm_checks(sim: Simulation) -> dict:
+    """12d after its window: the net force below 3e-5 of sum |f|
+    (tests/test_periodic.py:145), then its CIC kernels at its shape and data
+    against their twins (the deposit as :func:`_deposit_agrees`, the gather
+    at 1e-5 of the max) and their times."""
+    from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
+
+    pos_mass, grid = sim.state.pos_mass, sim.config.pm_grid
+    f = pos_mass[:, 3:4].double() * make_mesh_accel_fn(sim.config, sim.n_real, "kernels")(pos_mass, 1.0)[:, :3].double()
+    net = float(f.sum(dim=0).abs().max() / f.abs().sum())
+    check(net < 3e-5, f"[12d periodic pm] N={sim.n_real}: net force {net:.3e} < 3e-5 of sum |f|")
+    L = torch.tensor(BOX_L, device=pos_mass.device)
+    h = L / grid
+    c4, fm = _periodic_cells(torch.cat([ewald.wrap_box(pos_mass[:, :3], L), pos_mass[:, 3:]], 1), h, grid, 2)
+    rho, rho_p = mc.deposit(c4, fm, grid, 2, True), mc.deposit_plain(c4, fm, grid, 2, True)
+    _deposit_agrees(f"2M periodic PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, rho, rho_p, periodic=True)
+    grids = ewald.spectral_accel_grids(rho_p, L, 1.5 * h, order=2)
+    acc = mc.gather(grids, c4, fm, grid, 2, True)
+    e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2, True))
+    check(e_acc < 1e-5, f"2M periodic PM (CIC): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+    times = {"deposit_ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 2, True), reps=20),
+             "gather_ms": cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, True), reps=20)}
+    print(f"  periodic CIC at 12d's shape ({fm.shape[0]} particles, {grid}^3 torus): mesh_deposit "
+          f"{times['deposit_ms']:.4f} ms, mesh_gather {times['gather_ms']:.4f} ms", flush=True)
+    return times
+
+
+def phase_periodic_accuracy(dev) -> None:
+    """12c: the accuracy gate.  The README's 32^3 box (uniform-box N =
+    32,768, box 1, grid 32, eps2 1e-6) at k = 128, which covers every tile
+    (overflow 0), interlace off and on: 2,048 sampled bodies against the
+    f64 Ewald oracle, median < 3e-3 and p99 < 2e-2 (tests/test_periodic.py:
+    58-59).  Then tests/test_periodic.py:216-239's collapse through the
+    CLI (200 steps, |dE|/KE < 1e-2 in the f64 Ewald energy, momentum < 1e-4
+    of sum |m v|), and at N = 8,192 the kernel route against the plain
+    route (accelerations and a 5-step rollout, rtol 1e-4, atol 1e-5 of the
+    scale) for periodic P3M and PM."""
+    from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
+
+    n, grid = 32768, 32
+    pm_np, _, _ = make_preset("uniform-box", seed=0, n=n, box_size=1.0)
+    pos_mass = torch.from_numpy(pm_np).to(dev)
+    kw = dict(grid=grid, nbr_k=128, box_size=1.0)
+    ov = p3m.p3m_neighbor_overflow(pos_mass, **kw)
+    check(ov == 0, f"[12c periodic accuracy] N={n} grid {grid} k 128: tile overflow {ov} = 0")
+    rows = torch.from_numpy(np.random.default_rng(0).choice(n, 2048, replace=False)).to(dev)
+    for il in (False, True):
+        acc = p3m.accel_p3m(pos_mass, 1.0, eps2=1e-6, boundary="periodic", interlace=il, **kw)[rows, :3]
+        rel = _ewald_errors(pos_mass, acc, rows, 1.0, 1.5 / grid, 1e-6, 2)
+        med, p99 = float(np.median(rel)), float(np.percentile(rel, 99))
+        check(med < 3e-3 and p99 < 2e-2,
+              f"[12c periodic accuracy{' interlaced' if il else ''}] N={n} grid {grid} k 128, 2048 sampled bodies "
+              f"vs f64 Ewald: median {med:.3e} < 3e-3, p99 {p99:.3e} < 2e-2 (max {rel.max():.3e})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["run", "--device", dev.type, "--preset", "uniform-box", "--n", "512", "--method", "p3m",
+                "--boundary", "periodic", "--box-size", "1", "--pm-grid", "32", "--p3m-nbr-k", "8", "--dt", "2e-4",
+                "--G", "2e-3", "--steps", "200", "--log-every", "50", "--diagnostics", "--outdir", tmp]
+        print(f"[12c periodic run] cli {' '.join(argv)}", flush=True)
+        cfg = SimConfig(method="p3m", boundary="periodic", box_size=1.0, pm_grid=32, p3m_nbr_k=8, dt=2e-4, G=2e-3)
+        d0 = Simulation.from_preset("uniform-box", cfg, n=512, box_size=1.0, device=dev).diagnostics()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        run_s = time.perf_counter() - t0
+        sim = Simulation.load(str(pathlib.Path(tmp) / "final.npz"), device=dev)
+        d1 = sim.diagnostics()
+    p, v, _ = sim.arrays()
+    ke = float(d1.kinetic)
+    de = abs(float(d1.total_energy) - float(d0.total_energy)) / max(ke, 1e-30)
+    mom = float(np.linalg.norm(d1.momentum)) / max(float(np.abs(p[:, 3:4] * v[:, :3]).sum()), 1e-30)
+    check(rc == 0 and sim.step_count == 200 and sim.config.boundary == "periodic" and np.isfinite(p).all(),
+          f"periodic p3m run rc {rc} in {run_s:.3f} s, step {sim.step_count}, boundary {sim.config.boundary}, finite")
+    check(de < 1e-2 and mom < 1e-4 and ke > abs(float(d0.total_energy)),
+          f"periodic p3m run: |dE|/KE {de:.3e} < 1e-2 (f64 Ewald energy), momentum {mom:.3e} < 1e-4 of "
+          f"sum |m v|, collapsed (KE {ke:.4e} > |E0| {abs(float(d0.total_energy)):.4e})")
+
+    ps = _box_rows(8000, 8192, dev, seed=3)
+    vel = torch.zeros_like(ps)
+    vel[:8000, :3] = torch.from_numpy(np.random.default_rng(3).normal(scale=0.3, size=(8000, 3))).float().to(dev)
+    for method in ("p3m", "pm"):
+        cfg = SimConfig(method=method, pm_grid=32, p3m_nbr_k=16, boundary="periodic", box_size=1.0, G=2e-3)
+        acc_k = make_mesh_accel_fn(cfg, 8000, "kernels")(ps, cfg.G)
+        acc_p = make_mesh_accel_fn(cfg, 8000, "plain")(ps, cfg.G)
+        states = {}
+        for route, c in (("kernels", cfg), ("jnp", cfg.replace(backend="jnp"))):
+            step = make_step_fn(c, 8192, 8000, dev)
+            st = SimState(ps.clone(), vel.clone(), torch.zeros_like(ps), 0)
+            for _ in range(5):
+                st = step(st, 2e-4, cfg.G)
+            states[route] = st
+        torch.cuda.synchronize()
+        for what, a, b in (("accel", acc_k, acc_p),
+                           ("5-step positions", states["kernels"].pos_mass, states["jnp"].pos_mass),
+                           ("5-step velocities", states["kernels"].vel, states["jnp"].vel)):
+            a, b = a[:8000, :3], b[:8000, :3]
+            scale = float(b.abs().max())
+            excess = float(((a - b).abs() - 1e-4 * b.abs()).max())
+            check(excess <= 1e-5 * scale, f"[12c periodic check] N=8192 {method} kernel route vs jnp route, {what}: "
+                  f"worst |diff| - 1e-4|ref| = {excess:.3e} <= {1e-5 * scale:.3e}")
+
+
 def _print_times(out: dict[str, dict]) -> None:
     for name, r in out.items():
         print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -2309,7 +2698,11 @@ PATHS = (
     ("phase 11b (fast path, sphere)", phase_fast_sphere, ("force_fast",)),
     ("phase 11c (fast path, two-galaxy)", phase_fast_two_galaxy, ("force_fast",)),
     ("phase 11c (fused fast path)", phase_fused_fast, ("fused_step_fast",)),
+    ("phase 12b (periodic P3M path)", phase_periodic_p3m, MESH_KERNELS),
+    ("phase 12b (periodic P3M path, interlaced)", phase_periodic_p3m_interlaced, MESH_KERNELS),
+    ("phase 12d (periodic PM path)", phase_periodic_pm, ("mesh_deposit", "mesh_gather")),
 )
+PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith("phase 12"))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
@@ -2322,10 +2715,11 @@ SIDE = (
     ("phase 10d (unfused sym gradient cross-check)", phase_sym_grad_crosscheck, SYM_FORCE + VJP_SYM),
     ("phase 10e (uncentred sym route)", phase_uncentred_sym, ("sym_diag", "sym_hops", "sym_combine", "sym_diag_prep")),
     ("phase 11d (fast gradient cross-check)", phase_fast_grad_crosscheck, ("force_fast",) + VJP_SYM),
+    ("phase 12c (periodic accuracy, run and cross-check)", phase_periodic_accuracy, MESH_KERNELS),
 )
 FULL_ROUTE = SIDE[0][0]
 # Kernels on no main path: their launches come from these side windows.
-LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": SIDE[-2][0]}
+LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": "phase 10e (uncentred sym route)"}
 
 
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
@@ -2347,6 +2741,19 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
     return got
 
 
+def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
+    """The kernels line's entry for a kernel's periodic form: its launches
+    on the periodic main paths (12b, 12d; also counted in the kernel's
+    ``launches``) and its numbers at 12b's shape."""
+    return {
+        "replaces": PERIODIC_REPLACES[name],
+        "launches": sum(by_path[p][name] for p in PERIODIC_PATHS),
+        "launches_by_path": {p: by_path[p][name] for p in PERIODIC_PATHS if by_path[p][name]},
+        **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "note")},
+        **({"cic_12d": t["cic"]} if "cic" in t else {}),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--kernels-only", action="store_true", help="stop after the small-shape kernel checks")
@@ -2366,6 +2773,7 @@ def main() -> int:
     phase_mesh_grad_checks(dev)
     phase_unfused_checks(dev)
     phase_fast_checks(dev)
+    phase_periodic_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -2380,6 +2788,7 @@ def main() -> int:
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))
     times.update(phase_fast_times(dev))
+    periodic = phase_periodic_times(dev)
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 
@@ -2412,6 +2821,7 @@ def main() -> int:
             "library_ms": times[name].get("library_ms"),
             **({"library_note": times[name]["library_note"]} if "library_note" in times[name] else {}),
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
+            **({"periodic": _periodic_entry(name, periodic[name], by_path)} if name in periodic else {}),
         })
     if FAILURES:
         print(f"FAILED {len(FAILURES)} checks: {FAILURES}", file=sys.stderr)

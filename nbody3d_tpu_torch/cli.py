@@ -15,6 +15,8 @@ Resuming a checkpoint keeps its saved config except for the flags given.
     python -m nbody3d_tpu_torch.cli run --preset two-galaxy --steps 2000 --diagnostics \
         --checkpoint-every 500 --render-every 500 --outdir out
     python -m nbody3d_tpu_torch.cli run --method p3m --preset two-galaxy --steps 200 --diagnostics
+    python -m nbody3d_tpu_torch.cli run --preset uniform-box --method p3m --boundary periodic \
+        --box-size 10 --interlace --steps 100 --diagnostics
     python -m nbody3d_tpu_torch.cli render out/final.npz -o frame.png
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
 """
@@ -48,6 +50,13 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--pm-grid", type=int, default=None, help="PM/P3M mesh cells per axis (default 128)")
     p.add_argument("--p3m-nbr-k", type=int, default=None,
                    help="P3M short-range neighbour-tile budget (default 32)")
+    p.add_argument("--boundary", default=None, choices=["isolated", "periodic"],
+                   help="isolated = open space; periodic = the box [0, box-size)^3 with Ewald-class "
+                        "gravity through the mesh solvers (needs --method pm|p3m and --box-size)")
+    p.add_argument("--box-size", type=float, default=None, help="periodic box edge L (with --boundary periodic)")
+    p.add_argument("--interlace", dest="mesh_interlace", default=None, action="store_true",
+                   help="periodic box: average two mesh legs on grids offset by half a cell")
+    p.add_argument("--no-interlace", dest="mesh_interlace", action="store_false", help="disable --interlace")
     p.add_argument("--morton-every", type=int, default=None,
                    help="re-sort bodies along the Z-order curve every N steps (0 = never)")
     p.add_argument("--integrator", default=None, choices=["verlet", "euler", "yoshida4"])
@@ -75,6 +84,9 @@ def _config_overrides(args) -> dict:
         ("method", args.method),
         ("pm_grid", args.pm_grid),
         ("p3m_nbr_k", args.p3m_nbr_k),
+        ("boundary", args.boundary),
+        ("box_size", args.box_size),
+        ("mesh_interlace", args.mesh_interlace),
         ("morton_every", args.morton_every),
         ("integrator", args.integrator),
         ("block_target", args.block_target),
@@ -114,13 +126,15 @@ def cmd_run(args) -> int:
     if args.checkpoint:
         sim = _load_sim(args.checkpoint, args)
     else:
+        config = _build_config(args)
         kw = {}
         if args.preset == "reference-random":
             # The reference's run-config controls (index.html:68-75).
             kw = dict(num_galaxies=args.num_galaxies, min_bodies=args.min_bodies,
                       max_bodies=args.max_bodies)
-        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n,
-                                     device=args.device, **kw)
+        elif args.preset == "uniform-box" and config.box_size > 0:
+            kw = dict(box_size=config.box_size)
+        sim = Simulation.from_preset(args.preset, config, n=args.n, device=args.device, **kw)
     os.makedirs(args.outdir, exist_ok=True)
     if args.metrics:
         sim.metrics_path = args.metrics

@@ -3,9 +3,9 @@
 ``SimConfig`` keeps the JAX package's field names, defaults and JSON
 (``to_json``/``from_json``), so a config written by either package loads
 in the other.  Fields that select paths the port does not have yet
-(periodic boundary, cosmology, multi-device strategies) are kept for
-that interchange; choosing them raises
-``NotImplementedError`` in :mod:`nbody3d_tpu_torch.ops.step`.
+(cosmology, multi-device strategies) are kept for that interchange;
+choosing a cosmology raises ``NotImplementedError`` in
+:mod:`nbody3d_tpu_torch.ops.step`.
 
 ``dt`` and ``G`` stored here are defaults: the engine passes them to every
 step as runtime scalars (the live sliders), and no kernel is rebuilt when
@@ -43,14 +43,15 @@ class SimConfig:
     The port reads: ``dt``, ``G``, ``eps2``, ``integrator``, ``method``
     (``"direct"``, ``"pm"`` or ``"p3m"``), ``pm_grid``,
     ``p3m_sigma_cells``, ``p3m_rcut_sigmas``, ``p3m_nbr_k``,
-    ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"`` only),
-    ``cosmology`` (``"none"`` only), ``backend``, ``block_target`` (capped
-    at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
+    ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"``, or
+    ``"periodic"`` with a mesh method: forward only), ``box_size`` and
+    ``mesh_interlace`` (periodic), ``cosmology`` (``"none"`` only),
+    ``backend``, ``block_target`` (capped at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
     Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,
     ``grad_precision``, ``seed`` and ``size_factor``.
-    ``box_size``, ``mesh_interlace`` and ``p3m_halo_tiles`` belong to the
-    periodic boundary and the sharded P3M step, which are not ported.
+    ``p3m_halo_tiles`` belongs to the sharded P3M step, which is not
+    ported.
     """
 
     # Physics.

@@ -1,4 +1,5 @@
-// Shared assignment weights of the mesh deposit and gather kernels.
+// Shared assignment weights and stencil cells of the mesh deposit and
+// gather kernels.
 //
 // The per-axis weights of nbody3d_tpu/ops/mesh_pallas.py::_axis_weights at
 // the stencil offsets, from the fraction f computed in torch:
@@ -28,4 +29,19 @@ template <>
 __device__ __forceinline__ void axis_weights<2>(float f, float* w) {
     w[0] = 1.f - f;
     w[1] = f;
+}
+
+// The ORDER cells of one axis of a stencil whose base cell is c (TSC:
+// c-1, c, c+1; CIC: c, c+1).  On the isolated box the caller clipped c so
+// the stencil lies in the grid; on the periodic box (wrap != 0) c is in
+// [0, grid) and a cell one step past either face wraps to the other.
+template <int ORDER>
+__device__ __forceinline__ void axis_cells(int c, int grid, int wrap, int* cell) {
+    const int lo = ORDER == 3 ? 1 : 0;
+#pragma unroll
+    for (int a = 0; a < ORDER; ++a) {
+        int v = c - lo + a;
+        if (wrap) v = v < 0 ? v + grid : (v >= grid ? v - grid : v);
+        cell[a] = v;
+    }
 }

@@ -15,9 +15,13 @@ Both take the per-particle operands ``c4 (N, 4) int32`` (the stencil's
 base cell ``[cx, cy, cz, 0]``) and ``fm (N, 4) float32`` (the fractional
 offset and the mass ``[fx, fy, fz, m]``), made by :func:`mesh_operands`
 from the cells of ``p3m._tsc_cells`` or ``pm._cic_cells``.  The kernel and
-its twin build the weights from the same ``f``.  The cells are clipped so
-that the whole stencil lies inside the grid, which the wrappers take as
-given.
+its twin build the weights from the same ``f``.  On the isolated box the
+cells are clipped so that the whole stencil lies inside the grid, which
+the wrappers take as given; on the periodic box (``periodic=True``) the
+base cell lies in ``[0, G)`` and every stencil index wraps mod ``G`` in
+all three axes, at both orders.  (The TPU kernels wrap z in-kernel and
+x/y through halo pads, TSC only; the port's PM runs CIC on these kernels
+too.)
 
 The TPU kernels deposit per Morton tile into a box of the grid held in
 VMEM and send the particles outside their tile's box to an XLA repair pass
@@ -35,7 +39,9 @@ autodiff); their ``backend="jnp"`` runs the twins on any device, and
 autograd goes through them.  The VJPs run the kernels for the scatter (the
 grid cotangent of the gather is a deposit of its output's cotangent, one
 component at a time) and torch ops for the stencil's derivative weights;
-no TPU kernel has a backward of its own here.
+no TPU kernel has a backward of its own here.  The periodic legs have no
+backward yet: :class:`_Deposit` and :class:`_Gather` raise
+``NotImplementedError`` on one (``PERIODIC_GRAD_TODO``), on both routes.
 """
 
 from __future__ import annotations
@@ -43,6 +49,12 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
+
+# What a backward through the periodic box waits for.
+PERIODIC_GRAD_TODO = (
+    "ROADMAP.md queue 1 item 9 (periodic gradient, item 9a: the periodic short_range_bwd and the "
+    "periodic mesh VJPs); the periodic box runs forward only"
+)
 
 
 def axis_weights(f: torch.Tensor, order: int) -> tuple[torch.Tensor, ...]:
@@ -69,16 +81,22 @@ def _offsets(order: int) -> tuple[int, ...]:
     return (-1, 0, 1) if order == 3 else (0, 1)
 
 
-def _stencil(c: torch.Tensor, f: torch.Tensor, grid: int, order: int, mass=None):
+def _stencil(c: torch.Tensor, f: torch.Tensor, grid: int, order: int, mass=None, periodic: bool = False):
     """``(flat cell index (N,), weight (N,))`` of each stencil point, in the
     kernels' order (x outermost, z innermost).  The weight is
     ``((m·wx)·wy)·wz``, or ``(wx·wy)·wz`` without ``mass``, as the kernels
-    and the JAX package multiply."""
+    and the JAX package multiply.  ``periodic``: each axis index mod
+    ``grid``."""
     w = axis_weights(f, order)
+
+    def cell(axis, off):
+        v = c[:, axis] + off
+        return torch.remainder(v, grid) if periodic else v
+
     for a, dx in enumerate(_offsets(order)):
         for b, dy in enumerate(_offsets(order)):
             for d, dz in enumerate(_offsets(order)):
-                idx = ((c[:, 0] + dx) * grid + (c[:, 1] + dy)) * grid + (c[:, 2] + dz)
+                idx = (cell(0, dx) * grid + cell(1, dy)) * grid + cell(2, dz)
                 wx = w[a][:, 0] if mass is None else mass * w[a][:, 0]
                 yield idx.long(), wx * w[b][:, 1] * w[d][:, 2]
 
@@ -105,39 +123,42 @@ def _check(name: str, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int)
 
 
 # ----------------------------------------------------------- mesh_deposit
-def deposit_plain(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+def deposit_plain(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
     """Plain twin of ``mesh_deposit``: every stencil point's ``m·wx·wy·wz``
     summed into its cell with one ``index_add_``."""
-    idx, val = zip(*_stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3]))
+    idx, val = zip(*_stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3], periodic=periodic))
     rho = torch.zeros(grid**3, dtype=fm.dtype, device=fm.device)
     rho.index_add_(0, torch.cat(idx), torch.cat(val))
     return rho.view(grid, grid, grid)
 
 
-def deposit(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
-    """Mass deposit → ``(grid, grid, grid)`` (mass per cell).  On the card
-    the atomics add in no fixed order, so two runs agree to f32 rounding,
-    not bit for bit."""
+def deposit(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
+    """Mass deposit → ``(grid, grid, grid)`` (mass per cell), on the torus
+    when ``periodic``.  On the card the atomics add in no fixed order, so
+    two runs agree to f32 rounding, not bit for bit."""
     dev = _check("mesh_deposit", c4, fm, grid, order)
     if dev.type == "cpu":
-        return deposit_plain(c4, fm, grid, order)
+        return deposit_plain(c4, fm, grid, order, periodic)
     rho = torch.zeros((grid, grid, grid), dtype=torch.float32, device=dev)
-    launch("mesh_deposit", dev, lib().nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order)
+    launch("mesh_deposit", dev, lib().nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic))
     return rho
 
 
 # ------------------------------------------------------------ mesh_gather
-def gather_plain(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+def gather_plain(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
+                 periodic: bool = False) -> torch.Tensor:
     """Plain twin of ``mesh_gather``: ``(N, 4)``, w lane 0."""
     out = torch.zeros_like(fm)
-    for idx, w in _stencil(c4, fm[:, :3], grid, order):
+    for idx, w in _stencil(c4, fm[:, :3], grid, order, periodic=periodic):
         out[:, :3] += grids[:, idx].T * w[:, None]
     return out
 
 
-def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
+           periodic: bool = False) -> torch.Tensor:
     """Interpolation of ``grids (3, G³)`` at the particles → ``(N, 4)``,
-    w lane 0 (the mass lane of ``fm`` is not read)."""
+    w lane 0 (the mass lane of ``fm`` is not read), on the torus when
+    ``periodic``."""
     dev = _check("mesh_gather", c4, fm, grid, order)
     if grids.dtype != torch.float32 or tuple(grids.shape) != (3, grid**3) or not grids.is_contiguous():
         raise ValueError(f"mesh_gather: grids must be contiguous float32 (3, {grid**3}), got "
@@ -145,9 +166,9 @@ def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, o
     if grids.device != dev or grids.requires_grad:
         raise ValueError("mesh_gather: grids on another device or requiring grad")
     if dev.type == "cpu":
-        return gather_plain(grids, c4, fm, grid, order)
+        return gather_plain(grids, c4, fm, grid, order, periodic)
     out = torch.empty_like(fm)
-    launch("mesh_gather", dev, lib().nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order)
+    launch("mesh_gather", dev, lib().nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic))
     return out
 
 
@@ -203,42 +224,56 @@ def gather_vjp(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, out_bar:
 
 
 class _Deposit(torch.autograd.Function):
-    """:func:`deposit` with :func:`deposit_vjp` as its backward (by ``fm``)."""
+    """:func:`deposit` with :func:`deposit_vjp` as its backward (by ``fm``).
+    ``plain`` runs the twin on any device.  A periodic deposit has no
+    backward yet and raises on one."""
 
     @staticmethod
-    def forward(ctx, c4, fm, grid, order):
+    def forward(ctx, c4, fm, grid, order, periodic, plain):
         ctx.save_for_backward(c4, fm)
         ctx.opts = (grid, order)
-        return deposit(c4, fm.detach(), grid, order)
+        ctx.periodic = periodic
+        return (deposit_plain if plain else deposit)(c4, fm.detach(), grid, order, periodic)
 
     @staticmethod
     def backward(ctx, rho_bar):
+        if ctx.periodic:
+            raise NotImplementedError(f"mesh_deposit backward on the periodic box: {PERIODIC_GRAD_TODO}")
         c4, fm = ctx.saved_tensors
-        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None
+        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None, None, None
 
 
 class _Gather(torch.autograd.Function):
     """:func:`gather` with :func:`gather_vjp` as its backward (by ``grids``
-    and ``fm``); the wrapper gets detached grids."""
+    and ``fm``); the wrapper gets detached grids.  ``plain`` runs the twin
+    on any device.  A periodic gather has no backward yet and raises on
+    one."""
 
     @staticmethod
-    def forward(ctx, grids, c4, fm, grid, order):
+    def forward(ctx, grids, c4, fm, grid, order, periodic, plain):
         ctx.save_for_backward(grids, c4, fm)
         ctx.opts = (grid, order)
-        return gather(grids.detach(), c4, fm.detach(), grid, order)
+        ctx.periodic = periodic
+        return (gather_plain if plain else gather)(grids.detach(), c4, fm.detach(), grid, order, periodic)
 
     @staticmethod
     def backward(ctx, out_bar):
+        if ctx.periodic:
+            raise NotImplementedError(f"mesh_gather backward on the periodic box: {PERIODIC_GRAD_TODO}")
         grids, c4, fm = ctx.saved_tensors
         grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
-        return grids_bar, None, fm_bar, None, None
+        return grids_bar, None, fm_bar, None, None, None, None
 
 
-def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
-    """:func:`deposit`, differentiable in ``fm`` (fractions and mass)."""
-    return _Deposit.apply(c4, fm, grid, order)
+def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False,
+                 plain: bool = False) -> torch.Tensor:
+    """:func:`deposit`, differentiable in ``fm`` (fractions and mass) on the
+    isolated box."""
+    return _Deposit.apply(c4, fm, grid, order, periodic, plain)
 
 
-def gather_diff(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.Tensor:
-    """:func:`gather`, differentiable in ``grids`` and ``fm``."""
-    return _Gather.apply(grids, c4, fm, grid, order)
+def gather_diff(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
+                periodic: bool = False, plain: bool = False) -> torch.Tensor:
+    """:func:`gather`, differentiable in ``grids`` and ``fm`` on the isolated
+    box."""
+    return _Gather.apply(grids, c4, fm, grid, order, periodic, plain)

@@ -1,4 +1,4 @@
-"""P3M gravity, isolated boundary: ``nbody3d_tpu/ops/p3m.py``.
+"""P3M gravity, isolated and periodic boundary: ``nbody3d_tpu/ops/p3m.py``.
 
 The Plummer-softened pair force splits into a long range, smooth on the
 scale ``sigma`` (a few cells), that the mesh carries (TSC deposit,
@@ -31,8 +31,16 @@ the ``short_range_bwd`` kernel (:func:`short_range_tiles_bwd`), the mesh
 legs ``mesh_cuda.deposit_diff``/``gather_diff``, and autograd takes the
 FFT solve, the box (``lo``, ``h``: ``sigma = sigma_cells·h`` carries the
 short range's σ cotangent into the positions), the net-force projection
-and the heavy pairs.  The selection runs on detached rows.  The periodic
-boundary is not ported.
+and the heavy pairs.  The selection runs on detached rows.
+
+``boundary="periodic"`` (:func:`_accel_p3m_periodic`) is Ewald's method on
+the torus ``[0, L)³``: the mesh is the reciprocal-space sum
+(``ewald.spectral_accel_grids``, TSC cells wrapped mod grid, optionally
+two half-cell-shifted legs averaged: ``interlace``), and the short range
+is ``ewald.k_short_periodic`` over minimum-image pairs, the tiles chosen
+by the periodic AABB gap.  The box is fixed (``h = L/grid``) and the
+heavy split is off.  It runs forward only: a backward raises
+``NotImplementedError`` (``mesh_cuda.PERIODIC_GRAD_TODO``).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 
 from nbody3d_tpu_torch.ops import mesh_cuda
 from nbody3d_tpu_torch.ops.blocks import divisor_block
+from nbody3d_tpu_torch.ops.ewald import k_short_periodic, spectral_accel_grids, wrap_box
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
 from nbody3d_tpu_torch.ops.morton import morton_keys
 from nbody3d_tpu_torch.ops.pm import _box, _cic_cells, _offset_axis, _pad, clip
@@ -104,11 +113,16 @@ def p3m_block(n: int, block: int = 0) -> int:
 
 
 # ---------------------------------------------------------------- the mesh
-def _tsc_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int):
+def _tsc_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int, periodic: bool = False):
     """TSC nearest cell ``c (N, 3) int32`` in [1, grid-2] and offset
     ``f = s - c`` in [-1/2, 1/2]; the weights come from ``f`` alone
-    (``mesh_cuda.axis_weights``)."""
+    (``mesh_cuda.axis_weights``).  ``periodic``: ``c`` is the nearest cell
+    mod ``grid`` (its neighbours wrap in the kernels), ``f`` is taken
+    against the unwrapped cell."""
     s = (pos - lo) / h - 0.5
+    if periodic:
+        raw = torch.floor(s + 0.5)
+        return torch.remainder(raw.to(torch.int32), grid), clip(s - raw, -0.5, 0.5)
     c = torch.clamp(torch.floor(s + 0.5).to(torch.int32), 1, grid - 2)
     f = clip(s - c.to(s.dtype), -0.5, 0.5)
     return c, f
@@ -194,22 +208,36 @@ def _sorted_aabbs(ps: torch.Tensor, n_real: int, block: int):
     return lo, hi
 
 
-def _gap_dist2(lo_t, hi_t, lo_s, hi_s) -> torch.Tensor:
+def _gap_dist2(lo_t, hi_t, lo_s, hi_s, L=None) -> torch.Tensor:
     """Squared AABB gap distance of broadcastable ``(..., 3)`` boxes (a
     lower bound on any pair distance between them), rounded as the JAX
     package's compiled selection rounds it: XLA contracts the sum of
     squares into ``fma(g2, g2, fma(g1, g1, g0·g0))``, and the f64 sums
-    below round once each, as an FMA does."""
-    gap = torch.maximum(lo_s - hi_t, lo_t - hi_s)
+    below round once each, as an FMA does.
+
+    ``L`` (the periodic box): the gap per axis on the circle of
+    circumference ``L``, the minimum-image centre distance less the two
+    half-extents, so tiles facing each other across the seam are near; a
+    padding tile (lo = +inf, hi = -inf) is at 1e30 from everything."""
+    if L is None:
+        gap = torch.maximum(lo_s - hi_t, lo_t - hi_s)
+    else:
+        bad_t, bad_s = ~(hi_t[..., :1] >= lo_t[..., :1]), ~(hi_s[..., :1] >= lo_s[..., :1])
+        lo_t, hi_t = torch.where(bad_t, 0.0, lo_t), torch.where(bad_t, 0.0, hi_t)
+        lo_s, hi_s = torch.where(bad_s, 0.0, lo_s), torch.where(bad_s, 0.0, hi_s)
+        dc = torch.abs(0.5 * (lo_s + hi_s) - 0.5 * (lo_t + hi_t))
+        dc = torch.minimum(dc, L - dc)
+        gap = dc - (0.5 * (hi_t - lo_t) + 0.5 * (hi_s - lo_s))
     gap = torch.clamp(gap, 0.0, 1e18).double()  # padding tiles' infs stay finite when squared
     acc = (gap[..., 0] * gap[..., 0]).float().double()
     acc = (gap[..., 1] * gap[..., 1] + acc).float().double()
-    return (gap[..., 2] * gap[..., 2] + acc).float()
+    d2 = (gap[..., 2] * gap[..., 2] + acc).float()
+    return d2 if L is None else torch.where((bad_t | bad_s)[..., 0], 1e30, d2)
 
 
-def _aabb_dist2(lo_t, hi_t, lo_s, hi_s) -> torch.Tensor:
+def _aabb_dist2(lo_t, hi_t, lo_s, hi_s, L=None) -> torch.Tensor:
     """``(nt, ns)`` squared gap distances, target tiles x source tiles."""
-    return _gap_dist2(lo_t[:, None], hi_t[:, None], lo_s[None], hi_s[None])
+    return _gap_dist2(lo_t[:, None], hi_t[:, None], lo_s[None], hi_s[None], L)
 
 
 def _sym_jitter_ids(i_ids: torch.Tensor, j_ids: torch.Tensor, h: torch.Tensor):
@@ -243,7 +271,7 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _select_flat(lo_b, hi_b, h, k):
+def _select_flat(lo_b, hi_b, h, k, L=None):
     """Top-``k`` nearest tiles per row over all ``nb`` candidates, in row
     chunks.  ``(kth (nb,), neg (nb, k), idx (nb, k))``."""
     nb = lo_b.shape[0]
@@ -251,7 +279,7 @@ def _select_flat(lo_b, hi_b, h, k):
     negs, idxs = [], []
     for r0 in range(0, nb, _NBR_ROW_CHUNK):
         rows = cols[r0 : r0 + _NBR_ROW_CHUNK]
-        d2 = _add_jitter(_aabb_dist2(lo_b[rows], hi_b[rows], lo_b, hi_b), rows[:, None], cols[None, :], h)
+        d2 = _add_jitter(_aabb_dist2(lo_b[rows], hi_b[rows], lo_b, hi_b, L), rows[:, None], cols[None, :], h)
         d2 = _prefer_self(d2, rows[:, None], cols[None, :])
         neg, idx = _top_k(-d2, k)
         negs.append(neg)
@@ -260,17 +288,18 @@ def _select_flat(lo_b, hi_b, h, k):
     return -neg[:, -1], neg, idx
 
 
-def _select_neighbors(lo_b, hi_b, h, nbr_k):
+def _select_neighbors(lo_b, hi_b, h, nbr_k, L=None):
     """Top-``nbr_k`` nearest source tiles of every tile, by jittered AABB
     distance: ``(kth (nb,), neg (nb, k), nbr_idx (nb, k))`` with ``neg``
     the negated distances (descending) and ``kth`` each row's k-th smallest.
-    Flat up to ``_FLAT_MAX_TILES`` tiles, two-level past it."""
+    Flat up to ``_FLAT_MAX_TILES`` tiles, two-level past it.  ``L``: the
+    periodic box's gap (:func:`_gap_dist2`)."""
     if lo_b.shape[0] > _FLAT_MAX_TILES:
-        return _select_neighbors_hier(lo_b, hi_b, h, nbr_k)
-    return _select_flat(lo_b, hi_b, h, nbr_k)
+        return _select_neighbors_hier(lo_b, hi_b, h, nbr_k, L=L)
+    return _select_flat(lo_b, hi_b, h, nbr_k, L)
 
 
-def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K):
+def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K, L=None):
     """The two-level selection of ``nbody3d_tpu``'s ``_select_neighbors_hier``:
     super-tiles of ``sup`` consecutive tiles take their ``k_s`` nearest
     supers, a super pair is admitted only mutually, and each tile takes its
@@ -286,7 +315,7 @@ def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K):
 
     lo_s = torch.amin(lo_b.view(nsup, sup, 3), dim=1)
     hi_s = torch.amax(hi_b.view(nsup, sup, 3), dim=1)
-    kth_s, neg_s, sup_idx = _select_flat(lo_s, hi_s, h, k_s)
+    kth_s, neg_s, sup_idx = _select_flat(lo_s, hi_s, h, k_s, L)
     sup_ok = (-neg_s) <= kth_s[sup_idx]  # mutual admission: symmetric
 
     lane = torch.arange(sup, device=lo_b.device)
@@ -298,7 +327,7 @@ def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K):
         cand = (sup_idx[sups][:, :, None] * sup + lane).reshape(len(sups), k_s * sup)  # (S, C)
         cmask = sup_ok[sups].repeat_interleave(sup, dim=1)
         d2 = _gap_dist2(lo_t3[sups][:, :, None], hi_t3[sups][:, :, None],
-                        lo_b[cand][:, None], hi_b[cand][:, None])  # (S, sup, C)
+                        lo_b[cand][:, None], hi_b[cand][:, None], L)  # (S, sup, C)
         i_ids = (sups[:, None] * sup + lane)[:, :, None]
         d2 = _add_jitter(d2, i_ids, cand[:, None, :], h)
         d2 = torch.where(cmask[:, None, :], d2, _NOT_ADMITTED)
@@ -330,13 +359,22 @@ def mutual_neighbor_mask(neg_d2s: torch.Tensor, nbr_idx: torch.Tensor, kth_all: 
 
 
 # --------------------------------------------------------- the short range
-def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask) -> torch.Tensor:
+def min_image(d: torch.Tensor, box: float) -> torch.Tensor:
+    """The minimum image of separations ``|d| < box``: one conditional
+    shift by ``box`` an axis, as the Pallas kernel shifts (p3m.py:730-735
+    of the JAX package)."""
+    half = 0.5 * box
+    return d - torch.where(d > half, box, 0.0) + torch.where(d < -half, box, 0.0)
+
+
+def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box=None) -> torch.Tensor:
     """Plain twin of ``short_range``: for each target tile a dense pair sum
     over its neighbour tiles, with the exact ``erfc``.  ``(N, 4)``, w lane
     0, in sorted order.  Slots that add exactly nothing (mask 0, or a source
     tile of zero mass) are left out, as are pairs outside the cut; tiles go
     in batches of about ``_PAIR_BATCH`` pairs, which bounds the
-    temporaries."""
+    temporaries.  ``box``: the periodic box, minimum-image pairs with
+    ``ewald.k_short_periodic``."""
     nb, k = nbr_idx.shape
     blocks = ps.view(nb, block, 4)
     rcut2 = rcut * rcut
@@ -356,10 +394,13 @@ def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask) -> torch
         src = blocks[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 4)
         m_src = src[:, :, 3] * scale[tiles].repeat_interleave(block, dim=1)
         d = src[:, None, :, :3] - tgt[:, :, None, :3]  # (T, B, kB, 3)
+        if box is not None:
+            d = min_image(d, box)
         r2 = torch.sum(d * d, dim=-1)
         live = (r2 > 0) & (r2 < rcut2) & (m_src != 0)[:, None, :]
         w = torch.zeros_like(r2)
-        w[live] = k_short(r2[live], eps2, sigma) * m_src[:, None, :].expand_as(r2)[live]
+        kern = k_short if box is None else k_short_periodic
+        w[live] = kern(r2[live], eps2, sigma) * m_src[:, None, :].expand_as(r2)[live]
         out[tiles.start * block : tiles.stop * block, :3] = torch.sum(w[..., None] * d, dim=2).reshape(-1, 3)
     return out
 
@@ -396,21 +437,26 @@ def short_range_tiles(
     block: int,
     nbr_mask: torch.Tensor | None = None,
     backend: str = "auto",
+    box: float | None = None,
 ) -> torch.Tensor:
     """Masked block-sparse short-range accelerations per unit G of the
     sorted ``ps (N, 4)``: ``(N, 4)``, w lane 0.  ``nbr_idx (nb, k)`` are
-    global tile ids, ``nbr_mask (nb, k)`` the mutual mask.
-    ``backend="jnp"`` runs the twin on any device; otherwise the
-    ``short_range`` kernel runs on a CUDA tensor, the twin on a CPU one."""
+    global tile ids, ``nbr_mask (nb, k)`` the mutual mask.  ``box``: the
+    periodic box size ``L`` (positions in ``[0, L)``): minimum-image pairs
+    with the periodic split's scalar.  ``backend="jnp"`` runs the twin on
+    any device; otherwise the ``short_range`` kernel runs on a CUDA tensor,
+    the twin on a CPU one."""
     nb, k = nbr_idx.shape
     if nbr_mask is None:
         nbr_mask = torch.ones((nb, k), dtype=torch.float32, device=ps.device)
+    if box is not None and not box > 0:
+        raise ValueError(f"short_range: box must be > 0, got {box}")
     dev = _check_tiles("short_range", block, nbr_idx, ps)
     if backend == "jnp" or dev.type == "cpu":
-        return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask)
+        return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
     ops = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
     out = torch.empty_like(ps)
-    launch("short_range", dev, lib().nb_short_range, ps, *ops, out, nb, k, block, float(eps2))
+    launch("short_range", dev, lib().nb_short_range, ps, *ops, out, nb, k, block, float(eps2), float(box or 0.0))
     return out
 
 
@@ -517,22 +563,26 @@ class _ShortRange(torch.autograd.Function):
     (every tile a target, the only form one device has).  Cotangents reach
     ``ps`` and ``sigma``; ``rcut`` only gates (its cotangent is 0), the
     lists and the mask have none.  Both passes hand their wrappers detached
-    tensors."""
+    tensors.  With ``box`` (the periodic box) it has no backward yet and
+    raises on one."""
 
     @staticmethod
-    def forward(ctx, ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend):
+    def forward(ctx, ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend, box=None):
         ctx.save_for_backward(ps, sigma, rcut, nbr_idx, nbr_mask)
         ctx.opts = (eps2, block, backend)
+        ctx.box = box
         return short_range_tiles(ps.detach(), nbr_idx, eps2, sigma.detach(), rcut.detach(), block, nbr_mask,
-                                 backend=backend)
+                                 backend=backend, box=box)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.box is not None:
+            raise NotImplementedError(f"short_range backward on the periodic box: {mesh_cuda.PERIODIC_GRAD_TODO}")
         ps, sigma, rcut, nbr_idx, nbr_mask = ctx.saved_tensors
         eps2, block, backend = ctx.opts
         dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
                                           rcut.detach(), block, nbr_mask, backend=backend)
-        return dps, dsig, None, None, None, None, None, None
+        return dps, dsig, None, None, None, None, None, None, None
 
 
 # ------------------------------------------------------------------ solver
@@ -550,21 +600,33 @@ def accel_p3m(
     order: int = 3,
     heavy_k: int = DEFAULT_HEAVY_K,
     backend: str = "auto",
+    boundary: str = "isolated",
+    box_size: float = 0.0,
+    interlace: bool = False,
 ) -> torch.Tensor:
     """P3M accelerations ``(N, 4)`` (w lane 0), isolated boundary: mesh
     long range + short-range correction + exact pairs of the ``heavy_k``
-    most massive bodies.  ``backend="jnp"`` runs every plain twin; any other
-    value the kernel wrappers (``short_range``, ``mesh_deposit``,
+    most massive bodies.  ``boundary="periodic"`` (``box_size > 0``) is
+    :func:`_accel_p3m_periodic`, which ignores ``heavy_k``.
+    ``backend="jnp"`` runs every plain twin; any other value the kernel
+    wrappers (``short_range``, ``mesh_deposit``,
     ``mesh_gather``), which on a CPU tensor take their twins.  Differentiable
     in ``pos_mass`` and ``G``: the short range's backward is
     ``short_range_bwd`` (its twin on ``"jnp"`` or a CPU tensor), the mesh
     legs' are ``mesh_cuda.deposit_vjp``/``gather_vjp`` (``"jnp"``: autograd
-    through the twins)."""
+    through the twins); the periodic box has no gradient yet."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     block = p3m_block(n, block)
     nbr_k = min(nbr_k, n // block)
     heavy_k = min(heavy_k, n)
+    if boundary == "periodic":
+        return _accel_p3m_periodic(
+            pos_mass, G, grid=grid, eps2=eps2, n_real=n_real, sigma_cells=sigma_cells, rcut_sigmas=rcut_sigmas,
+            block=block, nbr_k=nbr_k, order=order, backend=backend, box_size=box_size, interlace=interlace,
+        )
+    if boundary != "isolated":
+        raise ValueError(f"unknown boundary {boundary!r}")
 
     pos = pos_mass[:, :3]
     lo, h = _box(pos[:n_real], grid)
@@ -603,6 +665,72 @@ def accel_p3m(
     return acc * G
 
 
+def periodic_scales(grid: int, box_size: float, sigma_cells: float, rcut_sigmas: float):
+    """``(L, h, sigma, rcut)`` of the periodic box as f32 0-d tensors on the
+    host (the JAX package's f32 rounding), after the checks: ``box_size >
+    0`` and ``rcut < L/2`` (the minimum image holds one image a pair)."""
+    if box_size <= 0:
+        raise ValueError("boundary='periodic' requires box_size > 0")
+    rcut_static = rcut_sigmas * sigma_cells * box_size / grid
+    if rcut_static >= 0.5 * box_size:
+        raise ValueError(
+            f"P3M periodic: rcut {rcut_static:.3g} >= L/2 {0.5 * box_size:.3g}: the minimum image needs "
+            "rcut < L/2; raise grid or lower sigma_cells/rcut_sigmas"
+        )
+    L = torch.tensor(box_size, dtype=torch.float32)
+    h = L / grid
+    sigma = sigma_cells * h
+    return L, h, sigma, rcut_sigmas * sigma
+
+
+def periodic_mesh_leg(pos: torch.Tensor, mass: torch.Tensor, L: torch.Tensor, sigma: torch.Tensor, grid: int,
+                      order: int, plain: bool) -> torch.Tensor:
+    """One mesh leg on the torus: ``(N, 4)`` long-range accelerations per
+    unit G of wrapped positions ``pos`` (TSC at order 3, CIC at 2): the
+    periodic deposit, ``ewald.spectral_accel_grids`` and the periodic
+    gather, through ``mesh_cuda``'s autograd Functions (no backward yet)."""
+    h = L / grid
+    lo = torch.zeros(3, dtype=pos.dtype, device=pos.device)
+    cells = _tsc_cells if order == 3 else _cic_cells
+    c4, fm = mesh_cuda.mesh_operands(*cells(pos, lo, h, grid, periodic=True), mass)
+    rho = mesh_cuda.deposit_diff(c4, fm, grid, order, periodic=True, plain=plain)
+    grids = spectral_accel_grids(rho, L, sigma, order=order)
+    return mesh_cuda.gather_diff(grids, c4, fm, grid, order, periodic=True, plain=plain)
+
+
+def _accel_p3m_periodic(pos_mass, G, *, grid, eps2, n_real, sigma_cells, rcut_sigmas, block, nbr_k, order,
+                        backend, box_size, interlace):
+    """Periodic P3M (``nbody3d_tpu/ops/p3m.py::_accel_p3m_periodic``): wrap
+    into ``[0, L)``, Morton-sort, one mesh leg (or, ``interlace``, the mean
+    of two legs on grids offset by half a cell: the grid-locked alias
+    errors flip sign and cancel), project out the net mesh force, then the
+    periodic short range over tiles chosen by the periodic AABB gap."""
+    n = pos_mass.shape[0]
+    dev = pos_mass.device
+    L, h, sigma, rcut = (t.to(dev) for t in periodic_scales(grid, box_size, sigma_cells, rcut_sigmas))
+    plain = backend == "jnp"
+
+    pm_w = torch.cat([wrap_box(pos_mass[:, :3], L), pos_mass[:, 3:4]], dim=1)
+    perm = torch.argsort(morton_keys(pm_w.detach(), n_real), stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=dev)
+    ps = pm_w[perm]
+
+    acc = periodic_mesh_leg(ps[:, :3], ps[:, 3], L, sigma, grid, order, plain)
+    if interlace:
+        shifted = wrap_box(ps[:, :3] + 0.5 * h, L)
+        acc = 0.5 * (acc + periodic_mesh_leg(shifted, ps[:, 3], L, sigma, grid, order, plain))
+    mass_s = ps[:, 3]
+    msum = torch.clamp(torch.sum(mass_s), min=1e-30)
+    acc = acc - torch.sum(mass_s[:, None] * acc, dim=0)[None, :] / msum
+
+    lo_b, hi_b = _sorted_aabbs(ps.detach(), n_real, block)
+    kth, neg, nbr_idx = _select_neighbors(lo_b, hi_b, h, nbr_k, L=L)
+    nbr_mask = mutual_neighbor_mask(neg, nbr_idx, kth)
+    acc = acc + _ShortRange.apply(ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend, box_size)
+    return acc[inv] * G
+
+
 def p3m_neighbor_overflow(
     pos_mass: torch.Tensor,
     *,
@@ -612,27 +740,55 @@ def p3m_neighbor_overflow(
     rcut_sigmas: float = DEFAULT_RCUT_SIGMAS,
     block: int = 0,
     nbr_k: int = DEFAULT_NBR_K,
+    box_size: float = 0.0,
 ) -> int:
     """Tiles that dropped a source tile within ``rcut`` in the selection (0
     means the short range is the split identity up to the erfc cut).  Flat:
     rows with more within-rcut tiles than ``nbr_k``; two-level: rows whose
-    kept within-rcut count is below the true one."""
+    kept within-rcut count is below the true one.  ``box_size > 0``: the
+    periodic box's tiles and gaps (the JAX function has no periodic
+    form)."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     block = p3m_block(n, block)
     nbr_k = min(nbr_k, n // block)
-    _, h = _box(pos_mass[:n_real, :3], grid)
+    h, lo_b, hi_b, within, L = _tiles_within_rcut(pos_mass, grid, n_real, sigma_cells, rcut_sigmas, block,
+                                                 box_size)
+    if lo_b.shape[0] <= _FLAT_MAX_TILES:
+        return int(torch.sum(within > nbr_k))
+    rcut = rcut_sigmas * sigma_cells * h
+    _, neg, _ = _select_neighbors(lo_b, hi_b, h, nbr_k, L=L)
+    kept = torch.sum(-neg < rcut * rcut, dim=1)
+    return int(torch.sum(kept < within))
+
+
+def _tiles_within_rcut(pos_mass, grid, n_real, sigma_cells, rcut_sigmas, block, box_size):
+    """``(h, lo_b, hi_b, within (nb,), L)``: each tile's count
+    of tiles (itself included) whose AABB gap is below ``rcut``, on the
+    isolated box or (``box_size > 0``) the periodic one."""
+    if box_size > 0:
+        L, h, _, _ = (t.to(pos_mass.device) for t in periodic_scales(grid, box_size, sigma_cells, rcut_sigmas))
+        pos_mass = torch.cat([wrap_box(pos_mass[:, :3], L), pos_mass[:, 3:]], dim=1)
+    else:
+        L = None
+        _, h = _box(pos_mass[:n_real, :3], grid)
     rcut = rcut_sigmas * sigma_cells * h
     ps = pos_mass[torch.argsort(morton_keys(pos_mass, n_real), stable=True)]
     lo_b, hi_b = _sorted_aabbs(ps, n_real, block)
     nb = lo_b.shape[0]
     within = torch.cat([
-        torch.sum(_aabb_dist2(lo_b[r0 : r0 + _NBR_ROW_CHUNK], hi_b[r0 : r0 + _NBR_ROW_CHUNK], lo_b, hi_b)
+        torch.sum(_aabb_dist2(lo_b[r0 : r0 + _NBR_ROW_CHUNK], hi_b[r0 : r0 + _NBR_ROW_CHUNK], lo_b, hi_b, L)
                   < rcut * rcut, dim=1)
         for r0 in range(0, nb, _NBR_ROW_CHUNK)
     ])
-    if nb <= _FLAT_MAX_TILES:
-        return int(torch.sum(within > nbr_k))
-    _, neg, _ = _select_neighbors(lo_b, hi_b, h, nbr_k)
-    kept = torch.sum(-neg < rcut * rcut, dim=1)
-    return int(torch.sum(kept < within))
+    return h, lo_b, hi_b, within, L
+
+
+def tiles_within_rcut(pos_mass: torch.Tensor, *, grid: int = 64, n_real: int | None = None,
+                      sigma_cells: float = DEFAULT_SIGMA_CELLS, rcut_sigmas: float = DEFAULT_RCUT_SIGMAS,
+                      block: int = 0, box_size: float = 0.0) -> torch.Tensor:
+    """``(nb,)``: each tile's count of tiles within ``rcut`` (the ``nbr_k``
+    a tile needs for the selection to drop none of them)."""
+    n = pos_mass.shape[0]
+    n_real = n if n_real is None else n_real
+    return _tiles_within_rcut(pos_mass, grid, n_real, sigma_cells, rcut_sigmas, p3m_block(n, block), box_size)[3]

@@ -1,4 +1,4 @@
-"""Particle-mesh (PM) gravity, isolated boundary: ``nbody3d_tpu/ops/pm.py``.
+"""Particle-mesh (PM) gravity: ``nbody3d_tpu/ops/pm.py``.
 
 Pipeline of one force evaluation:
 
@@ -14,8 +14,14 @@ Pipeline of one force evaluation:
 
 The JAX package deposits without a scatter (a sort and a segmented scan,
 ``deposit_cols``/``_segment_sum_*``), because a scatter is serial on the
-TPU; the card has atomics, so the port needs neither.  The periodic
-boundary (``ops/ewald.py``) is not ported.
+TPU; the card has atomics, so the port needs neither.
+
+``boundary="periodic"`` (``box_size > 0``) solves on the torus ``[0, L)³``
+instead: the fixed cell ``h = L/M``, positions wrapped, the CIC stencil
+wrapped mod ``M`` in the kernels, and one spectral solve
+(``ewald.spectral_accel_grids`` with Gaussian smoothing 1.5 cells;
+``eps2`` does not enter), optionally two half-cell-shifted legs averaged
+(``interlace``).  It runs forward only: a backward raises.
 """
 
 from __future__ import annotations
@@ -23,12 +29,16 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops import mesh_cuda
+from nbody3d_tpu_torch.ops.ewald import wrap_box
 
 # Bodies stay this many cells clear of the grid faces, so that no stencil
 # and no central difference reaches a face.
 _EDGE_CELLS = 3
 
 DEFAULT_PM_GRID = 128
+# The periodic solve's Gaussian smoothing in cells (the JAX accel_pm's
+# sigma_cells default, which no caller changes).
+PERIODIC_SIGMA_CELLS = 1.5
 
 
 def box_from_bounds(lo_w: torch.Tensor, hi_w: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -53,10 +63,15 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
-def _cic_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int):
+def _cic_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int, periodic: bool = False):
     """CIC base cell ``i0 (N, 3) int32`` in [0, grid-2] and fraction ``f``
-    in [0, 1], with cell values at the centres ``lo + (i + 0.5) h``."""
+    in [0, 1], with cell values at the centres ``lo + (i + 0.5) h``.
+    ``periodic``: ``i0`` in [0, grid-1] (mod ``grid``; the +1 neighbour
+    wraps in the kernels), ``f`` against the unwrapped cell."""
     s = (pos - lo) / h - 0.5
+    if periodic:
+        raw = torch.floor(s)
+        return torch.remainder(raw.to(torch.int32), grid), clip(s - raw, 0.0, 1.0)
     i0 = torch.clamp(torch.floor(s).to(torch.int32), 0, grid - 2)
     f = clip(s - i0.to(s.dtype), 0.0, 1.0)
     return i0, f
@@ -117,15 +132,27 @@ def accel_pm(
     eps2: float = 1e-4,
     n_real: int | None = None,
     mesh_backend: str = "auto",
+    boundary: str = "isolated",
+    box_size: float = 0.0,
+    interlace: bool = False,
 ) -> torch.Tensor:
     """PM accelerations ``(N, 4)`` (w lane 0) with an isolated boundary,
     differentiable in ``pos_mass`` and ``G`` (autograd through the box, the
     FFT solve and the central differences, as the JAX package's autodiff).
     ``mesh_backend="jnp"`` runs the plain twins; otherwise the deposit and
     gather go through ``mesh_cuda.deposit_diff``/``gather_diff`` (the
-    kernels on a card, with their VJPs as backwards)."""
+    kernels on a card, with their VJPs as backwards).
+
+    ``boundary="periodic"`` (``box_size > 0``): the torus of side
+    ``box_size``, one CIC mesh leg (two averaged with ``interlace``) with
+    the spectral solve at Gaussian width ``PERIODIC_SIGMA_CELLS`` cells;
+    forward only."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
+    if boundary == "periodic":
+        return _accel_pm_periodic(pos_mass, G, grid, mesh_backend == "jnp", box_size, interlace)
+    if boundary != "isolated":
+        raise ValueError(f"unknown boundary {boundary!r}")
     lo, h = _box(pos_mass[:n_real, :3], grid)
     i0, f = _cic_cells(pos_mass[:, :3], lo, h, grid)
     c4, fm = mesh_cuda.mesh_operands(i0, f, pos_mass[:, 3])
@@ -134,3 +161,19 @@ def accel_pm(
                 else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
     phi = solve_potential(dep(c4, fm, grid, 2), h, eps2)
     return gat(force_grids(phi, h), c4, fm, grid, 2) * G
+
+
+def _accel_pm_periodic(pos_mass, G, grid, plain, box_size, interlace):
+    """Periodic PM (``nbody3d_tpu/ops/pm.py:323-350``)."""
+    from nbody3d_tpu_torch.ops.p3m import periodic_mesh_leg  # p3m imports this module
+
+    if box_size <= 0:
+        raise ValueError("boundary='periodic' requires box_size > 0")
+    L = torch.tensor(box_size, dtype=torch.float32, device=pos_mass.device)
+    h = L / grid
+    sigma = PERIODIC_SIGMA_CELLS * h
+    pos, mass = wrap_box(pos_mass[:, :3], L), pos_mass[:, 3]
+    acc = periodic_mesh_leg(pos, mass, L, sigma, grid, 2, plain)
+    if interlace:
+        acc = 0.5 * (acc + periodic_mesh_leg(wrap_box(pos + 0.5 * h, L), mass, L, sigma, grid, 2, plain))
+    return acc * G

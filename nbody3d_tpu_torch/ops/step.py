@@ -9,10 +9,12 @@ nothing.
 
 Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
 
-- ``method="pm"`` and ``"p3m"`` (isolated, no cosmology): the mesh
-  solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On the
-  kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
-  ``short_range``; on ``"jnp"`` their plain twins.
+- ``method="pm"`` and ``"p3m"`` (isolated or periodic, no cosmology): the
+  mesh solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On
+  the kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
+  ``short_range``, in their periodic forms on the periodic box; on
+  ``"jnp"`` their plain twins.  ``boundary="periodic"`` with
+  ``method="direct"`` raises ``ValueError``, as in the JAX package.
 
 For ``method="direct"``:
 
@@ -40,7 +42,9 @@ Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
 the JAX package's step) flow on every route.  The mesh steps are plain
 autograd over ``accel_p3m``/``accel_pm``, whose kernels sit in
 ``torch.autograd.Function``s (P3M's short range with the
-``short_range_bwd`` kernel as its backward).  The direct kernel routes go
+``short_range_bwd`` kernel as its backward); on the periodic box those
+Functions raise ``NotImplementedError`` on a backward (no periodic
+gradient yet).  The direct kernel routes go
 through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 
@@ -93,7 +97,6 @@ GPU_TILE = 256
 PAD_GRANULE = GPU_TILE
 
 # Configurations of the JAX package that the port does not run yet.
-_TODO_PERIODIC = "ROADMAP.md queue 1 item 9 (periodic boundary: ops/ewald.py, the kernels' periodic forms)"
 _TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
 
 
@@ -144,8 +147,14 @@ def pad_multiple(config: SimConfig, device: torch.device | str) -> int:
 def _check_supported(config: SimConfig) -> None:
     if config.method not in ("direct", "pm", "p3m"):
         raise ValueError(f"unknown method {config.method!r}")
-    if config.boundary != "isolated":
-        raise NotImplementedError(f"boundary={config.boundary!r}: {_TODO_PERIODIC}")
+    if config.boundary not in ("isolated", "periodic"):
+        raise ValueError(f"unknown boundary {config.boundary!r}")
+    if config.boundary == "periodic" and config.method not in ("pm", "p3m"):
+        raise ValueError(
+            "boundary='periodic' needs a mesh solver (method='pm'|'p3m'): the direct kernels sum bare "
+            "pairs, which is ill-defined on the torus without an Ewald sum (ops/ewald.py has the O(N^2) "
+            "oracle for validation only)"
+        )
     if config.cosmology != "none":
         raise NotImplementedError(f"cosmology={config.cosmology!r}: {_TODO_COSMO}")
     if config.grad_precision not in ("precise", "fast"):
@@ -202,11 +211,12 @@ def make_mesh_accel_fn(config: SimConfig, n_real: int, route: str) -> Callable:
     the card its CIC deposit and gather are the two mesh kernels at order
     2, and no plain code runs there."""
     backend = "jnp" if route == "plain" else "auto"
+    box = dict(boundary=config.boundary, box_size=config.box_size, interlace=config.mesh_interlace)
     if config.method == "pm":
 
         def accel(pos_mass, G):
             return accel_pm(pos_mass, G, grid=config.pm_grid, eps2=config.eps2, n_real=n_real,
-                            mesh_backend=backend)
+                            mesh_backend=backend, **box)
 
         return accel
     if config.method == "p3m":
@@ -216,7 +226,7 @@ def make_mesh_accel_fn(config: SimConfig, n_real: int, route: str) -> Callable:
                 pos_mass, G, grid=config.pm_grid, eps2=config.eps2, n_real=n_real,
                 sigma_cells=config.p3m_sigma_cells, rcut_sigmas=config.p3m_rcut_sigmas,
                 block=config.p3m_block, nbr_k=config.p3m_nbr_k, heavy_k=config.p3m_heavy_k,
-                backend=backend,
+                backend=backend, **box,
             )
 
         return accel

@@ -106,8 +106,8 @@ def test_pallas_backend_on_cpu_raises():
     "kw",
     [
         {"method": "pm", "cosmology": "eds"},
-        {"method": "p3m", "boundary": "periodic", "box_size": 10.0},
-        {"boundary": "periodic", "box_size": 10.0},
+        {"method": "p3m", "boundary": "periodic", "box_size": 10.0, "cosmology": "lcdm"},
+        {"method": "pm", "boundary": "periodic", "box_size": 10.0, "cosmology": "eds"},
         {"cosmology": "eds"},
     ],
 )
@@ -211,6 +211,7 @@ def test_port_imports_without_jax():
         "import nbody3d_tpu_torch.render.rasterize, nbody3d_tpu_torch.render.resolve\n"
         "import nbody3d_tpu_torch.render.image, nbody3d_tpu_torch.render.colormap\n"
         "import nbody3d_tpu_torch.ops.pm, nbody3d_tpu_torch.ops.p3m, nbody3d_tpu_torch.ops.mesh_cuda\n"
+        "import nbody3d_tpu_torch.ops.ewald\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'nbody3d_tpu' or m.startswith('nbody3d_tpu.')]\n"
         "assert not bad, bad\n"
