@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a, 12a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a, 12a, 13a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
@@ -124,7 +124,7 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    same shapes; (d) at N = 4,096 6d's rollout gradient through the fast
    route against ``backend="jnp"``'s, by v0, dt and G, within 5e-3 of
    scale, and a gradient request through the fused fast step raises.
-12. the periodic box (``boundary="periodic"``, forward only): (a, after
+12. the periodic box (``boundary="periodic"``), forward: (a, after
    11a) the periodic forms of ``short_range``, ``mesh_deposit`` and
    ``mesh_gather`` against their twins on the unit box with bodies on the
    seams, N = 8,192 and 7,936, tiles 128 and 256, grids 32 and 128, TSC and
@@ -147,20 +147,39 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``backend="jnp"`` (8e's bounds); (d) periodic PM (CIC) at 12b's box, 30
    warm steps and 5 timed chunks of 50, then the net force < 3e-5 of
    sum |f| and its CIC kernels against their twins.
+13. the periodic box's gradient: (a, after 12a) the periodic
+   ``short_range_bwd`` against its twin (``_bwd_agrees``) on 12a's unit box
+   with pairs planted across the seams at r = 1e-3, 1e-4 and 1e-5, N =
+   8,192 and 7,936, tiles 128 and 256, grids 32 and 128, tile 3 massless
+   and slots killed in mutual pairs, and on the planted pairs against the
+   twin in f64 (1e-5 of the row plus 8 ulp of the forward's cancelling k
+   terms); ``deposit_vjp`` and ``gather_vjp`` with ``periodic=True``
+   against autograd through their twins (1e-5 of the max), the gather's
+   grid cotangent on exact terms bit for bit with the first and last cells
+   written; (b) grad_bench's rollout (5 steps, by v0) through periodic P3M
+   at p3m_bench's box (12b's), plain and ``--interlace``, every plain twin
+   raising: forward and gradient ms/step, ratio, peak memory, the gradient
+   finite and nonzero; after the windows the periodic ``short_range_bwd``
+   at that shape beside its twin and bound; (c) the same through periodic
+   PM (CIC); (d) at N = 8,192 the kernel route's 5-step rollout gradient
+   (by v0, dt, G) against ``backend="jnp"``'s for periodic P3M, interlaced
+   P3M and PM, rtol 2e-3.
 
-Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice)
-and 12d (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e, 11d and 12c each
+Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
+12d, 13b (twice) and 13c (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e,
+11d, 12c and 13d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 12b (each) and 12d and one profiled gradient rollout of 9b and 9c (device
-busy time, idle share, largest kernels; for 9b and 9c the share of each
-stage) follow their windows.  The line before the last is ``{"kernels":
+step of 8b, 8d, 12b (each) and 12d and one profiled gradient rollout of 9b, 9c, 13b
+(each) and 13c (device busy time, idle share, largest kernels; for the
+gradients the share of each stage) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
-and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit`` and
-``mesh_gather`` carry a ``periodic`` entry with 12b's and 12d's launches and
-the periodic form's numbers at 12b's shape;
+and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit``,
+``mesh_gather`` and ``short_range_bwd`` carry a ``periodic`` entry with
+12b's, 12d's, 13b's and 13c's launches and the periodic form's numbers at
+12b's shape (``short_range_bwd``: 13b's);
 ``bound_ms`` from this run's shapes and the operation counts in each
 kernel's source note); the last is the ``{"ok": true, "device": ...}``
 line.  Without a CUDA card it exits 1 and prints no result.
@@ -172,6 +191,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -1705,9 +1725,9 @@ def phase_mesh_times(dev) -> dict[str, dict]:
 
 # ---------------------------------------------------- the mesh gradients
 MESH_GRAD = MESH_KERNELS + ("short_range_bwd",)
-# The plain twins of the mesh path, patched to raise inside 9b's and 9c's windows.
-MESH_TWINS = ((p3m, "_short_range_tiles"), (p3m, "_short_range_tiles_bwd"), (mc, "deposit_plain"),
-              (mc, "gather_plain"))
+# The plain twins of the mesh path, patched to raise inside 9b's, 9c's, 13b's and 13c's windows.
+MESH_TWINS = ((p3m, "_short_range_tiles"), (p3m, "_short_range_tiles_bwd"), (p3m, "_k_short_periodic_grads"),
+              (mc, "deposit_plain"), (mc, "gather_plain"))
 GRAD_2M: dict[str, torch.Tensor] = {}  # 9b's bodies, for the kernel's check after its window
 
 
@@ -1778,28 +1798,31 @@ def phase_mesh_grad_checks(dev) -> None:
               f"{tag}: the massless tile's rows get a mass cotangent")
 
 
-def _grad_path(dev, method: str, tag: str):
+def _grad_path(dev, method: str, tag: str, preset: str = "uniform-sphere", **cfg):
     """grad_bench's rollout through ``method`` at full width, with every
     plain twin of the mesh path raising: forward and gradient ms/step, the
-    peak memory; the gradient rollout for the profile."""
+    peak memory; the gradient rollout for the profile.  ``cfg``: more of
+    the step's config (the periodic box: ``boundary``, ``box_size``,
+    ``mesh_interlace``, with the uniform-box preset of that size)."""
     n, k = PM_N, 5
     torch.cuda.reset_peak_memory_stats()
-    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
+    kw = {"box_size": cfg["box_size"]} if preset == "uniform-box" else {}
+    pm_np, vel_np, _ = make_preset(preset, seed=0, G=G, n=n, **kw)
     st = init_state(pm_np, vel_np, n_pad=n, device=dev)
-    step = make_step_fn(SimConfig(method=method, pm_grid=128, p3m_nbr_k=32), n, n, dev)
+    step = make_step_fn(SimConfig(method=method, pm_grid=128, p3m_nbr_k=32, **cfg), n, n, dev)
     with no_twins():
         t_f, t_g, g, prof = _rollout_times(step, st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n)
-    print(f"{tag} uniform-sphere N={n} grid 128 k={k}: forward {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, "
+    print(f"{tag} {preset} N={n} grid 128 k={k}: forward {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, "
           f"ratio {t_g / t_f:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, f"{tag}: gradient finite and nonzero")
-    GRAD_2M[method] = st.pos_mass
+    GRAD_2M[tag] = st.pos_mass
     gradient = prof[1][1]
 
     def profiled():
         with no_twins():
             gradient()
 
-    return [(f"{method} gradient, {k} steps", profiled, {"stages": True})]
+    return [(f"{tag} gradient, {k} steps", profiled, {"stages": True})]
 
 
 def phase_grad_p3m(dev):
@@ -1819,8 +1842,8 @@ def phase_mesh_grad_times(dev) -> dict[str, dict]:
     random cotangent."""
     print("[9b mesh grad] short_range_bwd at the P3M gradient path's shape (CUDA events; plain: host clock, "
           "one run)", flush=True)
-    pos_mass = GRAD_2M.pop("p3m")
-    GRAD_2M.clear()
+    pos_mass = GRAD_2M.pop("[9b grad p3m]")
+    GRAD_2M.pop("[9c grad pm]")
     n, block = pos_mass.shape[0], p3m.DEFAULT_BLOCK
     x = _p3m_inputs(pos_mass, n, 128, block)
     args = (x["ps"], _random_cotangent(n, dev, 10), x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
@@ -2348,12 +2371,27 @@ def _box_rows(n: int, n_pad: int, dev, seed: int = 0) -> torch.Tensor:
     the last cell, 3.5e-3 from the padding rows at the origin: a much
     closer pair cancels 1/s^3 - 1/r^3 to nothing in f32), zero-padded to
     ``n_pad`` rows and Morton-sorted as ``accel_p3m`` sorts them."""
+    return _sort_box(_box_np(n, seed), n, n_pad, dev)[0]
+
+
+def _box_np(n: int, seed: int) -> np.ndarray:
+    """:func:`_box_rows`' bodies, unsorted and unpadded, in float64."""
     rng = np.random.default_rng(seed)
     pm_np = np.concatenate([rng.uniform(0, 1, (n, 3)), rng.uniform(1.0, 3.0, (n, 1))], axis=1)
     pm_np[:8, :3] = [[0.0, 0.5, 0.0], [1 - 1e-7, 0.5, 0.5], [0.5, 0.0, 1 - 1e-7], [1 - 2e-3, 1 - 2e-3, 1 - 2e-3],
                      [1e-7, 0.25, 0.75], [0.75, 1e-7, 1 - 1e-7], [0.5, 0.5, 0.0], [1 - 2e-7, 2e-7, 0.3]]
+    return pm_np
+
+
+def _sort_box(pm_np: np.ndarray, n: int, n_pad: int, dev):
+    """``pm_np`` zero-padded to ``n_pad`` rows in f32 on ``dev`` and
+    Morton-sorted as ``accel_p3m`` sorts: ``(rows, where)`` with ``where[i]``
+    the sorted row of body ``i``."""
     pos_mass = torch.from_numpy(np.pad(pm_np, ((0, n_pad - n), (0, 0))).astype(np.float32)).to(dev)
-    return pos_mass[torch.argsort(p3m.morton_keys(pos_mass, n), stable=True)].contiguous()
+    order = torch.argsort(p3m.morton_keys(pos_mass, n), stable=True)
+    where = torch.empty_like(order)
+    where[order] = torch.arange(n_pad, device=dev)
+    return pos_mass[order].contiguous(), where
 
 
 def _periodic_inputs(ps: torch.Tensor, n_real: int, grid: int, block: int, L: float, nbr_k: int = 32):
@@ -2670,6 +2708,217 @@ def phase_periodic_accuracy(dev) -> None:
                   f"worst |diff| - 1e-4|ref| = {excess:.3e} <= {1e-5 * scale:.3e}")
 
 
+# ------------------------------------------------ the periodic gradient
+PERIODIC_REPLACES["short_range_bwd"] = PERIODIC + "p3m.py:913"  # the minimum image :913-918, k' and k_s :938-953
+# FP32 FLOP a live-slot pair of the periodic short_range_bwd and its MUFU
+# results (csrc/short_range_bwd.cu's source note): two rsqrt, the ex2 of
+# expf, the rcp of 1/(r + s), erfcf's ex2 and rcp (erff's ex2 for u > 1 not
+# counted, so the bound is a least time).
+FLOP["short_range_bwd_periodic"] = 180
+SR_BWD_MUFU_PERIODIC = 6
+# 13a's planted pairs: separation, and the axis whose seam each straddles.
+PLANTED = ((1e-3, 0), (1e-4, 1), (1e-5, 2))
+
+
+def _planted_box_rows(n: int, n_pad: int, dev, seed: int = 0):
+    """:func:`_box_rows`' scene with three more pairs planted across the
+    seams at separations 1e-3, 1e-4 and 1e-5 (rows 8-13 before the sort),
+    sorted as ``accel_p3m`` sorts; ``(ps, [(r, row_i, row_j)])`` with the
+    pairs' rows in sorted order."""
+    pm_np = _box_np(n, seed)
+    for p, (r, axis) in enumerate(PLANTED):
+        a = np.full(3, 0.3 + 0.2 * p)
+        b = a.copy()
+        a[axis], b[axis] = r / 2, 1 - r / 2
+        pm_np[8 + 2 * p, :3], pm_np[9 + 2 * p, :3] = a, b
+    ps, where = _sort_box(pm_np, n, n_pad, dev)
+    return ps, [(r, int(where[8 + 2 * p]), int(where[9 + 2 * p])) for p, (r, _) in enumerate(PLANTED)]
+
+
+def _planted_agree(tag: str, ps, g, got, want64, pairs, sigma: float) -> None:
+    """The kernel's x̄ of each planted pair's rows against the twin run in
+    f64: within 1e-5 of the row plus 8 ulp of the forward's cancelling k
+    terms (erf(u)/r³ and c2 e/r², the forward's arithmetic, which the
+    backward shares) times |m_i g_j - m_j g_i| (rsqrtf is within 2 ulp)."""
+    a = 1 / (np.sqrt(2) * sigma)
+    worst = 0.0
+    for r, i, j in pairs:
+        terms = math.erf(r * a) / r**3 + 2 / np.sqrt(np.pi) * a / r**2 * np.exp(-(r * a) ** 2)
+        for p, q in ((i, j), (j, i)):
+            mg = float(torch.linalg.norm(ps[p, 3] * g[q, :3] - ps[q, 3] * g[p, :3]))
+            err = float(torch.linalg.norm(got[p, :3].double() - want64[p, :3]))
+            bound = 1e-5 * float(torch.linalg.norm(want64[p, :3])) + 8 * 2.0**-24 * terms * mg
+            worst = max(worst, err / bound)
+            print(f"    {tag} planted r={r:g} row {p}: |x̄ - f64| {err:.3e} (relative "
+                  f"{err / float(torch.linalg.norm(want64[p, :3])):.3e}), bound {bound:.3e}", flush=True)
+    check(worst <= 1.0, f"{tag}: periodic short_range_bwd on the planted pairs (r = 1e-3, 1e-4, 1e-5 across the "
+          f"seams) vs the twin in f64, worst error / bound {worst:.3e} <= 1")
+
+
+def _mesh_vjps_agree(tag: str, c4, fm, grid: int, order: int) -> None:
+    """``deposit_vjp`` and ``gather_vjp`` with ``periodic=True`` on the card
+    against autograd through their twins (``deposit_plain``,
+    ``gather_plain``), a random cotangent, within 1e-5 of the max; then the
+    gather's grid cotangent (three periodic ``mesh_deposit`` launches) on
+    exact terms (f = 1/2, a cotangent of 1 a lane) bit for bit against f64
+    sums, the first and last cells written."""
+    rng = np.random.default_rng(grid + order)
+    rho_bar = torch.from_numpy(rng.standard_normal((grid, grid, grid)).astype(np.float32)).to(fm.device)
+    out_bar = torch.from_numpy(rng.standard_normal((fm.shape[0], 4)).astype(np.float32)).to(fm.device)
+    grids = torch.from_numpy(rng.standard_normal((3, grid**3)).astype(np.float32)).to(fm.device)
+    got_d = mc.deposit_vjp(c4, fm, rho_bar, grid, order, periodic=True)
+    f_ = fm.clone().requires_grad_()
+    want_d, = torch.autograd.grad(mc.deposit_plain(c4, f_, grid, order, periodic=True), f_, rho_bar)
+    got_g, got_f = mc.gather_vjp(grids, c4, fm, out_bar, grid, order, periodic=True)
+    g_, f_ = grids.clone().requires_grad_(), fm.clone().requires_grad_()
+    want_g, want_f = torch.autograd.grad(mc.gather_plain(g_, c4, f_, grid, order, periodic=True), (g_, f_),
+                                         torch.cat([out_bar[:, :3], torch.zeros_like(out_bar[:, :1])], 1))
+    torch.cuda.synchronize()
+    errs = [rel_err(a, b) for a, b in ((got_d, want_d), (got_g, want_g), (got_f, want_f))]
+    check(max(errs) < 1e-5, f"{tag}: periodic deposit_vjp (fm̄ {errs[0]:.3e}) and gather_vjp (grids̄ {errs[1]:.3e}, "
+          f"fm̄ {errs[2]:.3e}) vs autograd through the twins, max-abs/max < 1e-5")
+    exact = fm.clone()
+    exact[:, :3] = 0.5
+    ones = torch.ones_like(out_bar)
+    gbar, _ = mc.gather_vjp(grids, c4, exact, ones, grid, order, periodic=True)
+    want = mc.deposit_plain(c4, torch.cat([exact[:, :3].double(), ones[:, :1].double()], 1), grid, order,
+                            periodic=True).view(-1)
+    ok = all(torch.equal(gbar[i].double(), want) for i in range(3))
+    check(ok and float(gbar[0, 0] * gbar[0, -1]) > 0,
+          f"{tag}: periodic gather_vjp's grid cotangent on exact terms equal to f64 sums in every cell of the 3 "
+          f"grids, first cell {float(gbar[0, 0]):.3f}, last cell {float(gbar[0, -1]):.3f}")
+
+
+def phase_periodic_grad_checks(dev) -> None:
+    """13a: the periodic ``short_range_bwd`` against its twin on the card on
+    12a's unit box with three pairs planted across the seams (r = 1e-3, 1e-4,
+    1e-5), at N = 8,192 and 7,936, tiles 128 and 256, grids 32 and 128, with
+    tile 3 massless and slots killed in mutual pairs, for a random
+    cotangent (``_bwd_agrees``), and on the planted pairs against the twin
+    in f64; the periodic mesh VJPs against autograd through the twins at
+    TSC and CIC, grids 32 and 128."""
+    print("[13a periodic grad] short_range_bwd periodic form, periodic mesh VJPs vs plain twins", flush=True)
+    for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
+        n_real = n_pad - 192
+        ps0, pairs = _planted_box_rows(n_real, n_pad, dev)
+        for grid in (32, 128):
+            tag = f"periodic N={n_pad} block={block} grid={grid}"
+            x = _periodic_inputs(ps0, n_real, grid, block, 1.0)
+            ps = ps0.clone()
+            ps[3 * block : 4 * block, 3] = 0.0
+            mask = _mutual_kills(x["mask"], x["nbr_idx"])
+            g = _random_cotangent(n_pad, dev, 13)
+            args = (ps, g, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, mask)
+            got = p3m.short_range_tiles_bwd(*args, box=1.0)
+            want = p3m.short_range_tiles_bwd(*args, backend="jnp", box=1.0)
+            torch.cuda.synchronize()
+            sub = f"{tag} ({int((mask == 0).sum())} slots off, tile 3 massless)"
+            _bwd_agrees(sub, got, want)
+            check(float(got[0][3 * block : 4 * block, 3].abs().max()) > 0,
+                  f"{sub}: the massless tile's rows get a mass cotangent")
+            # The planted pairs under the mutual mask alone (the kills above may drop their slots).
+            args = (ps, g, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+            got = p3m.short_range_tiles_bwd(*args, box=1.0)
+            want64 = p3m._short_range_tiles_bwd(ps.double(), g.double(), x["nbr_idx"], EPS2, x["sigma"].double(),
+                                                x["rcut"].double(), block, x["mask"].double(), box=1.0)
+            live = [i // block == j // block or bool(((x["nbr_idx"][i // block] == j // block)
+                                                        & (x["mask"][i // block] > 0)).any()) for _, i, j in pairs]
+            check(all(live), f"{tag}: every planted pair's tiles list each other under the mutual mask")
+            _planted_agree(tag, ps, g, got[0], want64[0], pairs, float(x["sigma"]))
+            for order in (3, 2):
+                c4, fm = _periodic_cells(ps0, x["h"], grid, order)
+                _mesh_vjps_agree(f"{tag} order {order}", c4, fm, grid, order)
+
+
+def phase_periodic_grad_p3m(dev):
+    """13b: the periodic P3M gradient at p3m_bench's periodic box (uniform
+    box, N = 2,097,152, box 10, grid 128, k = 32), grad_bench's rollout."""
+    return _grad_path(dev, "p3m", "[13b periodic grad p3m]", "uniform-box", boundary="periodic", box_size=BOX_L)
+
+
+def phase_periodic_grad_p3m_interlaced(dev):
+    """13b with ``--interlace``."""
+    return _grad_path(dev, "p3m", "[13b periodic grad p3m interlaced]", "uniform-box", boundary="periodic",
+                      box_size=BOX_L, mesh_interlace=True)
+
+
+def phase_periodic_grad_pm(dev):
+    """13c: the periodic PM gradient (CIC, grid 128) at 13b's box."""
+    return _grad_path(dev, "pm", "[13c periodic grad pm]", "uniform-box", boundary="periodic", box_size=BOX_L)
+
+
+def phase_periodic_grad_times(dev) -> dict[str, dict]:
+    """After 13b's windows: the periodic ``short_range_bwd`` at 13b's shape
+    and data (the rollout's first bodies, wrapped, sorted and selected as
+    the periodic ``accel_p3m`` does) beside its twin, for a random
+    cotangent."""
+    print("[13b periodic grad] short_range_bwd periodic at the periodic P3M gradient path's shape (CUDA events; "
+          "plain: host clock, one run)", flush=True)
+    pos_mass = GRAD_2M.pop("[13b periodic grad p3m]")
+    for tag in ("[13b periodic grad p3m interlaced]", "[13c periodic grad pm]"):
+        GRAD_2M.pop(tag)
+    n, grid, block = pos_mass.shape[0], 128, p3m.DEFAULT_BLOCK
+    pm_w = torch.cat([ewald.wrap_box(pos_mass[:, :3], BOX_L), pos_mass[:, 3:]], 1)
+    ps = pm_w[torch.argsort(p3m.morton_keys(pm_w, n), stable=True)].contiguous()
+    x = _periodic_inputs(ps, n, grid, block, BOX_L)
+    args = (ps, _random_cotangent(n, dev, 14), x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    got = p3m.short_range_tiles_bwd(*args, box=BOX_L)
+    want = None
+
+    def run_plain():
+        nonlocal want
+        want = p3m.short_range_tiles_bwd(*args, backend="jnp", box=BOX_L)
+
+    plain_ms = host_ms(run_plain)
+    _bwd_agrees(f"2M periodic uniform box (N={n})", got, want)
+    live = int((x["mask"] != 0).sum())
+    pairs = live * block * block
+    nb, k = x["nbr_idx"].shape
+    r = {
+        "max_abs_err": max_abs(got[0], want[0]),
+        "ms": cuda_ms(lambda: p3m.short_range_tiles_bwd(*args, box=BOX_L), reps=3),
+        "plain_ms": plain_ms, "library_ms": None,
+        "shape": f"({n}, 4) x 2 torus, {nb} tiles of {block}, k {k}, {live} live slots",
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
+        **bound("short_range_bwd_periodic", pairs, 52 * n + 8 * nb * k, rsqrts=SR_BWD_MUFU_PERIODIC * pairs),
+    }
+    print(f"  short_range_bwd periodic {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
+          flush=True)
+    return {"short_range_bwd": r}
+
+
+def phase_periodic_grad_crosscheck(dev) -> None:
+    """13d: at N = 8,192 (12c's box scene: seam bodies, random velocities)
+    the kernel route's 5-step rollout gradient against the
+    ``backend="jnp"`` route's (the twins, autograd through the mesh twins),
+    periodic P3M with interlace off and on and periodic PM, by v0 and by dt
+    and G (0-d tensors): rtol 2e-3, 9d's bound."""
+    ps = _box_rows(8000, 8192, dev, seed=3)
+    vel = torch.zeros_like(ps)
+    vel[:8000, :3] = torch.from_numpy(np.random.default_rng(3).normal(scale=0.3, size=(8000, 3))).float().to(dev)
+    for method, il in (("p3m", False), ("p3m", True), ("pm", False)):
+        what = f"[13d periodic grad check] N=8192 {method}{' interlaced' if il else ''}"
+        cfg = SimConfig(method=method, pm_grid=32, p3m_nbr_k=16, boundary="periodic", box_size=1.0,
+                        mesh_interlace=il)
+        grads = {}
+        for route, c in (("kernels", cfg), ("jnp", cfg.replace(backend="jnp"))):
+            step = make_step_fn(c, 8192, 8000, dev)
+            v = vel.clone().requires_grad_()
+            dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (2e-4, 2e-3))
+            s = SimState(ps.clone(), v, torch.zeros_like(ps), 0)
+            for _ in range(5):
+                s = step(s, dt, g)
+            loss = (s.pos_mass[:8000, :3] ** 2).sum() / 8000 + (s.vel[:8000, :3] ** 2).sum()
+            grads[route] = torch.autograd.grad(loss, (v, dt, g))
+        (gv, gdt, gg), (rv, rdt, rg) = grads["kernels"], grads["jnp"]
+        _grad_agrees(gv, rv, f"{what} kernel route vs jnp route, by v0")
+        e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, rdt), (gg, rg)))
+        check(e_dt <= 2e-3 and e_g <= 2e-3,
+              f"{what}: d/d dt {float(gdt):.6e} (rel err {e_dt:.3e}), d/dG {float(gg):.6e} (rel err {e_g:.3e}) "
+              f"vs jnp route, rtol 2e-3")
+
+
 def _print_times(out: dict[str, dict]) -> None:
     for name, r in out.items():
         print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -2701,8 +2950,11 @@ PATHS = (
     ("phase 12b (periodic P3M path)", phase_periodic_p3m, MESH_KERNELS),
     ("phase 12b (periodic P3M path, interlaced)", phase_periodic_p3m_interlaced, MESH_KERNELS),
     ("phase 12d (periodic PM path)", phase_periodic_pm, ("mesh_deposit", "mesh_gather")),
+    ("phase 13b (periodic P3M gradient path)", phase_periodic_grad_p3m, MESH_GRAD),
+    ("phase 13b (periodic P3M gradient path, interlaced)", phase_periodic_grad_p3m_interlaced, MESH_GRAD),
+    ("phase 13c (periodic PM gradient path)", phase_periodic_grad_pm, ("mesh_deposit", "mesh_gather")),
 )
-PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith("phase 12"))
+PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13")))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
@@ -2716,6 +2968,7 @@ SIDE = (
     ("phase 10e (uncentred sym route)", phase_uncentred_sym, ("sym_diag", "sym_hops", "sym_combine", "sym_diag_prep")),
     ("phase 11d (fast gradient cross-check)", phase_fast_grad_crosscheck, ("force_fast",) + VJP_SYM),
     ("phase 12c (periodic accuracy, run and cross-check)", phase_periodic_accuracy, MESH_KERNELS),
+    ("phase 13d (periodic gradient cross-check)", phase_periodic_grad_crosscheck, MESH_GRAD),
 )
 FULL_ROUTE = SIDE[0][0]
 # Kernels on no main path: their launches come from these side windows.
@@ -2743,8 +2996,9 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
 
 def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
     """The kernels line's entry for a kernel's periodic form: its launches
-    on the periodic main paths (12b, 12d; also counted in the kernel's
-    ``launches``) and its numbers at 12b's shape."""
+    on the periodic main paths (12b, 12d, 13b, 13c; also counted in the
+    kernel's ``launches``) and its numbers at 12b's shape (13b's for
+    ``short_range_bwd``)."""
     return {
         "replaces": PERIODIC_REPLACES[name],
         "launches": sum(by_path[p][name] for p in PERIODIC_PATHS),
@@ -2774,6 +3028,7 @@ def main() -> int:
     phase_unfused_checks(dev)
     phase_fast_checks(dev)
     phase_periodic_checks(dev)
+    phase_periodic_grad_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -2789,6 +3044,7 @@ def main() -> int:
     times.update(phase_unfused_times(dev))
     times.update(phase_fast_times(dev))
     periodic = phase_periodic_times(dev)
+    periodic.update(phase_periodic_grad_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 

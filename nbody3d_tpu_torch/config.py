@@ -44,7 +44,7 @@ class SimConfig:
     (``"direct"``, ``"pm"`` or ``"p3m"``), ``pm_grid``,
     ``p3m_sigma_cells``, ``p3m_rcut_sigmas``, ``p3m_nbr_k``,
     ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"``, or
-    ``"periodic"`` with a mesh method: forward only), ``box_size`` and
+    ``"periodic"`` with a mesh method), ``box_size`` and
     ``mesh_interlace`` (periodic), ``cosmology`` (``"none"`` only),
     ``backend``, ``block_target`` (capped at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with

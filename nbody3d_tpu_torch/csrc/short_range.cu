@@ -54,8 +54,12 @@
 // sequential (tile, slot) grid with a scratch accumulator; here the slot
 // loop runs inside the block and the sum stays in registers.  The two
 // boundaries are one source loop, instanced by a template flag, so the
-// isolated instance carries no minimum-image code.
+// isolated instance carries no minimum-image code.  The minimum image and
+// the periodic k live in periodic.cuh, which short_range_bwd.cu includes
+// too.
 #include <cuda_runtime.h>
+
+#include "periodic.cuh"
 
 namespace {
 
@@ -65,11 +69,6 @@ constexpr float kAsA2 = -0.284496736f;
 constexpr float kAsA3 = 1.421413741f;
 constexpr float kAsA4 = -1.453152027f;
 constexpr float kAsA5 = 1.061405429f;
-
-// The minimum image of a separation d with |d| < box (p3m.py:732-735).
-__device__ __forceinline__ float min_image(float d, float box, float half) {
-    return (d - (d > half ? box : 0.f)) + (d < -half ? box : 0.f);
-}
 
 template <bool PERIODIC>
 __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __restrict__ nbr,
@@ -112,8 +111,7 @@ __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __r
             const float e = expf(-(u * u));
             float ks;
             if (PERIODIC) {
-                const float inv_s3 = inv_s * inv_s * inv_s;
-                ks = (inv_s3 - erff(u) * (inv_r * inv_r * inv_r)) + (c2 * e) * (inv_r * inv_r);
+                ks = k_short_periodic(inv_r, inv_s, erff(u), e, c2);
             } else {
                 const float tt = 1.f / (1.f + kAsP * u);
                 const float erfc_u = tt * (kAsA1 + tt * (kAsA2 + tt * (kAsA3 + tt * (kAsA4 + tt * kAsA5)))) * e;

@@ -39,9 +39,10 @@ autodiff); their ``backend="jnp"`` runs the twins on any device, and
 autograd goes through them.  The VJPs run the kernels for the scatter (the
 grid cotangent of the gather is a deposit of its output's cotangent, one
 component at a time) and torch ops for the stencil's derivative weights;
-no TPU kernel has a backward of its own here.  The periodic legs have no
-backward yet: :class:`_Deposit` and :class:`_Gather` raise
-``NotImplementedError`` on one (``PERIODIC_GRAD_TODO``), on both routes.
+no TPU kernel has a backward of its own here.  On the periodic box the
+VJPs wrap every stencil index as the forwards do, and the grids'
+cotangent is the periodic deposit (the JAX package takes ``jax.vjp`` of
+``mesh_accel_periodic_jnp`` there, ``mesh_pallas.py:796-822``).
 """
 
 from __future__ import annotations
@@ -49,13 +50,6 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
-
-# What a backward through the periodic box waits for.
-PERIODIC_GRAD_TODO = (
-    "ROADMAP.md queue 1 item 9 (periodic gradient, item 9a: the periodic short_range_bwd and the "
-    "periodic mesh VJPs); the periodic box runs forward only"
-)
-
 
 def axis_weights(f: torch.Tensor, order: int) -> tuple[torch.Tensor, ...]:
     """Per-axis assignment weights at the stencil offsets (``_offsets``),
@@ -111,7 +105,9 @@ def mesh_operands(c: torch.Tensor, f: torch.Tensor, mass: torch.Tensor | None = 
 
 
 def _check(name: str, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int) -> torch.device:
-    dev = check_rows(name, fm)
+    # The kernels take float32; the twins (CPU tensors) float64 too, for gradcheck.
+    dev = check_rows(name, fm, dtype=fm.dtype if fm.device.type == "cpu" and fm.dtype == torch.float64
+                     else torch.float32)
     check_rows(name, c4, dtype=torch.int32)
     if c4.shape[0] != fm.shape[0] or c4.device != dev:
         raise ValueError(f"{name}: c4 {tuple(c4.shape)} on {c4.device}, fm {tuple(fm.shape)} on {dev}")
@@ -160,8 +156,8 @@ def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, o
     w lane 0 (the mass lane of ``fm`` is not read), on the torus when
     ``periodic``."""
     dev = _check("mesh_gather", c4, fm, grid, order)
-    if grids.dtype != torch.float32 or tuple(grids.shape) != (3, grid**3) or not grids.is_contiguous():
-        raise ValueError(f"mesh_gather: grids must be contiguous float32 (3, {grid**3}), got "
+    if grids.dtype != fm.dtype or tuple(grids.shape) != (3, grid**3) or not grids.is_contiguous():
+        raise ValueError(f"mesh_gather: grids must be contiguous {fm.dtype} (3, {grid**3}), got "
                          f"{grids.dtype} {tuple(grids.shape)}")
     if grids.device != dev or grids.requires_grad:
         raise ValueError("mesh_gather: grids on another device or requiring grad")
@@ -173,21 +169,27 @@ def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, o
 
 
 # ------------------------------------------------------------ the VJPs
-def _stencil_sums(values, c4: torch.Tensor, f: torch.Tensor, grid: int, order: int):
+def _stencil_sums(values, c4: torch.Tensor, f: torch.Tensor, grid: int, order: int, periodic: bool = False):
     """``(Σ w·v (N,), Σ ∂w/∂f·v (N, 3))`` over each particle's stencil, with
     ``v = values(idx)`` the ``(N, Z)`` values at the flat cells ``idx``
     of a z-row of the stencil: the interpolation and its slope along each
-    axis."""
+    axis.  ``periodic``: each axis index mod ``grid``, as :func:`_stencil`."""
     w, dw = axis_weights(f, order), axis_slopes(f, order)
     offs = _offsets(order)
     dz = torch.tensor(offs, device=c4.device)
     wz, dwz = torch.stack([x[:, 2] for x in w], 1), torch.stack([x[:, 2] for x in dw], 1)
     interp = torch.zeros(f.shape[0], dtype=f.dtype, device=f.device)
     slope = torch.zeros_like(f)
+    c = c4[:, :3].long()
+    z = c[:, 2:3] + dz
+    if periodic:
+        z = torch.remainder(z, grid)
     for a, dx in enumerate(offs):
         for b, dy in enumerate(offs):
-            base = ((c4[:, 0] + dx) * grid + (c4[:, 1] + dy)) * grid + c4[:, 2]
-            v = values(base.long()[:, None] + dz)
+            x, y = c[:, 0] + dx, c[:, 1] + dy
+            if periodic:
+                x, y = torch.remainder(x, grid), torch.remainder(y, grid)
+            v = values(((x * grid + y) * grid)[:, None] + z)
             vz, vdz = torch.sum(v * wz, dim=1), torch.sum(v * dwz, dim=1)
             wx, wy, dwx, dwy = w[a][:, 0], w[b][:, 1], dw[a][:, 0], dw[b][:, 1]
             interp += vz * wx * wy
@@ -197,83 +199,79 @@ def _stencil_sums(values, c4: torch.Tensor, f: torch.Tensor, grid: int, order: i
     return interp, slope
 
 
-def deposit_vjp(c4: torch.Tensor, fm: torch.Tensor, rho_bar: torch.Tensor, grid: int, order: int) -> torch.Tensor:
+def deposit_vjp(c4: torch.Tensor, fm: torch.Tensor, rho_bar: torch.Tensor, grid: int, order: int,
+                periodic: bool = False) -> torch.Tensor:
     """The VJP of the deposit for the cotangent ``rho_bar (grid, grid,
     grid)``: ``fm_bar (N, 4)``, the fractions' ``m · Σ ∂w/∂f · rho_bar``
-    and the mass's interpolation of ``rho_bar``."""
+    and the mass's interpolation of ``rho_bar``, on the torus when
+    ``periodic``."""
     flat = rho_bar.reshape(-1)
-    m_bar, slope = _stencil_sums(lambda idx: flat[idx], c4, fm[:, :3], grid, order)
+    m_bar, slope = _stencil_sums(lambda idx: flat[idx], c4, fm[:, :3], grid, order, periodic)
     return torch.cat([fm[:, 3:4] * slope, m_bar[:, None]], dim=1)
 
 
 def gather_vjp(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, out_bar: torch.Tensor, grid: int,
-               order: int) -> tuple[torch.Tensor, torch.Tensor]:
+               order: int, periodic: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The VJP of the gather for its output's cotangent ``out_bar (N, 4)``
     (w lane not read): ``(grids_bar (3, G³), fm_bar (N, 4))``.  Each grid's
     cotangent is the deposit of one lane of ``out_bar`` (``mesh_deposit``
-    on a card); the fractions' is ``Σ ∂w/∂f · (out_bar · grids)``, the
-    mass's 0."""
+    on a card, in its periodic form when ``periodic``); the fractions' is
+    ``Σ ∂w/∂f · (out_bar · grids)``, the mass's 0."""
     gbar = out_bar[:, :3]
     f = fm[:, :3].contiguous()
-    grids_bar = torch.stack([deposit(c4, torch.cat([f, gbar[:, i : i + 1]], 1).contiguous(), grid, order).view(-1)
-                             for i in range(3)])
+    grids_bar = torch.stack([
+        deposit(c4, torch.cat([f, gbar[:, i : i + 1]], 1).contiguous(), grid, order, periodic).view(-1)
+        for i in range(3)
+    ])
     # A product and a sum over the 3 lanes: as an einsum, cuBLAS runs N
     # (Z, 3) x (3,) GEMVs, 27 ms a TSC backward at 2M on an H100.
-    _, slope = _stencil_sums(lambda idx: torch.sum(grids[:, idx] * gbar.T[:, :, None], dim=0), c4, f, grid, order)
+    _, slope = _stencil_sums(lambda idx: torch.sum(grids[:, idx] * gbar.T[:, :, None], dim=0), c4, f, grid, order,
+                             periodic)
     return grids_bar, torch.cat([slope, torch.zeros_like(slope[:, :1])], dim=1)
 
 
 class _Deposit(torch.autograd.Function):
-    """:func:`deposit` with :func:`deposit_vjp` as its backward (by ``fm``).
-    ``plain`` runs the twin on any device.  A periodic deposit has no
-    backward yet and raises on one."""
+    """:func:`deposit` with :func:`deposit_vjp` as its backward (by ``fm``),
+    on the torus when ``periodic``."""
 
     @staticmethod
-    def forward(ctx, c4, fm, grid, order, periodic, plain):
+    def forward(ctx, c4, fm, grid, order, periodic):
         ctx.save_for_backward(c4, fm)
-        ctx.opts = (grid, order)
-        ctx.periodic = periodic
-        return (deposit_plain if plain else deposit)(c4, fm.detach(), grid, order, periodic)
+        ctx.opts = (grid, order, periodic)
+        return deposit(c4, fm.detach(), grid, order, periodic)
 
     @staticmethod
     def backward(ctx, rho_bar):
-        if ctx.periodic:
-            raise NotImplementedError(f"mesh_deposit backward on the periodic box: {PERIODIC_GRAD_TODO}")
         c4, fm = ctx.saved_tensors
-        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None, None, None
+        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None, None
 
 
 class _Gather(torch.autograd.Function):
     """:func:`gather` with :func:`gather_vjp` as its backward (by ``grids``
-    and ``fm``); the wrapper gets detached grids.  ``plain`` runs the twin
-    on any device.  A periodic gather has no backward yet and raises on
-    one."""
+    and ``fm``), on the torus when ``periodic``; the wrapper gets detached
+    grids."""
 
     @staticmethod
-    def forward(ctx, grids, c4, fm, grid, order, periodic, plain):
+    def forward(ctx, grids, c4, fm, grid, order, periodic):
         ctx.save_for_backward(grids, c4, fm)
-        ctx.opts = (grid, order)
-        ctx.periodic = periodic
-        return (gather_plain if plain else gather)(grids.detach(), c4, fm.detach(), grid, order, periodic)
+        ctx.opts = (grid, order, periodic)
+        return gather(grids.detach(), c4, fm.detach(), grid, order, periodic)
 
     @staticmethod
     def backward(ctx, out_bar):
-        if ctx.periodic:
-            raise NotImplementedError(f"mesh_gather backward on the periodic box: {PERIODIC_GRAD_TODO}")
         grids, c4, fm = ctx.saved_tensors
         grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
-        return grids_bar, None, fm_bar, None, None, None, None
+        return grids_bar, None, fm_bar, None, None, None
 
 
-def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False,
-                 plain: bool = False) -> torch.Tensor:
-    """:func:`deposit`, differentiable in ``fm`` (fractions and mass) on the
-    isolated box."""
-    return _Deposit.apply(c4, fm, grid, order, periodic, plain)
+def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
+    """:func:`deposit`, differentiable in ``fm`` (fractions and mass), on
+    the isolated or (``periodic``) the periodic box."""
+    return _Deposit.apply(c4, fm, grid, order, periodic)
 
 
 def gather_diff(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
-                periodic: bool = False, plain: bool = False) -> torch.Tensor:
-    """:func:`gather`, differentiable in ``grids`` and ``fm`` on the isolated
-    box."""
-    return _Gather.apply(grids, c4, fm, grid, order, periodic, plain)
+                periodic: bool = False) -> torch.Tensor:
+    """:func:`gather`, differentiable in ``grids`` and ``fm``, on the
+    isolated or (``periodic``) the periodic box."""
+    return _Gather.apply(grids, c4, fm, grid, order, periodic)

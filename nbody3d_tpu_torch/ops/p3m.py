@@ -39,8 +39,12 @@ the torus ``[0, L)³``: the mesh is the reciprocal-space sum
 two half-cell-shifted legs averaged: ``interlace``), and the short range
 is ``ewald.k_short_periodic`` over minimum-image pairs, the tiles chosen
 by the periodic AABB gap.  The box is fixed (``h = L/grid``) and the
-heavy split is off.  It runs forward only: a backward raises
-``NotImplementedError`` (``mesh_cuda.PERIODIC_GRAD_TODO``).
+heavy split is off.  Gradients flow through it as through the isolated
+form: :class:`_ShortRange` with the box runs the periodic form of
+``short_range_bwd`` (:func:`_k_short_periodic_grads` is its pair
+arithmetic), the mesh legs the periodic VJPs of ``mesh_cuda``, and
+autograd takes the wrap (its floor has derivative 0), the Morton
+permutation, the spectral solve and the net-force projection.
 """
 
 from __future__ import annotations
@@ -417,14 +421,16 @@ def _check_tiles(name: str, block: int, nbr_idx: torch.Tensor, ps: torch.Tensor,
 def _kernel_operands(name, dev, nbr_idx, nbr_mask, sigma, rcut):
     """``(nbr_idx int32, nbr_mask f32, scal)`` as both short-range kernels
     take them.  ``sigma`` and ``rcut`` are device scalars and reach the
-    kernels as a device ``f32[5] = [rcut², 1/(√2σ), (2/√π)/(√2σ), 0,
-    1/σ]`` (the forward reads the first three), so no host sync happens."""
+    kernels as a device ``f32[5] = [rcut², 1/(√2σ), (2/√π)/(√2σ),
+    1/(2σ²), 1/σ]`` (the forward reads the first three, the isolated
+    backward all but the fourth, the periodic backward all), so no host
+    sync happens."""
     ids = nbr_idx.to(torch.int32).contiguous()
     msk = nbr_mask.to(torch.float32).contiguous()
     if ids.device != dev or msk.device != dev or msk.shape != ids.shape:
         raise ValueError(f"{name}: nbr_idx and nbr_mask must be (nb, k) on the device of ps")
     a = 1.0 / (_SQRT2 * sigma)
-    scal = torch.stack([rcut * rcut, a, _TWO_OVER_SQRT_PI * a, torch.zeros_like(sigma), 1.0 / sigma])
+    scal = torch.stack([rcut * rcut, a, _TWO_OVER_SQRT_PI * a, 0.5 / (sigma * sigma), 1.0 / sigma])
     return ids, msk, scal.to(torch.float32)
 
 
@@ -480,7 +486,49 @@ def _k_short_grads(r2: torch.Tensor, eps2: float, sigma: torch.Tensor):
     return k, kp, ks
 
 
-def _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask):
+def _k_short_periodic_grads(r2: torch.Tensor, eps2: float, sigma: torch.Tensor):
+    """``(k, dk/dr², dk/dσ)`` of ``ewald.k_short_periodic`` at ``r2 > 0`` (a
+    pair at r = 0 gets finite values that the caller gates out), as the
+    periodic ``short_range_bwd`` computes them (``csrc/short_range_bwd.cu``
+    derives them).  With ``a = 1/(√2σ)``, ``c2 = (2/√π)a``, ``u = ra``
+    and ``e = exp(-r²a²)``:
+
+        k   = 1/s³ - erf(u)/r³ + c2 e/r²              (the forward's)
+        k'  = -1.5/s⁵ - (2/√π)a⁵(-2/5 + u²(2/7 + u²(-1/9 + u²/33)))   (u < 0.2)
+            = 1.5(1/r⁵ - 1/s⁵) - 1.5 erfc(u)/r⁵ - 1.5 c2 e/r⁴ - c2 a² e/r²   (u >= 0.2)
+        k_σ = 2 c2 a² e / σ
+
+    with ``1/r⁵ - 1/s⁵ = eps2/(r s (r + s)) · Σ_{p+q=4} r⁻ᵖ s⁻ᑫ``, a sum of
+    positive terms.  The JAX Pallas kernel's k' (``p3m.py:938-953`` of the
+    JAX package) cancels terms of size c2/r⁴ and takes an A-S erfc whose
+    1.5e-7 error is multiplied by 1/r⁵, so it fails at pairs far closer
+    than σ.  From r = 1e-5 to rcut these hold k_σ within
+    1e-6 of f64 relative, and k' within 1e-6 of the larger of |k'| and half
+    its two parts (relative wherever the parts do not cancel; near rcut k'
+    nears its zero)."""
+    r2s = torch.where(r2 > 0, r2, 1.0)
+    inv_r = torch.rsqrt(r2s)
+    inv_s = torch.rsqrt(r2s + eps2)
+    a = 1.0 / (_SQRT2 * sigma)
+    c2 = _TWO_OVER_SQRT_PI * a
+    a2 = 0.5 / (sigma * sigma)  # not a * a: e's relative error is u² times u²'s
+    r = r2s * inv_r
+    u = r * a
+    u2 = r2s * a2
+    e = torch.exp(-u2)
+    inv_r2, inv_s2 = inv_r * inv_r, inv_s * inv_s
+    k = (inv_s2 * inv_s - torch.special.erf(u) * (inv_r2 * inv_r)) + (c2 * e) * inv_r2
+    series = (c2 * (a2 * a2)) * (-0.4 + u2 * (2.0 / 7.0 + u2 * (-1.0 / 9.0 + u2 * (1.0 / 33.0))))
+    s = (r2s + eps2) * inv_s
+    powers = inv_r2 * inv_r2 + inv_s * (inv_r2 * inv_r + inv_s * (inv_r2 + inv_s * (inv_r + inv_s)))
+    d5 = (eps2 * inv_r * inv_s) / (r + s) * powers
+    closed = 1.5 * d5 - (1.5 * torch.special.erfc(u) * (inv_r2 * inv_r2 * inv_r)
+                         + (c2 * e) * inv_r2 * (1.5 * inv_r2 + a2))
+    kp = torch.where(u2 < 0.04, -1.5 * (inv_s2 * inv_s2 * inv_s) - series, closed)
+    return k, kp, 2.0 * c2 * a2 * e / sigma
+
+
+def _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box=None):
     """Plain twin of ``short_range_bwd``: the VJP of :func:`_short_range_tiles`
     for the cotangent ``g`` (its first 3 lanes) as a gather over each row's
     own neighbour list, exact for a mutual mask (``p3m.py:899-903`` of the
@@ -493,7 +541,8 @@ def _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask):
     ``(dps (N, 4) = [x̄, m̄], σ̄ ())``, σ̄ summed in float64.  Only mask-0
     slots are left out: unlike the forward, a source tile of zero mass
     counts (its rows' m̄ and the m_i g_j terms are not 0).  Tiles go in
-    batches of about ``_PAIR_BATCH`` pairs."""
+    batches of about ``_PAIR_BATCH`` pairs.  ``box``: the periodic box,
+    minimum-image pairs with :func:`_k_short_periodic_grads`."""
     nb, k = nbr_idx.shape
     blocks = ps.view(nb, block, 4)
     gb = g[:, :3].reshape(nb, block, 3)
@@ -512,10 +561,13 @@ def _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask):
         src = blocks[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 4)
         g_s = gb[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 3)
         d = src[:, None, :, :3] - tgt[:, :, None, :3]  # (T, B, kB, 3)
+        if box is not None:
+            d = min_image(d, box)
         r2 = torch.sum(d * d, dim=-1)
-        k0, k1, k2 = _k_short_grads(r2, eps2, sigma)
-        gate = ((r2 > 0) & (r2 < rcut2)) * scale[tiles].repeat_interleave(block, dim=1)[:, None, :]
-        k0, k1, k2 = k0 * gate, k1 * gate, k2 * gate
+        k0, k1, k2 = (_k_short_grads if box is None else _k_short_periodic_grads)(r2, eps2, sigma)
+        gate = (r2 > 0) & (r2 < rcut2)
+        scl = scale[tiles].repeat_interleave(block, dim=1)[:, None, :]
+        k0, k1, k2 = (torch.where(gate, kk, 0.0) * scl for kk in (k0, k1, k2))
         m_i, m_j = tgt[:, :, 3:4], src[:, None, :, 3]
         dgi = torch.einsum("tbjc,tbc->tbj", d, g_t)
         dgj = torch.einsum("tbjc,tjc->tbj", d, g_s)
@@ -539,21 +591,26 @@ def short_range_tiles_bwd(
     block: int,
     nbr_mask: torch.Tensor,
     backend: str = "auto",
+    box: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The VJP of :func:`short_range_tiles` for its output's cotangent ``g
     (N, 4)`` (w lane not read): ``(dps (N, 4) = [x̄, m̄], σ̄ ())``; rcut's
-    cotangent is 0.  ``backend="jnp"`` runs the twin on any device;
-    otherwise the ``short_range_bwd`` kernel runs on a CUDA tensor, the
-    twin on a CPU one.  The kernel writes σ̄ per row, summed here with
-    ``torch.sum`` (deterministic)."""
+    cotangent is 0.  ``box``: the periodic box size ``L``, as the forward
+    takes it.  ``backend="jnp"`` runs the twin on any device; otherwise the
+    ``short_range_bwd`` kernel runs on a CUDA tensor, the twin on a CPU
+    one.  The kernel writes σ̄ per row, summed here with ``torch.sum``
+    (deterministic)."""
     nb, k = nbr_idx.shape
+    if box is not None and not box > 0:
+        raise ValueError(f"short_range_bwd: box must be > 0, got {box}")
     dev = _check_tiles("short_range_bwd", block, nbr_idx, ps, g)
     if backend == "jnp" or dev.type == "cpu":
-        return _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask)
+        return _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
     ops = _kernel_operands("short_range_bwd", dev, nbr_idx, nbr_mask, sigma, rcut)
     dps = torch.empty_like(ps)
     dsig = torch.empty(ps.shape[0], dtype=torch.float32, device=dev)
-    launch("short_range_bwd", dev, lib().nb_short_range_bwd, ps, g, *ops, dps, dsig, nb, k, block, float(eps2))
+    launch("short_range_bwd", dev, lib().nb_short_range_bwd, ps, g, *ops, dps, dsig, nb, k, block, float(eps2),
+           float(box or 0.0))
     return dps, torch.sum(dsig)
 
 
@@ -563,8 +620,8 @@ class _ShortRange(torch.autograd.Function):
     (every tile a target, the only form one device has).  Cotangents reach
     ``ps`` and ``sigma``; ``rcut`` only gates (its cotangent is 0), the
     lists and the mask have none.  Both passes hand their wrappers detached
-    tensors.  With ``box`` (the periodic box) it has no backward yet and
-    raises on one."""
+    tensors.  ``box`` (the periodic box) reaches both wrappers: the
+    JAX function's ``periodic=True`` form."""
 
     @staticmethod
     def forward(ctx, ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend, box=None):
@@ -576,12 +633,10 @@ class _ShortRange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.box is not None:
-            raise NotImplementedError(f"short_range backward on the periodic box: {mesh_cuda.PERIODIC_GRAD_TODO}")
         ps, sigma, rcut, nbr_idx, nbr_mask = ctx.saved_tensors
         eps2, block, backend = ctx.opts
         dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
-                                          rcut.detach(), block, nbr_mask, backend=backend)
+                                          rcut.detach(), block, nbr_mask, backend=backend, box=ctx.box)
         return dps, dsig, None, None, None, None, None, None, None
 
 
@@ -614,7 +669,7 @@ def accel_p3m(
     in ``pos_mass`` and ``G``: the short range's backward is
     ``short_range_bwd`` (its twin on ``"jnp"`` or a CPU tensor), the mesh
     legs' are ``mesh_cuda.deposit_vjp``/``gather_vjp`` (``"jnp"``: autograd
-    through the twins); the periodic box has no gradient yet."""
+    through the twins), on the periodic box in their periodic forms."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     block = p3m_block(n, block)
@@ -688,14 +743,18 @@ def periodic_mesh_leg(pos: torch.Tensor, mass: torch.Tensor, L: torch.Tensor, si
     """One mesh leg on the torus: ``(N, 4)`` long-range accelerations per
     unit G of wrapped positions ``pos`` (TSC at order 3, CIC at 2): the
     periodic deposit, ``ewald.spectral_accel_grids`` and the periodic
-    gather, through ``mesh_cuda``'s autograd Functions (no backward yet)."""
+    gather, through ``mesh_cuda``'s autograd Functions (their backwards
+    wrap the stencil as the forwards do; the grids' cotangent is the
+    periodic ``mesh_deposit`` of the gather's).  ``plain``: the twins, with
+    autograd through them, as the isolated ``backend="jnp"``."""
     h = L / grid
     lo = torch.zeros(3, dtype=pos.dtype, device=pos.device)
     cells = _tsc_cells if order == 3 else _cic_cells
     c4, fm = mesh_cuda.mesh_operands(*cells(pos, lo, h, grid, periodic=True), mass)
-    rho = mesh_cuda.deposit_diff(c4, fm, grid, order, periodic=True, plain=plain)
-    grids = spectral_accel_grids(rho, L, sigma, order=order)
-    return mesh_cuda.gather_diff(grids, c4, fm, grid, order, periodic=True, plain=plain)
+    dep, gat = ((mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain
+                else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
+    grids = spectral_accel_grids(dep(c4, fm, grid, order, periodic=True), L, sigma, order=order)
+    return gat(grids, c4, fm, grid, order, periodic=True)
 
 
 def _accel_p3m_periodic(pos_mass, G, *, grid, eps2, n_real, sigma_cells, rcut_sigmas, block, nbr_k, order,

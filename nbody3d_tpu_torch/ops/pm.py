@@ -21,7 +21,9 @@ instead: the fixed cell ``h = L/M``, positions wrapped, the CIC stencil
 wrapped mod ``M`` in the kernels, and one spectral solve
 (``ewald.spectral_accel_grids`` with Gaussian smoothing 1.5 cells;
 ``eps2`` does not enter), optionally two half-cell-shifted legs averaged
-(``interlace``).  It runs forward only: a backward raises.
+(``interlace``).  Gradients flow through it as through the isolated
+form (``mesh_cuda``'s periodic VJPs, autograd through the wrap and the
+solve).
 """
 
 from __future__ import annotations
@@ -145,8 +147,8 @@ def accel_pm(
 
     ``boundary="periodic"`` (``box_size > 0``): the torus of side
     ``box_size``, one CIC mesh leg (two averaged with ``interlace``) with
-    the spectral solve at Gaussian width ``PERIODIC_SIGMA_CELLS`` cells;
-    forward only."""
+    the spectral solve at Gaussian width ``PERIODIC_SIGMA_CELLS`` cells,
+    differentiable in the same way."""
     n = pos_mass.shape[0]
     n_real = n if n_real is None else n_real
     if boundary == "periodic":

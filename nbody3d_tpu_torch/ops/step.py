@@ -12,7 +12,8 @@ Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
 - ``method="pm"`` and ``"p3m"`` (isolated or periodic, no cosmology): the
   mesh solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On
   the kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
-  ``short_range``, in their periodic forms on the periodic box; on
+  ``short_range`` (a backward also ``short_range_bwd``), in their
+  periodic forms on the periodic box; on
   ``"jnp"`` their plain twins.  ``boundary="periodic"`` with
   ``method="direct"`` raises ``ValueError``, as in the JAX package.
 
@@ -42,9 +43,8 @@ Gradients (``torch.autograd`` through a rollout, as ``jax.grad`` through
 the JAX package's step) flow on every route.  The mesh steps are plain
 autograd over ``accel_p3m``/``accel_pm``, whose kernels sit in
 ``torch.autograd.Function``s (P3M's short range with the
-``short_range_bwd`` kernel as its backward); on the periodic box those
-Functions raise ``NotImplementedError`` on a backward (no periodic
-gradient yet).  The direct kernel routes go
+``short_range_bwd`` kernel as its backward), in their periodic forms on
+the periodic box.  The direct kernel routes go
 through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 

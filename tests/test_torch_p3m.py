@@ -369,29 +369,14 @@ def test_cli_run_p3m_on_cpu(capsys, tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        ({"method": "p3m", "boundary": "periodic", "box_size": 10.0}, "queue 1 item 9 (periodic"),
-        ({"method": "pm", "boundary": "periodic", "box_size": 10.0}, "queue 1 item 9 (periodic"),
         ({"method": "p3m", "cosmology": "eds", "boundary": "periodic", "box_size": 10.0}, "item 9"),
         ({"method": "pm", "cosmology": "lcdm"}, "queue 1 item 9 (cosmology"),
     ],
 )
 def test_unported_mesh_configs_raise(kw, item):
-    """A cosmology raises when the step is built.  The periodic box builds
-    and runs forward; a backward through its step raises, naming the
-    periodic gradient (ROADMAP queue 1 item 9a)."""
-    match = item.replace("(", r"\(")
-    cfg = SimConfig(**kw)
-    if cfg.cosmology != "none":
-        with pytest.raises(NotImplementedError, match=match):
-            Simulation.from_preset("uniform-sphere", cfg, n=256, device="cpu")
-        return
-    sim = Simulation.from_preset("uniform-box", cfg.replace(pm_grid=16), n=256, box_size=10.0, device="cpu")
-    st = sim.state
-    vel = st.vel.clone().requires_grad_()
-    out = SimState(st.pos_mass, vel, st.accel, 0)
-    for _ in range(2):  # the second step's force depends on vel
-        out = sim._step_fn(out, sim.dt, sim.G)
-    assert torch.isfinite(out.pos_mass).all()
-    with pytest.raises(NotImplementedError, match=match):
-        (out.pos_mass.sum() + out.vel.sum()).backward()
+    """A cosmology raises when the step is built (ROADMAP queue 1 item 9b).
+    The periodic box, forward and backward, runs: tests/test_torch_periodic.py
+    and tests/test_torch_periodic_grad.py."""
+    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
+        Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
 

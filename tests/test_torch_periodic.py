@@ -1,4 +1,4 @@
-"""The periodic box (``boundary="periodic"``, forward only) of the port
+"""The periodic box (``boundary="periodic"``), forward, of the port
 against the JAX package on the CPU: the wrapped TSC/CIC cells bit for bit,
 the periodic deposit and gather twins (what ``mesh_deposit`` and
 ``mesh_gather`` run on CPU tensors) against the XLA forms of
@@ -7,7 +7,7 @@ periodic ``short_range`` twin against ``short_range_tiles(box=L)`` (the
 Pallas kernel in interpret mode and the jnp form) and an f64 sum,
 ``accel_p3m``/``accel_pm`` and a 5-step rollout against JAX's and the f64
 Ewald oracle, the engine's wrap and Ewald energy, the CLI, and the
-refusals (direct + periodic, any backward).
+refusal of direct + periodic.  Its gradients: ``test_torch_periodic_grad.py``.
 
 Inputs: random boxes made with numpy from a seed, with bodies planted on
 the seams (``tests/test_periodic.py``'s scenes and bounds: P3M against the
@@ -43,7 +43,6 @@ from nbody3d_tpu_torch.state import SimState  # noqa: E402
 
 L = 1.0
 G = 1.0
-GRAD_TODO = r"queue 1 item 9 \(periodic gradient, item 9a"
 
 
 def box_scene(n, n_pad=None, seed=0):
@@ -414,41 +413,6 @@ def test_direct_periodic_raises_value_error(kw):
     with pytest.raises(ValueError, match="needs a mesh solver"):
         Simulation.from_preset("uniform-box", SimConfig(boundary="periodic", box_size=10.0, **kw), n=256,
                                device="cpu")
-
-
-@pytest.mark.parametrize("method,backend", [("p3m", "auto"), ("p3m", "jnp"), ("pm", "auto"), ("pm", "jnp")])
-def test_periodic_backward_raises(method, backend):
-    """No periodic gradient yet: a backward through a periodic step raises,
-    naming ROADMAP queue 1 item 9a's gradient, on both routes; the forward
-    under grad runs."""
-    pm_np = box_scene(500, 512, seed=4)
-    cfg = SimConfig(method=method, pm_grid=16, p3m_nbr_k=4, boundary="periodic", box_size=L, backend=backend)
-    step = make_step_fn(cfg, 512, 500, "cpu")
-    v0 = torch.zeros((512, 4), requires_grad=True)
-    s = step(SimState(torch.from_numpy(pm_np), v0, torch.zeros((512, 4)), 0), 2e-4, 2e-3)
-    s = step(s, 2e-4, 2e-3)
-    loss = torch.sum(s.pos_mass[:, :3] ** 2)
-    with pytest.raises(NotImplementedError, match=GRAD_TODO):
-        loss.backward()
-
-
-@pytest.mark.parametrize("which", ["short_range", "deposit", "gather"])
-def test_periodic_autograd_functions_refuse_backward(scene, which):
-    grid = 32
-    _, (c4, fm) = periodic_cells(scene, grid, 3)
-    fm = fm.clone().requires_grad_()
-    if which == "deposit":
-        out = mc.deposit_diff(c4, fm, grid, 3, periodic=True)
-    elif which == "gather":
-        out = mc.gather_diff(torch.ones((3, grid**3), requires_grad=True), c4, fm, grid, 3, periodic=True)
-    else:
-        ps = torch.from_numpy(scene.copy()).requires_grad_()
-        nb = ps.shape[0] // 256
-        idx = torch.arange(nb).repeat(nb, 1)
-        out = p3m._ShortRange.apply(ps, torch.tensor(0.05), torch.tensor(0.3), idx, torch.ones((nb, nb)), 1e-6,
-                                    256, "auto", L)
-    with pytest.raises(NotImplementedError, match=GRAD_TODO):
-        out.sum().backward()
 
 
 def test_periodic_tiles_within_rcut_and_overflow():
