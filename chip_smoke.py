@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a, 9a, 10a, 11a, 12a, 13a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: nvcc builds the eighteen kernels from ``nbody3d_tpu_torch/csrc``,
+2. build: nvcc builds the nineteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
@@ -152,8 +152,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    with pairs planted across the seams at r = 1e-3, 1e-4 and 1e-5, N =
    8,192 and 7,936, tiles 128 and 256, grids 32 and 128, tile 3 massless
    and slots killed in mutual pairs, and on the planted pairs against the
-   twin in f64 (1e-5 of the row plus 8 ulp of the forward's cancelling k
-   terms); ``deposit_vjp`` and ``gather_vjp`` with ``periodic=True``
+   twin in f64 (1e-5 of the row plus 8 ulp of ``s⁻³ + k_long``, the
+   forward's k with k_long's series below u = 0.5); ``deposit_vjp`` and ``gather_vjp`` with ``periodic=True``
    against autograd through their twins (1e-5 of the max), the gather's
    grid cotangent on exact terms bit for bit with the first and last cells
    written; (b) grad_bench's rollout (5 steps, by v0) through periodic P3M
@@ -164,15 +164,33 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    PM (CIC); (d) at N = 8,192 the kernel route's 5-step rollout gradient
    (by v0, dt, G) against ``backend="jnp"``'s for periodic P3M, interlaced
    P3M and PM, rtol 2e-3.
+14. the macro-tiled sym schedule (``force_mode="sym"`` above
+   ``MACRO_MIN_N`` = 786,432 bodies: ``accel_sym`` on each chunk,
+   ``pair_sym`` on every unordered chunk pair): (a, after 13a)
+   ``pair_sym`` against its twin at Nt x Ns = 8,192 x 7,936, 512 x 256 and
+   256 x 256, tiles 128 and 256, padded rows and a 1e7 body (< 2e-5 of
+   scale, the momentum printed), and ``accel_sym_macro`` at N = 8,192 with
+   4 chunks against ``accel_sym``; (b) benchmarks/scale_sweep.py's top
+   rung: uniform-sphere N = 2,097,152, sym, ``morton_every=64``, Verlet, 1
+   warm and 5 timed 1-step chunks, ms/step, G-int/s, the momentum error
+   (<= 1e-5 of sum |m v|) and each step's launches (4 ``sym_diag_prep``,
+   4 x 2 ``sym_hops``, 4 ``sym_combine``, 6 ``pair_sym``); after the
+   windows, on its state, the macro force and the direct ``accel_sym`` on
+   2,048 sampled rows against f64 on the card (the macro no worse than 2x
+   the direct + 1e-6 of scale), one call of each timed; (c) ``pair_sym``
+   on a chunk pair (524,288 x 524,288) beside its FP32 bound, and against
+   its twin at 131,072 x 131,072 (the twin's one run by host clock); (d) at
+   N = 8,192 an explicit 4-chunk composition's 5-step rollout gradient
+   against ``backend="jnp"``'s, by v0, dt and G, rtol 2e-3.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice) and 13c (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d, 10e,
-11d, 12c and 13d each
+12d, 13b (twice), 13c and 14b (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d,
+10e, 11d, 12c, 13d and 14d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 12b (each) and 12d and one profiled gradient rollout of 9b, 9c, 13b
+step of 8b, 8d, 12b (each), 12d and 14b and one profiled gradient rollout of 9b, 9c, 13b
 (each) and 13c (device busy time, idle share, largest kernels; for the
 gradients the share of each stage) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
@@ -191,7 +209,6 @@ import argparse
 import contextlib
 import functools
 import json
-import math
 import pathlib
 import re
 import statistics
@@ -211,9 +228,11 @@ from nbody3d_tpu_torch.ops import force_vjp as fv
 from nbody3d_tpu_torch.ops import mesh_cuda as mc
 from nbody3d_tpu_torch.ops import p3m, pm
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
-from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts
+from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts, split_hops
 from nbody3d_tpu_torch.ops.morton import morton_reorder
-from nbody3d_tpu_torch.ops.step import GPU_TILE, PAD_GRANULE, make_step_fn
+from nbody3d_tpu_torch.ops.step import (
+    GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
+)
 from nbody3d_tpu_torch.render import rasterize, resolve
 from nbody3d_tpu_torch.render.image import read_png, save_png
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count
@@ -244,6 +263,7 @@ REPLACES = {
     "short_range_bwd": (SRC + "short_range_bwd.cu", "nbody3d_tpu/ops/p3m.py:885"),
     "mesh_deposit": (SRC + "mesh_deposit.cu", "nbody3d_tpu/ops/mesh_pallas.py:215"),
     "mesh_gather": (SRC + "mesh_gather.cu", "nbody3d_tpu/ops/mesh_pallas.py:285"),
+    "pair_sym": (SRC + "pair_sym.cu", PALLAS + "1355"),
 }
 
 # Least time for a kernel's work (PERF.md "bound"): the larger of its FP32
@@ -2353,7 +2373,8 @@ PERIODIC_REPLACES = {
 }
 # FP32 FLOP a live-slot pair of the periodic short_range: the isolated 47
 # less the A-S erfc's 16, plus the minimum image's 6 selected adds, erff's
-# polynomial (about 20) and 3 more in 1/s^3 - erf(u)/r^3 + c2 e/r^2; MUFU
+# polynomial (about 20; below u = 0.5 k_long's series of 18 takes its place,
+# csrc/periodic.cuh) and 3 more in 1/s^3 - erf(u)/r^3 + c2 e/r^2; MUFU
 # results: two rsqrt and the ex2 of expf (erff's own ex2 for u > 1 is not
 # counted, so the bound is a least time).
 FLOP["short_range_periodic"] = 60
@@ -2737,13 +2758,13 @@ def _planted_box_rows(n: int, n_pad: int, dev, seed: int = 0):
 
 def _planted_agree(tag: str, ps, g, got, want64, pairs, sigma: float) -> None:
     """The kernel's x̄ of each planted pair's rows against the twin run in
-    f64: within 1e-5 of the row plus 8 ulp of the forward's cancelling k
-    terms (erf(u)/r³ and c2 e/r², the forward's arithmetic, which the
-    backward shares) times |m_i g_j - m_j g_i| (rsqrtf is within 2 ulp)."""
-    a = 1 / (np.sqrt(2) * sigma)
+    f64: within 1e-5 of the row plus 8 ulp of ``s⁻³ + k_long`` (the
+    forward's k, which the backward shares, keeps a few ulp of it at any r:
+    ``csrc/periodic.cuh`` takes k_long's series below u = 0.5) times
+    |m_i g_j - m_j g_i| (rsqrtf is within 2 ulp)."""
     worst = 0.0
     for r, i, j in pairs:
-        terms = math.erf(r * a) / r**3 + 2 / np.sqrt(np.pi) * a / r**2 * np.exp(-(r * a) ** 2)
+        terms = (r * r + EPS2) ** -1.5 + float(ewald.k_long_gauss(torch.tensor(r * r, dtype=torch.float64), sigma))
         for p, q in ((i, j), (j, i)):
             mg = float(torch.linalg.norm(ps[p, 3] * g[q, :3] - ps[q, 3] * g[p, :3]))
             err = float(torch.linalg.norm(got[p, :3].double() - want64[p, :3]))
@@ -2919,6 +2940,192 @@ def phase_periodic_grad_crosscheck(dev) -> None:
               f"vs jnp route, rtol 2e-3")
 
 
+# ------------------------------------------------ the macro-tiled sym schedule
+# pair_sym's FP32 FLOP a pair (csrc/pair_sym.cu's source note): sym_hops's.
+FLOP["pair_sym"] = 25
+# 14b: benchmarks/scale_sweep.py's top rung (uniform sphere, N = 2,097,152,
+# force_mode="sym", morton_every=64, 1-step chunks), above MACRO_MIN_N.
+MACRO_N = 2_097_152
+MACRO_SIMS: dict[str, Simulation] = {}  # 14b's simulation, for the checks after the windows
+# 14c: the twin's reduced shape (the kernel's is a chunk pair of 14b).
+PAIR_PLAIN_ROWS = 131_072
+
+
+def _pair_momentum(tgt, src, acc_t, acc_s) -> float:
+    """``|sum m a|`` over both sets over ``sum m |a|``: Newton-3 leaves the
+    f32 rounding of the rows."""
+    mt, ms = tgt[:, 3:4].double(), src[:, 3:4].double()
+    p = (mt * acc_t.double()).sum(0) + (ms * acc_s.double()).sum(0)
+    scale = (mt * acc_t.double().norm(dim=1, keepdim=True)).sum() + (ms * acc_s.double().norm(dim=1, keepdim=True)).sum()
+    return float(p.abs().max() / scale)
+
+
+def phase_macro_checks(dev) -> None:
+    """14a: ``pair_sym`` against its plain twin on the card at Nt x Ns =
+    8,192 x 7,936, 512 x 256 and 256 x 256, tiles 128 and 256, padded rows
+    on both sides and a 1e7 body (among the targets at tile 128, the
+    sources at 256): both outputs < 2e-5 of scale, w lanes 0, the momentum
+    balance printed; then ``accel_sym_macro`` at N = 8,192 with 4 chunks
+    against ``accel_sym``, < 2e-5 of scale."""
+    print("[14a macro sym] pair_sym vs plain twin, accel_sym_macro vs accel_sym", flush=True)
+    rng = np.random.default_rng(14)
+    for nt_rows, ns_rows in ((8192, 7936), (512, 256), (256, 256)):
+        for b in (128, 256):
+            tgt = _inputs(rng, nt_rows, nt_rows - 100, dev)[0]
+            src = _inputs(rng, ns_rows, ns_rows - 60, dev)[0]
+            src[:, :3] += 0.5  # disjoint sets: the padded rows do not coincide
+            (tgt if b == 128 else src)[0, 3] = 1e7
+            acc_t, acc_s = cf.accel_pair_sym(tgt, src, G, eps2=EPS2, b=b)
+            want_t, want_s = cf.accel_pair_sym_plain(tgt, src, G, eps2=EPS2, b=b)
+            torch.cuda.synchronize()
+            e_t, e_s = rel_err(acc_t, want_t), rel_err(acc_s, want_s)
+            lanes = not acc_t[:, 3].any() and not acc_s[:, 3].any()
+            check(e_t < 2e-5 and e_s < 2e-5 and lanes,
+                  f"Nt x Ns = {nt_rows} x {ns_rows} tile {b}: pair_sym vs plain max-abs/scale targets {e_t:.3e}, "
+                  f"sources {e_s:.3e} < 2e-5, w lanes 0; momentum |sum m a| / sum m|a| kernel "
+                  f"{_pair_momentum(tgt, src, acc_t, acc_s):.3e}, twin {_pair_momentum(tgt, src, want_t, want_s):.3e}")
+    n = 8192
+    pm = _inputs(rng, n, n - 192, dev)[0]
+    pm[0, 3] = 1e7
+    macro = cf.accel_sym_macro(pm, G, eps2=EPS2, b=GPU_TILE, m_chunks=4)
+    direct = cf.accel_sym(pm, G, eps2=EPS2, b=GPU_TILE)
+    torch.cuda.synchronize()
+    e = rel_err(macro, direct)
+    check(e < 2e-5 and macro.shape == direct.shape,
+          f"N={n}: accel_sym_macro (4 chunks of {n // 4}, tile {GPU_TILE}) vs accel_sym max-abs/scale {e:.3e} < 2e-5")
+
+
+def phase_macro_sym(dev):
+    """14b: scale_sweep's top rung through ``Simulation``: uniform sphere,
+    N = 2,097,152, sym, ``morton_every=64``, Verlet (above MACRO_MIN_N: the
+    macro-tiled schedule), 1 warm and 5 timed 1-step chunks; ms/step,
+    G-int/s, the momentum error over the 6 steps against 1e-5 of the final
+    sum |m v| (the sphere starts at rest), and the launches a step."""
+    cfg = SimConfig(force_mode="sym", morton_every=64)
+    sim = Simulation.from_preset("uniform-sphere", cfg, n=MACRO_N, device=dev)
+    MACRO_SIMS["14b"] = sim
+    p0 = _momentum(sim)
+    warm = _timed_chunks(sim, 1, 1)
+    times = _timed_chunks(sim, 5, 1)
+    pscale = float((sim.state.pos_mass[:, 3:4].double() * sim.state.vel[:, :3].double()).abs().sum())
+    mom = float((_momentum(sim) - p0).abs().max()) / pscale
+    med = statistics.median(times)
+    finite = bool(torch.isfinite(sim.state.pos_mass).all() and torch.isfinite(sim.state.vel).all())
+    m = macro_chunks(sim.n_pad)
+    print(f"[14b macro sym] uniform-sphere N={sim.n_real} sym morton_every=64 verlet, {m} chunks of "
+          f"{sim.n_pad // m}: median of 5 one-step chunks {med * 1e3:.4f} ms/step, "
+          f"{sim.pair_interactions_per_step / med / 1e9:.2f} G-int/s; warm {warm[0]:.4f} s, timed "
+          f"{[round(t, 4) for t in times]}; momentum err {mom:.3e} of sum |m v| {pscale:.4e} after 6 steps; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), "14b: finite state of shape (n_pad, 4)")
+    check(mom <= 1e-5, f"14b: momentum error over 6 steps {mom:.3e} <= 1e-5")
+    nt = sim.n_pad // m // GPU_TILE
+    per_step = {"sym_diag_prep": m, "sym_hops": m * len(split_hops(nt)), "sym_combine": m,
+                "pair_sym": m * (m - 1) // 2}
+    got = {k: c for k, c in launch_counts().items() if c}
+    check(got == {k: 6 * c for k, c in per_step.items()},
+          f"14b: each step launched {per_step} (split_hops({nt}) is {len(split_hops(nt))} sym_hops launches a "
+          f"chunk) and no other kernel: {got} over 6 steps")
+    return [("14b one macro sym step", lambda: sim.run(1, chunk=1))]
+
+
+def _accel_f64_card(pm: torch.Tensor, rows: torch.Tensor, g: float, eps2: float, chunk: int = 32) -> torch.Tensor:
+    """The accelerations of ``rows`` by an f64 sum over every row of
+    ``pm`` on the card: ``(len(rows), 3)``."""
+    p = pm.double()
+    out = []
+    for s in range(0, rows.shape[0], chunk):
+        t = p[rows[s : s + chunk]]
+        d = p[None, :, :3] - t[:, None, :3]
+        w = g * p[None, :, 3] * (torch.sum(d * d, dim=-1) + eps2) ** -1.5
+        out.append(torch.einsum("ij,ijc->ic", w, d))
+    return torch.cat(out)
+
+
+def phase_macro_times(dev) -> dict[str, dict]:
+    """After the windows, on 14b's state: the macro force and the direct
+    ``accel_sym`` (8,192 tiles) on 2,048 sampled rows against an f64 sum on
+    the card (the macro's max-abs/scale no worse than 2x the direct's +
+    1e-6), one call of each by host clock; then (14c) ``pair_sym`` on a
+    chunk pair (524,288 x 524,288) by CUDA events beside its FP32 bound,
+    and against its twin at a reduced 131,072 x 131,072 (the twin's one
+    run by host clock)."""
+    print("[14c macro sym] accuracy at 2M and pair_sym's time", flush=True)
+    sim = MACRO_SIMS["14b"]
+    pm, g, eps2 = sim.state.pos_mass, sim.G, sim.config.eps2
+    n = sim.n_pad
+    m = macro_chunks(n)
+    size = n // m
+    b = fit_block(size, GPU_TILE)
+    rows = torch.from_numpy(np.sort(np.random.default_rng(14).choice(sim.n_real, 2048, replace=False))).to(dev)
+    res = {}
+    macro_ms = host_ms(lambda: res.setdefault("macro", make_sym_accel_fn(sim.config, n)(pm, g)))
+    direct_ms = host_ms(lambda: res.setdefault("direct", cf.accel_sym(pm, g, eps2=eps2, b=GPU_TILE)))
+    f64 = _accel_f64_card(pm, rows, g, eps2)
+    scale = float(f64.abs().max())
+    e_macro, e_direct = (float((res[k][rows, :3].double() - f64).abs().max()) / scale for k in ("macro", "direct"))
+    print(f"  N={sim.n_real}: macro force ({m} chunks, tile {b}) {macro_ms:.4f} ms, direct accel_sym "
+          f"({n // GPU_TILE} tiles) {direct_ms:.4f} ms (host clock, one call each)", flush=True)
+    check(e_macro <= 2 * e_direct + 1e-6,
+          f"14b 2,048 sampled rows vs f64 on the card: macro max-abs/scale {e_macro:.3e} <= 2 x direct "
+          f"accel_sym's {e_direct:.3e} + 1e-6")
+    del res, f64
+    tgt, src = pm[:size], pm[size : 2 * size]
+    ms = cuda_ms(lambda: cf.accel_pair_sym(tgt, src, g, eps2=eps2, b=b), reps=3)
+    k = PAIR_PLAIN_ROWS
+    t_s, s_s = pm[:k], pm[size : size + k]
+    got = cf.accel_pair_sym(t_s, s_s, g, eps2=eps2, b=b)
+    small_ms = cuda_ms(lambda: cf.accel_pair_sym(t_s, s_s, g, eps2=eps2, b=b), reps=3)
+    out = {}
+    plain_ms = host_ms(lambda: out.setdefault("want", cf.accel_pair_sym_plain(t_s, s_s, g, eps2=eps2, b=b)))
+    want = out["want"]
+    e_t, e_s = rel_err(got[0], want[0]), rel_err(got[1], want[1])
+    check(e_t < 2e-5 and e_s < 2e-5,
+          f"pair_sym at ({k}, 4) x ({k}, 4) of 14b's state vs plain max-abs/scale targets {e_t:.3e}, sources "
+          f"{e_s:.3e} < 2e-5; momentum |sum m a| / sum m|a| {_pair_momentum(t_s, s_s, *got):.3e}")
+    times = {"pair_sym": {
+        "max_abs_err": max(max_abs(got[0], want[0]), max_abs(got[1], want[1])),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "shape": f"({size}, 4) x ({size}, 4), tile {b}",
+        "note": f"plain_ms and max_abs_err at ({k}, 4) x ({k}, 4), the twin's one run by host clock; "
+                f"kernel there {small_ms:.4f} ms",
+        **bound("pair_sym", size * size, 32 * 2 * size, rsqrts=size * size),
+    }}
+    _print_times(times)
+    return times
+
+
+def phase_macro_grad_crosscheck(dev, n: int = 8192) -> None:
+    """14d: at N = 8,192 the kernel route through an explicit 4-chunk
+    composition (``make_diff_accel`` over ``accel_sym_macro``: the Newton-3
+    VJP kernels in the backward) against the ``backend="jnp"`` route, a
+    5-step Verlet rollout's gradient by v0, dt and G, rtol 2e-3."""
+    rng = np.random.default_rng(15)
+    pm = torch.from_numpy(np.concatenate(
+        [rng.standard_normal((n, 3)), rng.uniform(10, 50, (n, 1))], axis=1).astype(np.float32)).to(dev)
+    accel = fv.make_diff_accel(lambda p, g: cf.accel_sym_macro(p, g, eps2=EPS2, b=GPU_TILE, m_chunks=4),
+                               eps2=EPS2, b=GPU_TILE)
+
+    def macro_step(s, dt, g):
+        return integrate_state("verlet", lambda p: accel(p, g), s, dt, n_real=n)
+
+    grads = {}
+    for name, step in (("macro", macro_step), ("jnp", make_step_fn(SimConfig(backend="jnp"), n, n, dev))):
+        v = torch.zeros((n, 4), device=dev, requires_grad=True)
+        dt, g = (torch.tensor(x, device=dev, requires_grad=True) for x in (1e-2, G))
+        s = SimState(pm.clone(), v, torch.zeros_like(pm), 0)
+        for _ in range(5):
+            s = step(s, dt, g)
+        grads[name] = torch.autograd.grad((s.pos_mass[0, :3] ** 2).sum(), (v, dt, g))
+    (gv, gdt, gg), (rv, rdt, rg) = grads["macro"], grads["jnp"]
+    _grad_agrees(gv, rv, f"[14d grad check] N={n} macro sym route (4 chunks) vs jnp route, by v0")
+    e_dt, e_g = (abs(float(a) - float(b)) / abs(float(b)) for a, b in ((gdt, rdt), (gg, rg)))
+    check(e_dt <= 2e-3 and e_g <= 2e-3,
+          f"[14d grad check] N={n} macro sym: d/d dt {float(gdt):.6e} (rel err {e_dt:.3e}), "
+          f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
+
+
 def _print_times(out: dict[str, dict]) -> None:
     for name, r in out.items():
         print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
@@ -2953,6 +3160,7 @@ PATHS = (
     ("phase 13b (periodic P3M gradient path)", phase_periodic_grad_p3m, MESH_GRAD),
     ("phase 13b (periodic P3M gradient path, interlaced)", phase_periodic_grad_p3m_interlaced, MESH_GRAD),
     ("phase 13c (periodic PM gradient path)", phase_periodic_grad_pm, ("mesh_deposit", "mesh_gather")),
+    ("phase 14b (macro sym path, 2M)", phase_macro_sym, SYM_FORCE + ("pair_sym",)),
 )
 PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13")))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
@@ -2969,6 +3177,7 @@ SIDE = (
     ("phase 11d (fast gradient cross-check)", phase_fast_grad_crosscheck, ("force_fast",) + VJP_SYM),
     ("phase 12c (periodic accuracy, run and cross-check)", phase_periodic_accuracy, MESH_KERNELS),
     ("phase 13d (periodic gradient cross-check)", phase_periodic_grad_crosscheck, MESH_GRAD),
+    ("phase 14d (macro sym gradient cross-check)", phase_macro_grad_crosscheck, SYM_FORCE + ("pair_sym",) + VJP_SYM),
 )
 FULL_ROUTE = SIDE[0][0]
 # Kernels on no main path: their launches come from these side windows.
@@ -3029,6 +3238,7 @@ def main() -> int:
     phase_fast_checks(dev)
     phase_periodic_checks(dev)
     phase_periodic_grad_checks(dev)
+    phase_macro_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -3045,6 +3255,7 @@ def main() -> int:
     times.update(phase_fast_times(dev))
     periodic = phase_periodic_times(dev)
     periodic.update(phase_periodic_grad_times(dev))
+    times.update(phase_macro_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}
     times.update(phase_render_times(dev))
 

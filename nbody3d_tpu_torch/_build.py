@@ -39,6 +39,7 @@ SIGNATURES = {
     "nb_sym_epilogue": [P, P, P, P, P, I, I, F, P],
     "nb_sym_diag": [P, P, I, I, F, P],
     "nb_sym_combine": [P, P, P, I, P],
+    "nb_pair_sym": [P, P, P, P, I, I, I, F, F, P],
     "nb_fused_step_exact": [P, P, P, P, P, P, I, I, F, F, F, P],
     "nb_force_fast": [P, P, P, P, I, I, F, I, I, I, P],
     "nb_fused_step_fast": [P, P, P, P, P, P, P, I, I, F, F, P],

@@ -15,11 +15,12 @@
 //     k_short = erfc(u) / s^3 + c2 e^{-u^2} / (s r)
 //   periodic (box = L > 0): d = the minimum image of x_r - x_i, one
 //     conditional shift by L an axis (positions are wrapped, so |d| < L),
-//     k_short = 1/s^3 - erf(u) / r^3 + c2 e^{-u^2} / r^2
-//     (ops/ewald.py::k_short_periodic),
+//     k_short = 1/s^3 - k_long,  k_long = erf(u) / r^3 - c2 e^{-u^2} / r^2
+//     (ops/ewald.py::k_short_periodic), k_long by its series below u = 0.5
+//     (periodic.cuh),
 //
-// with scal = [rcut^2, a = 1/(sqrt2 sigma), c2 = (2/sqrt(pi)) a, ...] read
-// from device memory (sigma is a per-step device value on the isolated
+// with scal = [rcut^2, a = 1/(sqrt2 sigma), c2 = (2/sqrt(pi)) a, a^2, ...]
+// read from device memory (sigma is a per-step device value on the isolated
 // box: passing it as a host float would sync the host every step) and the
 // box L, a static config value, as a host float.  The isolated pair
 // arithmetic is the Pallas kernel's (p3m.py:736-761): two rsqrt, one exp
@@ -31,8 +32,11 @@
 // 0.117: a quarter of k), which 2M bodies in a box of 10 have.  CUDA's
 // erff is accurate to 2 ulp, so 1/s^3 - erf(u)/r^3 + c2 e/r^2 keeps the
 // f32 error of the terms' cancellation alone (the plain twin's, 4e-6 of k
-// there).  Where r^2 >> eps2, 1/s^3 - erf(u)/r^3 cancels too: a few ulp of
-// 1/r^3, where k itself is small.  A slot with
+// there).  That cancellation of erf(u)/r^3 against c2 e/r^2 left an f32
+// error of order 1/(sigma r^2) at r << sigma, so below u = 0.5 k_long is
+// its series (periodic.cuh): k keeps a few ulp of 1/s^3 + k_long at any r.
+// Where r^2 >> eps2, 1/s^3 - k_long cancels too: a few ulp of 1/r^3, where
+// k itself is small.  A slot with
 // mask 0 is skipped, which is exact (the Pallas kernel multiplies that
 // slot's reduced partial by 0); each slot is summed in registers before
 // mask * partial joins the row's total, the order of sums of the Pallas
@@ -43,7 +47,8 @@
 // reciprocal of 1/(1 + p u) (a MUFU rcp and its Newton step without
 // --use_fast_math); periodic: the minimum image and erff's polynomial in
 // place of the A-S erfc, about 45 FP32 slots and three MUFU (erff may add
-// an ex2 where u > 1).  Every pair of every slot is evaluated, in or out
+// an ex2 where u > 1); below u = 0.5 k_long's 9-term series replaces erff
+// (periodic.cuh), on a small share of the pairs.  Every pair of every slot is evaluated, in or out
 // of rcut.
 //
 // Design: one CUDA block per target tile, one thread per target row (the
@@ -81,6 +86,7 @@ __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __r
     const float rcut2 = scal[0];
     const float a = scal[1];
     const float c2 = scal[2];
+    const float a2 = scal[3];
     const float half = 0.5f * box;
     float ax = 0.f, ay = 0.f, az = 0.f;
     for (int s = 0; s < k; ++s) {
@@ -111,7 +117,7 @@ __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __r
             const float e = expf(-(u * u));
             float ks;
             if (PERIODIC) {
-                ks = k_short_periodic(inv_r, inv_s, erff(u), e, c2);
+                ks = k_short_periodic(inv_r, inv_s, u, e, c2, a2, r2s * a2);
             } else {
                 const float tt = 1.f / (1.f + kAsP * u);
                 const float erfc_u = tt * (kAsA1 + tt * (kAsA2 + tt * (kAsA3 + tt * (kAsA4 + tt * kAsA5)))) * e;
@@ -131,7 +137,7 @@ __global__ void short_range_kernel(const float4* __restrict__ ps, const int* __r
 
 }  // namespace
 
-// ps (nt*b, 4), nbr and mask (nt, k), scal f32[5] (three read), out (nt*b, 4);
+// ps (nt*b, 4), nbr and mask (nt, k), scal f32[5] (four read), out (nt*b, 4);
 // b <= 1024; box = 0 isolated, box = L > 0 periodic (positions in [0, L)).
 extern "C" int nb_short_range(const void* ps, const void* nbr, const void* mask, const void* scal,
                               void* out, int nt, int k, int b, float eps2, float box, void* stream) {

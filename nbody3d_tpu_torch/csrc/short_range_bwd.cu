@@ -26,8 +26,9 @@
 // (p3m.py:899-903, 954-969), with its Abramowitz-Stegun 7.1.26 erfc; k' is
 // the same sum with its two equal -c2 e / (2 r s^3) terms added.
 //
-// Periodic: k is the forward's (periodic.cuh, 1/s^3 - erf(u)/r^3 +
-// c2 e/r^2), but k' and k_s are NOT the Pallas kernel's (p3m.py:938-953).
+// Periodic: k is the forward's (periodic.cuh, 1/s^3 - k_long with k_long
+// by its series below u = 0.5), but k' and k_s are NOT the Pallas
+// kernel's (p3m.py:938-953).
 // There k' is a sum of terms of size c2/r^4 that cancel down to about a^5,
 // and its A-S erfc errs by 1.5e-7 times 1/r^5: at pairs far closer than
 // sigma it is wrong by more than its size, and at a pair 3e-4 apart the
@@ -68,7 +69,8 @@
 // as in the forward: two rsqrt, the ex2 of expf and the rcp of 1/(1 + p u).
 // FP32 binds: 100 / 256 FLOP a clock and SM against 4 / 16 MUFU results.
 // Periodic, per pair about 180 FP32 FLOP: the minimum image (6), the
-// separation and r^2 (8), k (10), erff's polynomial (about 20), erfcf's
+// separation and r^2 (8), k (10), erff's polynomial (about 20; k_long's
+// series of 17 in its place below u = 0.5), erfcf's
 // (about 40), the series (11), the positive sum of 1/r^5 - 1/s^5 and its
 // division (about 20), the rest of k' (12), k_s (2) and the five sums (41);
 // and six MUFU results: two rsqrt, the ex2 of expf, the rcp of 1/(r + s),
@@ -108,7 +110,7 @@ __device__ __forceinline__ void periodic_grads(float r2s, float inv_r, float r, 
                                                float& kg) {
     const float u2 = r2s * a2;
     const float e = expf(-u2);
-    ks = k_short_periodic(inv_r, inv_s, erff(u), e, c2);
+    ks = k_short_periodic(inv_r, inv_s, u, e, c2, a2, u2);
     const float inv_r2 = inv_r * inv_r;
     const float inv_s2 = inv_s * inv_s;
     const float series = (c2 * (a2 * a2)) * (-0.4f + u2 * (2.f / 7.f + u2 * (-1.f / 9.f + u2 * (1.f / 33.f))));

@@ -1,6 +1,6 @@
 """The forward kernels' wrappers and plain twins.
 
-Nine kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
+Ten kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 
 ====================  =======================================================
 ``force_exact``       all-pairs f32 force, targets x sources (exact mode)
@@ -12,6 +12,7 @@ Nine kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by ``_build``):
 ``sym_hops``          sym 2: off-diagonal tile pairs, both directions
 ``sym_epilogue_``     fused sym step 3: sum the partials, mask padding, Verlet
 ``sym_combine``       sym force 3: sum the partials
+``pair_sym``          Newton-3 pairs of two disjoint sets, both directions
 ====================  =======================================================
 
 Each wrapper checks its tensors (``ops/launch.py``: float32, ``(N, 4)``,
@@ -30,7 +31,10 @@ size ``b`` is the CUDA block size (one thread a body, ``b <= 1024``);
 ``nt = 2`` only the half hop, ``nt = 1`` no hop launch at all.  Two
 routes use them: the fused sym step :func:`sym_step_` (diag_prep -> hops
 -> epilogue, in place) and the sym force :func:`accel_sym` (-> combine),
-which the unfused sym step differentiates and integrates.
+which the unfused sym step differentiates and integrates.  Above
+``ops.step.MACRO_MIN_N`` bodies the sym force is :func:`accel_sym_macro`:
+``accel_sym`` on each of a few equal chunks and ``pair_sym`` on every
+unordered chunk pair.
 
 Fast mode (``force_fast``, ``fused_step_fast``) keeps the JAX package's
 operands: the sources as the ``(N, 16)`` limb matrix of :func:`src_limbs`
@@ -542,3 +546,76 @@ def accel_sym(
         src = sym_source_rows(pos_mass, G)
         acc_diag = sym_diag(src, eps2, b)
     return sym_combine(acc_diag, sym_hops(src, eps2, b))
+
+
+# --------------------------------------------------------------- pair_sym
+def accel_pair_sym_plain(
+    tgt: torch.Tensor, src: torch.Tensor, G: float, *, eps2: float, b: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of ``pair_sym``, target tile by target tile: each pair's
+    f32 weight ``inv3 = rsqrt(d2^3)`` once, ``G*m_j*inv3*d`` summed onto
+    the target and ``-G*m_i*inv3*d`` onto the source.  Each row's sums are
+    taken in f64 and rounded once, so the twin carries no summation-order
+    error of its own."""
+    gm_s = src[:, 3] * float(G)
+    sx, sy, sz = src[:, 0], src[:, 1], src[:, 2]
+    acc_t = torch.zeros_like(tgt)
+    rev = torch.zeros((src.shape[0], 3), dtype=torch.float64, device=src.device)
+    for s in range(0, tgt.shape[0], b):
+        t = tgt[s : s + b]
+        dx = sx[None, :] - t[:, 0:1]
+        dy = sy[None, :] - t[:, 1:2]
+        dz = sz[None, :] - t[:, 2:3]
+        d2 = dx * dx + (dy * dy + (dz * dz + eps2))
+        inv3 = torch.rsqrt(d2 * (d2 * d2))
+        wf = gm_s[None, :] * inv3
+        wr = (t[:, 3:4] * float(G)) * inv3
+        for c, d in enumerate((dx, dy, dz)):
+            acc_t[s : s + b, c] = torch.sum(wf * d, dim=1, dtype=torch.float64).to(tgt.dtype)
+            rev[:, c] -= torch.sum(wr * d, dim=0, dtype=torch.float64)
+    acc_s = torch.zeros_like(src)
+    acc_s[:, :3] = rev.to(src.dtype)
+    return acc_t, acc_s
+
+
+def accel_pair_sym(
+    tgt: torch.Tensor, src: torch.Tensor, G: float, *, eps2: float, b: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forces between two disjoint body sets, both directions from one
+    weight a pair (``accel_pair_sym_pallas``'s counterpart): returns
+    ``(acc_t (Nt, 4), acc_s (Ns, 4))``, w lanes 0, for pos_mass rows ``tgt``
+    and ``src`` whose counts are multiples of the tile ``b`` (they may
+    differ).  No self-pair mask: the sets are disjoint by precondition."""
+    dev = check_rows("pair_sym", tgt, src)
+    if eps2 <= 0:
+        raise ValueError("eps2 must be > 0 (softening keeps the pair weights finite)")
+    nt = check_tile("pair_sym", tgt.shape[0], b, min_tiles=1)
+    ns = check_tile("pair_sym", src.shape[0], b, min_tiles=1)
+    if ns > 65535:
+        raise ValueError(f"pair_sym: {ns} source tiles exceed the launch grid's 65,535 (tile {b})")
+    if dev.type == "cpu":
+        return accel_pair_sym_plain(tgt, src, G, eps2=eps2, b=b)
+    acc_t = torch.zeros_like(tgt)
+    acc_s = torch.zeros_like(src)
+    launch("pair_sym", dev, lib().nb_pair_sym, tgt, src, acc_t, acc_s, nt, ns, b, float(G), float(eps2))
+    return acc_t, acc_s
+
+
+def accel_sym_macro(pos_mass: torch.Tensor, G: float, *, eps2: float, b: int, m_chunks: int) -> torch.Tensor:
+    """All-pairs accelerations ``(N, 4)`` through the macro-tiled Newton-3
+    schedule (``make_sym_accel_fn``'s composition above ``SYM_MAX_N`` in
+    the JAX package): ``m_chunks`` equal chunks, :func:`accel_sym` on each,
+    :func:`accel_pair_sym` on every unordered chunk pair ``a < c``, its
+    target part added to chunk a and its source part to chunk c."""
+    n = pos_mass.shape[0]
+    if m_chunks < 1 or n % m_chunks:
+        raise ValueError(f"accel_sym_macro: {m_chunks} chunks do not divide N={n}")
+    size = n // m_chunks
+    chunks = [pos_mass[a * size : (a + 1) * size] for a in range(m_chunks)]
+    accs = [accel_sym(c, G, eps2=eps2, b=b) for c in chunks]
+    for a in range(m_chunks):
+        for c in range(a + 1, m_chunks):
+            at, ac = accel_pair_sym(chunks[a], chunks[c], G, eps2=eps2, b=b)
+            accs[a] += at
+            accs[c] += ac
+    return torch.cat(accs, dim=0)

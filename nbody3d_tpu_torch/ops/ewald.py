@@ -28,22 +28,53 @@ _SQRT2 = 1.4142135623730951
 _TWO_OVER_SQRT_PI = 1.1283791670955126
 
 
+# k_long's Maclaurin series in u² (the bracket of (2/√π) a³ (...)): the
+# coefficients (-1)^(n+1) 2n / ((2n+1) n!), n = 1..9, of
+# (erf(u) - (2/√π) u e^{-u²}) / u³.  Taken below u = 0.5, where the closed
+# form's two terms cancel; the next term truncates at 2e-12 relative.
+_K_LONG_SERIES = (2 / 3, -2 / 5, 1 / 7, -1 / 27, 1 / 132, -1 / 780, 1 / 5400, -1 / 42840, 1 / 383040)
+_SERIES_BELOW_U2 = 0.25
+
+
+def k_long_terms(inv_r, erf_u, e, c2, a2, u2):
+    """``k_long = erf(u)/r³ - c2 e/r²`` from ``inv_r = 1/r``, ``erf(u)``,
+    ``e = exp(-u²)``, ``c2 = (2/√π) a``, ``a2 = a²`` and ``u2 = u²``
+    (``a = 1/(√2 σ)``), ``csrc/periodic.cuh::k_long_periodic`` operation
+    for operation: below u = 0.5 the series ``c2 a2 Σ c_n u^(2n-2)``,
+    because the closed form's two terms agree to O(u²) and their f32
+    difference is rounding noise of size 1/(σ r²) at r << σ.  Both branches
+    are evaluated and one selected (``torch.where``), so autograd flows
+    through the one taken."""
+    closed = erf_u * (inv_r * inv_r * inv_r) - (c2 * e) * (inv_r * inv_r)
+    return torch.where(u2 < _SERIES_BELOW_U2, k_long_series(c2, a2, u2), closed)
+
+
+def k_long_series(c2, a2, u2: torch.Tensor) -> torch.Tensor:
+    """``c2 a2 Σ c_n u^(2n-2)``: k_long's series, by Horner in ``u2``."""
+    poly = torch.full_like(u2, _K_LONG_SERIES[-1])
+    for c in reversed(_K_LONG_SERIES[:-1]):
+        poly = c + u2 * poly
+    return (c2 * a2) * poly
+
+
 def k_long_gauss(r2: torch.Tensor, sigma) -> torch.Tensor:
     """Long-range pair scalar of the Gaussian split, unsoftened:
     ``(erf(u) - (2/sqrt(pi)) u exp(-u^2)) / r^3``, ``u = r / (sqrt2
-    sigma)``; 0 at r = 0."""
+    sigma)`` (:func:`k_long_terms`: its series below u = 0.5); 0 at r = 0."""
     mask = r2 > 0
     r2s = torch.where(mask, r2, 1.0)
     inv_r = torch.rsqrt(r2s)
-    r = r2s * inv_r
-    u = r / (_SQRT2 * sigma)
-    g = torch.special.erf(u) - _TWO_OVER_SQRT_PI * u * torch.exp(-u * u)
-    return torch.where(mask, g * inv_r * inv_r * inv_r, 0.0)
+    a = 1.0 / (_SQRT2 * sigma)
+    a2 = 0.5 / (sigma * sigma)  # not a * a, as the kernels take it (scal[3])
+    u2 = r2s * a2
+    g = k_long_terms(inv_r, torch.special.erf(r2s * inv_r * a), torch.exp(-u2), _TWO_OVER_SQRT_PI * a, a2, u2)
+    return torch.where(mask, g, 0.0)
 
 
 def k_short_periodic(r2: torch.Tensor, eps2: float, sigma) -> torch.Tensor:
     """Short-range pair scalar of the periodic split: the softened exact
-    ``1/s^3`` less :func:`k_long_gauss`; 0 at r = 0."""
+    ``1/s^3`` less :func:`k_long_gauss`; 0 at r = 0.  Within a few ulp of
+    ``1/s^3 + k_long`` at any r (the series)."""
     mask = r2 > 0
     r2s = torch.where(mask, r2, 1.0)
     inv_s = torch.rsqrt(r2s + eps2)

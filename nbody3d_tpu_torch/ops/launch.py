@@ -1,6 +1,6 @@
 """What every kernel wrapper shares: input checks, the launch, launch counts.
 
-The eighteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
+The nineteen kernels (sources in ``nbody3d_tpu_torch/csrc/``, built by
 ``_build``) and their wrappers:
 
 ====================  ===================  ===================================
@@ -12,6 +12,7 @@ kernel                wrapper module       computes
 ``sym_epilogue``      ``cuda_force``       sym step 3: sum, mask, Verlet
 ``sym_diag``          ``cuda_force``       uncentred sym force 1: in-tile
 ``sym_combine``       ``cuda_force``       sym force 3: sum the partials
+``pair_sym``          ``cuda_force``       Newton-3 pairs of two disjoint sets
 ``fused_step_exact``  ``cuda_force``       exact force + Verlet, one launch
 ``force_fast``        ``cuda_force``       fast mode: bf16 tensor-core force
 ``fused_step_fast``   ``cuda_force``       fast force + Verlet, one launch
@@ -40,7 +41,7 @@ from __future__ import annotations
 import torch
 
 KERNELS = (
-    "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue", "sym_diag", "sym_combine",
+    "force_exact", "sym_diag_prep", "sym_hops", "sym_epilogue", "sym_diag", "sym_combine", "pair_sym",
     "fused_step_exact", "force_fast", "fused_step_fast",
     "vjp_full", "vjp_sym_diag", "vjp_sym_hops", "vjp_combine",
     "splat_resolve", "short_range", "mesh_deposit", "mesh_gather", "short_range_bwd",

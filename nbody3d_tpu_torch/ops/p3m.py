@@ -55,7 +55,7 @@ import torch
 
 from nbody3d_tpu_torch.ops import mesh_cuda
 from nbody3d_tpu_torch.ops.blocks import divisor_block
-from nbody3d_tpu_torch.ops.ewald import k_short_periodic, spectral_accel_grids, wrap_box
+from nbody3d_tpu_torch.ops.ewald import k_long_terms, k_short_periodic, spectral_accel_grids, wrap_box
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
 from nbody3d_tpu_torch.ops.morton import morton_keys
 from nbody3d_tpu_torch.ops.pm import _box, _cic_cells, _offset_axis, _pad, clip
@@ -493,7 +493,7 @@ def _k_short_periodic_grads(r2: torch.Tensor, eps2: float, sigma: torch.Tensor):
     derives them).  With ``a = 1/(√2σ)``, ``c2 = (2/√π)a``, ``u = ra``
     and ``e = exp(-r²a²)``:
 
-        k   = 1/s³ - erf(u)/r³ + c2 e/r²              (the forward's)
+        k   = 1/s³ - k_long                            (the forward's: ``ewald.k_long_terms``)
         k'  = -1.5/s⁵ - (2/√π)a⁵(-2/5 + u²(2/7 + u²(-1/9 + u²/33)))   (u < 0.2)
             = 1.5(1/r⁵ - 1/s⁵) - 1.5 erfc(u)/r⁵ - 1.5 c2 e/r⁴ - c2 a² e/r²   (u >= 0.2)
         k_σ = 2 c2 a² e / σ
@@ -517,7 +517,7 @@ def _k_short_periodic_grads(r2: torch.Tensor, eps2: float, sigma: torch.Tensor):
     u2 = r2s * a2
     e = torch.exp(-u2)
     inv_r2, inv_s2 = inv_r * inv_r, inv_s * inv_s
-    k = (inv_s2 * inv_s - torch.special.erf(u) * (inv_r2 * inv_r)) + (c2 * e) * inv_r2
+    k = inv_s2 * inv_s - k_long_terms(inv_r, torch.special.erf(u), e, c2, a2, u2)
     series = (c2 * (a2 * a2)) * (-0.4 + u2 * (2.0 / 7.0 + u2 * (-1.0 / 9.0 + u2 * (1.0 / 33.0))))
     s = (r2s + eps2) * inv_s
     powers = inv_r2 * inv_r2 + inv_s * (inv_r2 * inv_r + inv_s * (inv_r2 + inv_s * (inv_r + inv_s)))

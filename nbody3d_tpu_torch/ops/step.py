@@ -24,12 +24,17 @@ For ``method="direct"``:
 - ``"auto"`` (any device) and ``"pallas"`` (CUDA only): the kernel path,
   in the JAX package's order:
 
-  1. ``force_mode="sym"`` with ``integrator="verlet"``, ``fuse_epilogue``
-     and ``nt >= 2`` tiles: the fused sym step (``sym_step_``);
+  1. ``force_mode="sym"`` with ``integrator="verlet"``, ``fuse_epilogue``,
+     ``nt >= 2`` tiles and ``n_pad <= MACRO_MIN_N``: the fused sym step
+     (``sym_step_``);
   2. any other ``"sym"`` (euler, yoshida4, ``fuse_epilogue=False``, one
-     tile; ``fuse_integrate`` is not read, as in JAX): the sym force
-     ``accel_sym`` (``sym_diag_prep`` -> ``sym_hops`` -> ``sym_combine``)
-     and the integrator;
+     tile, or more than ``MACRO_MIN_N`` bodies; ``fuse_integrate`` is not
+     read, as in JAX): the sym force of :func:`make_sym_accel_fn` and the
+     integrator.  Up to ``MACRO_MIN_N`` that is ``accel_sym``
+     (``sym_diag_prep`` -> ``sym_hops`` -> ``sym_combine``); above it the
+     macro-tiled schedule ``accel_sym_macro``: ``accel_sym`` on each of
+     ``m_chunks`` equal chunks and ``pair_sym`` on every unordered chunk
+     pair, with the JAX package's chunk count;
   3. ``"exact"`` or ``"fast"`` with ``fuse_integrate`` and ``verlet``: the
      one-launch ``fused_step_exact`` or ``fused_step_fast``, which have no
      gradient (a request raises);
@@ -49,7 +54,9 @@ through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 
 - exact, fast and the unfused sym force: ``force_exact``, ``force_fast``
-  and ``accel_sym`` are wrapped in ``make_diff_accel`` (the sym VJP
+  and the sym force (``accel_sym`` or ``accel_sym_macro``, whose
+  ``pair_sym`` has no backward kernel in the JAX package either) are
+  wrapped in ``make_diff_accel`` (the sym VJP
   kernels: the VJP of the ideal f32 pair math, as the JAX package pairs
   fast mode with it) and autograd differentiates the plain-torch
   integrators (``yoshida4`` included);
@@ -77,7 +84,7 @@ import torch
 
 from nbody3d_tpu_torch.config import SimConfig
 from nbody3d_tpu_torch.ops.cuda_force import (
-    accel_sym, force_exact, force_fast, fused_step_exact, fused_step_fast, sym_step_,
+    accel_sym, accel_sym_macro, force_exact, force_fast, fused_step_exact, fused_step_fast, sym_step_,
 )
 from nbody3d_tpu_torch.ops.force_torch import accel_direct
 from nbody3d_tpu_torch.ops.force_vjp import force_vjp_sym, make_diff_accel, requires_grad
@@ -95,6 +102,12 @@ GPU_TILE = 256
 # Padding granule of the kernel path: n_pad is a multiple of the tile, so
 # the sym tiles always fit whole.
 PAD_GRANULE = GPU_TILE
+# The JAX package's sym cap (its (nt, 16, B) accumulator and the (B, B)
+# temporaries outgrow a TPU's VMEM above it): larger sym runs take the
+# macro-tiled schedule.  The card has no such cap; the port keeps the
+# threshold so that it runs the schedule the JAX package runs.
+SYM_MAX_N = 768 * 1024
+MACRO_MIN_N = SYM_MAX_N
 
 # Configurations of the JAX package that the port does not run yet.
 _TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
@@ -204,6 +217,29 @@ class _SymStep(torch.autograd.Function):
         return (g_pm + pm_bar if need_pm else None), g_v, g_aold, gdt, (g_bar if need_G else None), None
 
 
+def macro_chunks(n_pad: int) -> int:
+    """The macro schedule's chunk count: as few chunks of at most
+    ``SYM_MAX_N`` bodies as divide ``n_pad`` evenly (the JAX loop)."""
+    m_chunks = -(-n_pad // SYM_MAX_N)
+    while n_pad % m_chunks != 0:
+        m_chunks += 1
+    return m_chunks
+
+
+def make_sym_accel_fn(config: SimConfig, n_pad: int) -> Callable:
+    """The Newton-3 force ``accel(pos_mass, G) -> (N, 4)`` on the kernel
+    route (``make_sym_accel_fn`` of the JAX package): ``accel_sym`` up to
+    ``MACRO_MIN_N`` bodies, above it ``accel_sym_macro`` over
+    :func:`macro_chunks` chunks, each with the largest tile that fits it."""
+    eps2, want = config.eps2, min(config.block_target, GPU_TILE)
+    if n_pad <= MACRO_MIN_N:
+        b = fit_block(n_pad, want)
+        return lambda pm, G: accel_sym(pm, G, eps2=eps2, b=b)
+    m_chunks = macro_chunks(n_pad)
+    b = fit_block(n_pad // m_chunks, want)
+    return lambda pm, G: accel_sym_macro(pm, G, eps2=eps2, b=b, m_chunks=m_chunks)
+
+
 def make_mesh_accel_fn(config: SimConfig, n_real: int, route: str) -> Callable:
     """``accel(pos_mass, G) -> (N, 4)`` of ``config.method`` in {"pm",
     "p3m"}: the kernel wrappers on the ``"kernels"`` route, the plain twins
@@ -253,9 +289,9 @@ def make_step_fn(
     mode = config.force_mode
     if mode == "sym":
         b = fit_block(n_pad, min(config.block_target, GPU_TILE))
-        if config.integrator == "verlet" and config.fuse_epilogue and n_pad // b >= 2:
+        if config.integrator == "verlet" and config.fuse_epilogue and n_pad <= MACRO_MIN_N and n_pad // b >= 2:
             return _fused_sym_step(eps2, b, n_real)
-        accel = make_diff_accel(lambda pm, G: accel_sym(pm, G, eps2=eps2, b=b), eps2=eps2, b=b)
+        accel = make_diff_accel(make_sym_accel_fn(config, n_pad), eps2=eps2, b=b)
         return _integrated_step(config.integrator, accel, n_real)
 
     if mode in ("exact", "fast"):

@@ -1,7 +1,9 @@
 """``ops/ewald.py`` of the port against ``nbody3d_tpu/ops/ewald.py`` on the
 CPU: the split scalars to f32 rounding of their terms (``erf(u) - (2/sqrt
 pi) u e^{-u²}`` cancels at small u, so both packages are held to 8 ulp of
-the terms they subtract, not of the result, against the f64 value), the
+the terms they subtract, not of the result, against the f64 value; the
+port's own k, which takes k_long's series below u = 0.5, also to 8 ulp of
+``s⁻³ + k_long`` against mpmath down to r = 1e-6 σ), the
 spectral solve to 1e-5 of its max, the wrap bit for bit,
 the f64 Ewald energy to 1e-12 relative, and the f64 oracle to 1e-9 of its
 scale (both sum ~10^5 f64 terms a body in different orders), with its
@@ -23,7 +25,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import nbody3d_tpu.ops.ewald as jew  # noqa: E402
-from nbody3d_tpu_torch.ops import ewald  # noqa: E402
+from nbody3d_tpu_torch.ops import ewald, p3m  # noqa: E402
 
 L = 1.0
 
@@ -56,6 +58,66 @@ def test_split_scalars_match_jax(fn, sigma):
         terms += (r * r + args[0]) ** -1.5
     for value in (got, want):
         assert np.all(np.abs(value[1:] - exact) <= 8 * 2.0**-24 * terms)
+
+
+def _k_long_mp(r: float, sigma: float) -> float:
+    """k_long at r in 40-digit arithmetic (no cancellation survives)."""
+    mpmath = pytest.importorskip("mpmath")
+    with mpmath.workdps(40):
+        r = mpmath.mpf(r)
+        u = r / (mpmath.sqrt(2) * mpmath.mpf(sigma))
+        return float((mpmath.erf(u) - 2 / mpmath.sqrt(mpmath.pi) * u * mpmath.exp(-u * u)) / r**3)
+
+
+# σ of the periodic P3M cells: grid 128 in a unit box (13a), grid 32 in a
+# unit box (12c), grid 16 (the tests' box); p3m_bench's eps2 and a smaller one.
+@pytest.mark.parametrize("eps2", [1e-4, 1e-6])
+@pytest.mark.parametrize("sigma", [1.5 / 128, 1.25 / 32, 1.5 / 16])
+def test_periodic_k_within_8_ulp_of_f64(sigma, eps2):
+    """The twin's ``k_long_gauss``, ``k_short_periodic`` and the backward
+    twin's k (``p3m._k_short_periodic_grads``, the kernels' arithmetic) in
+    f32 against mpmath from r = 1e-6 σ to rcut = 4.5 σ: within 8 ulp
+    (2^-24) of ``s⁻³ + k_long``.  Before k_long took its series below u =
+    0.5 the closed form cancelled to an error of order 1/(σ r²), and at
+    r = 1e-6 σ k was off by far more than its size."""
+    sig32 = float(np.float32(sigma))
+    r = sig32 * np.geomspace(1e-6, 4.5, 400)
+    r2 = (r * r).astype(np.float32)
+    rr = np.sqrt(r2.astype(np.float64))
+    k_long = np.array([_k_long_mp(x, sig32) for x in rr])
+    inv_s3 = (rr * rr + eps2) ** -1.5
+    allow = 8 * 2.0**-24 * (inv_s3 + k_long)
+    r2t, st = torch.from_numpy(r2), torch.tensor(sig32)
+    for name, got, want in (
+        ("k_long_gauss", ewald.k_long_gauss(r2t, st), k_long),
+        ("k_short_periodic", ewald.k_short_periodic(r2t, eps2, st), inv_s3 - k_long),
+        ("_k_short_periodic_grads k", p3m._k_short_periodic_grads(r2t, eps2, st)[0], inv_s3 - k_long),
+    ):
+        err = np.abs(got.double().numpy() - want)
+        print(f"sigma {sig32:.4f} eps2 {eps2:g} {name}: worst {float((err / allow).max()) * 8:.2f} ulp")
+        assert np.all(err <= allow), name
+
+
+def test_k_long_series_meets_closed_form():
+    """The series and the closed form of k_long agree where they meet: in
+    f64 at u = 0.2 and at the switch u = 0.5 within 5e-12 relative (the
+    series' truncation is 2e-12 at u = 0.5, the closed form's f64
+    cancellation ~1e-14), ``k_long_gauss`` on both sides of the switch
+    too, and in f32 the values just below and just above the switch within
+    8 ulp (no step at the switch beyond rounding)."""
+    sigma = 0.05
+    a = 1.0 / (np.sqrt(2.0) * sigma)
+    for u in (0.2, 0.5 * (1 - 1e-9), 0.5, 0.5 * (1 + 1e-9)):
+        r = u / a
+        closed = (math.erf(u) - 2 / np.sqrt(np.pi) * u * math.exp(-u * u)) / r**3
+        series = float(ewald.k_long_series(2 / np.sqrt(np.pi) * a, a * a, torch.tensor(u * u, dtype=torch.float64)))
+        assert abs(series - closed) <= 5e-12 * closed, u
+        got = float(ewald.k_long_gauss(torch.tensor(r * r, dtype=torch.float64), sigma))
+        assert abs(got - closed) <= 5e-12 * closed, u
+    r_sw = np.float32(0.5 / a)
+    r2 = torch.tensor([np.nextafter(r_sw, 0) ** 2, r_sw**2, np.nextafter(r_sw, 1) ** 2], dtype=torch.float32)
+    k = ewald.k_long_gauss(r2, torch.tensor(sigma, dtype=torch.float32)).double()
+    assert float((k - k[1]).abs().max()) <= 8 * 2.0**-24 * float(k[1])
 
 
 @pytest.mark.parametrize("order,grid", [(2, 16), (3, 16), (3, 32)])

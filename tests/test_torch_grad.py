@@ -305,7 +305,7 @@ def test_cpu_runs_launch_nothing_and_wrappers_check(rng):
     fv.force_vjp_sym(t(pm), G, t(abar), eps2=EPS2, b=64)  # nt = 1 is allowed
     _torch_rollout_grad(pm, 64, 64, "sym", "verlet")
     assert all(c == 0 for c in launch_counts().values())
-    assert len(launch_counts()) == 18
+    assert len(launch_counts()) == 19
     with pytest.raises(RuntimeError, match="never take such tensors"):
         fv.force_vjp_sym(t(pm).requires_grad_(), G, t(abar), eps2=EPS2, b=32)
     with pytest.raises(ValueError):
