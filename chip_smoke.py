@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # everything below, one card
     python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
+    python3 chip_smoke.py --parent DIR    # also time a parent checkout's two scatter kernels
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
@@ -39,7 +40,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    by v0 and by dt and G.
 7. the render + checkpoint path: (a, after phase 3) ``splat_resolve``
    against its plain twin, bit for bit, on the scenes of
-   tests/test_render.py and the two-galaxy frame; (b) the reference's
+   tests/test_render.py, the two-galaxy frame and
+   ``scatter_checks.resolve_adversarial``'s (4,096 splats on one pixel;
+   r = 64 discs at the corners and off the frame); (b) the reference's
    default run through ``cli.main``: two-galaxy, 200 steps, a frame every
    50 and a checkpoint every 100, energy drift <= 1e-3 and momentum error
    <= 1e-5, then ``render`` of ``final.npz`` equal to the run's last frame
@@ -51,24 +54,32 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    7a) ``short_range``, ``mesh_deposit`` and ``mesh_gather`` against their
    plain twins on the clustered two-galaxy scene (n = 4,096) at N = 8,192
    and 7,936, tiles 128 and 256, grids 32 and 128, TSC and CIC, and
-   ``short_range`` with slots masked; (b) the P3M path at full width,
+   ``short_range`` with slots masked; then ``mesh_deposit`` on
+   ``scatter_checks.deposit_adversarial``'s isolated scenes (one cell,
+   unsorted, Morton runs across octant boundaries), each against its twin
+   as 8b's and its blocks a path equal to :func:`deposit_block_paths`'
+   (the kernel's decisions emulated in torch), some blocks on each of the
+   three paths; (b) the P3M path at full width,
    benchmarks/p3m_bench.py's configuration: two-galaxy N = 2,097,152,
    grid 128, k = 32, tile 256 (8,193 tiles: the two-level neighbour
    selection), 30 warm steps with the momentum error (<= 1e-5 of
    sum |m v|) over them, 2 timed chunks of 10, ms/step and the
    direct-equivalent G-int/s; then, on the state it leaves, the force of
    4,096 sampled bodies against ``force_exact`` (median < 2e-3,
-   p99 < 1e-2) with the selection's tile overflow, the three kernels at
+   p99 < 1e-2) with the selection's tile overflow; ``short_range_bwd``
+   against its twin under that two-level selection and a 2-step rollout
+   gradient's ms/step and peak memory; the three kernels at
    that shape beside their twins, bounds and (deposit) ``index_add_``
    (the deposit per cell within the f32 summation bound, the total mass,
-   and bit for bit on exact terms), and a force evaluation's device time
-   stage by stage; (c) p3m_bench's accuracy probe (two-galaxy
+   and bit for bit on exact terms; its blocks a path), and a force
+   evaluation's device time stage by stage; (c) p3m_bench's accuracy probe (two-galaxy
    n = 16,384, grid 128) against ``force_exact``, median < 2e-3 and
    p99 < 1e-2, and ``cli run --method p3m`` on two-galaxy for 200 steps
    with the energy (<= 1e-3) and momentum (<= 1e-5) checks; (d) PM at
    two-galaxy N = 2,097,152, grid 128, 30 warm steps (momentum as 8b) and
    5 timed chunks of 50, then its CIC deposit and gather against their
-   twins at that shape and data, as 8b's, and the gather beside
+   twins at that shape and data, as 8b's (the deposit beside
+   ``index_add_``), and the gather beside
    ``grid_sample`` (its library call); (e) at N = 8,192 the kernel route
    of ``pm`` and ``p3m`` against ``backend="jnp"`` (accelerations and a
    5-step rollout, rtol 1e-4, atol 1e-5 of the scale).
@@ -131,7 +142,10 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    CIC: the deposit per cell within its f32 summation bound, bit for bit
    on exact terms with the first and last cells written, the gather within
    1e-5 of the max, ``short_range`` rtol 2e-4, atol 3e-6 of the max against
-   the twin and the twin in f64; (b) p3m_bench's periodic configuration
+   the twin and the twin in f64; the periodic ``mesh_deposit`` on
+   ``scatter_checks.deposit_adversarial``'s periodic scenes (one cell by the far
+   corner, Morton runs across the seams and across octant boundaries), as
+   8a's; (b) p3m_bench's periodic configuration
    (uniform-box N = 2,097,152, box 10, grid 128, k = 32), plain and
    ``--interlace``, 30 warm steps with the momentum error (<= 1e-5 of
    sum |m v| after them) and 2 timed chunks of 10; after the windows the
@@ -146,7 +160,7 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    N = 8,192 the kernel route of periodic P3M and PM against
    ``backend="jnp"`` (8e's bounds); (d) periodic PM (CIC) at 12b's box, 30
    warm steps and 5 timed chunks of 50, then the net force < 3e-5 of
-   sum |f| and its CIC kernels against their twins.
+   sum |f| and its CIC kernels against their twins (the deposit as 8d's).
 13. the periodic box's gradient: (a, after 12a) the periodic
    ``short_range_bwd`` against its twin (``_bwd_agrees``) on 12a's unit box
    with pairs planted across the seams at r = 1e-3, 1e-4 and 1e-5, N =
@@ -235,6 +249,9 @@ from nbody3d_tpu_torch.ops.step import (
 )
 from nbody3d_tpu_torch.render import rasterize, resolve
 from nbody3d_tpu_torch.render.image import read_png, save_png
+from nbody3d_tpu_torch.scatter_checks import (
+    deposit_adversarial, deposit_operands, f32_sum_bounds, f32_sum_excess, resolve_adversarial,
+)
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count
 from nbody3d_tpu_torch.utils.camera import Camera
 
@@ -1067,6 +1084,54 @@ def phase_sym(dev) -> None:
     MAIN["phase 5"] = _sphere_run(dev, "5 sym", chunk=50)
 
 
+# ------------------------------------------- the parent's kernels (--parent)
+PARENT: dict = {}  # the kernel library of a checkout of the parent commit
+
+
+def load_parent(path: str) -> None:
+    """Build the kernels of a checkout of the parent commit at ``path`` with
+    its own ``_build.py`` (into its own build directory), to time its
+    ``splat_resolve`` and ``mesh_deposit`` beside this tree's on one card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("parent_build", pathlib.Path(path) / "nbody3d_tpu_torch" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    PARENT["lib"] = mod.load_library()
+    print(f"[parent] kernels of {path} built", flush=True)
+
+
+def _parent_call(fn, *args) -> None:
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"parent kernel: CUDA error {rc}")
+
+
+def parent_deposit(c4, fm, grid: int, order: int, periodic: bool) -> torch.Tensor:
+    """The parent's ``mesh_deposit`` (a thread a particle, global atomics)."""
+    rho = torch.zeros(grid**3, device=fm.device)
+    _parent_call(PARENT["lib"].nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic))
+    return rho
+
+
+def parent_resolve(prep, w: int, h: int) -> torch.Tensor:
+    """The parent's ``splat_resolve`` (a warp a splat, a read before each atomic)."""
+    buf = torch.full((h * w,), resolve.MISS, dtype=torch.int64, device=prep[0].device)
+    _parent_call(PARENT["lib"].nb_splat_resolve, *prep, buf, prep[0].shape[0], w, h)
+    return buf
+
+
+def vs_parent(tag: str, fn, parent_fn) -> dict:
+    """``fn`` and the parent's ``parent_fn`` timed in turns (parent, this,
+    this, parent; CUDA events, 20 launches each): their mean ms."""
+    t = [cuda_ms(f, reps=20) for f in (parent_fn, fn, fn, parent_fn)]
+    out = {"parent_ms": (t[0] + t[3]) / 2, "this_ms": (t[1] + t[2]) / 2}
+    print(f"    {tag} beside the parent's kernel (same card, in turns parent, this, this, parent): parent "
+          f"{t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+    return out
+
+
 # ------------------------------------------------------- the render path
 def render_scene(n: int, seed: int, *, scale: float = 2.5, heavy: int = 2, masses=None):
     """tests/test_render.py's scene (benchmarks/render_bench.py's at
@@ -1121,19 +1186,22 @@ def _prep(pm, vel, cam, frame, dev):
 
 
 def phase_render_checks(dev) -> None:
-    """7a: ``splat_resolve`` against its twin on the same prep, bit for bit."""
+    """7a: ``splat_resolve`` against its twin on the same prep, bit for bit:
+    the scenes of tests/test_render.py, the two-galaxy frame and
+    :func:`resolve_adversarial`'s."""
     print("[7a render] splat_resolve vs plain twin on the card (uint64 framebuffer, torch.equal)", flush=True)
-    for name, (pm, vel, cam, frame) in render_scenes().items():
-        w, h = frame["width"], frame["height"]
-        prep = _prep(pm, vel, cam, frame, dev)
-        got = resolve.splat_resolve(*prep, width=w, height=h)
+    preps = {name: (_prep(pm, vel, cam, frame, dev), frame["width"], frame["height"])
+             for name, (pm, vel, cam, frame) in render_scenes().items()}
+    for name, (*arrays, w, h) in resolve_adversarial().items():
+        preps[name] = ([torch.from_numpy(a).to(dev) for a in arrays], w, h)
+    for name, (prep, w, h) in preps.items():
         want = resolve.splat_resolve_plain(*prep, width=w, height=h)
-        torch.cuda.synchronize()
+        same = torch.equal(resolve.splat_resolve(*prep, width=w, height=h), want)
         vis, r = prep[5], prep[4][prep[5]]
-        lit = int((got != resolve.MISS).sum())
-        check(torch.equal(got, want) and lit > 0,
-              f"{name}: kernel == twin ({int(vis.sum())} visible splats, r {float(r.min()):.3f}-"
-              f"{float(r.max()):.3f} px, {lit} pixels lit)")
+        lit = int((want != resolve.MISS).sum())
+        check(same and lit > 0,
+              f"{name}: kernel == twin ({int(vis.sum())} visible splats, r "
+              f"{float(r.min()):.3f}-{float(r.max()):.3f} px, {lit} pixels lit)")
 
 
 def stamp_pairs(prep, width: int, height: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1177,6 +1245,12 @@ def _render_times(name, pm, vel, cam, frame, dev, tmp: pathlib.Path) -> dict:
     check(torch.equal(torch.where(lib_buf == top, resolve.MISS, lib_buf), got), f"{name}: scatter_reduce_ == kernel")
     ms = cuda_ms(lambda: resolve.splat_resolve(*prep, width=w, height=h), reps=20)
     library_ms = cuda_ms(lib_call, reps=20)
+    radii = torch.floor(prep[4][prep[5]]).long().clamp(max=9).bincount(minlength=10).tolist()
+    parent = {}
+    if PARENT:
+        check(torch.equal(parent_resolve(prep, w, h), got), f"{name}: the parent's kernel == this one")
+        parent = vs_parent(name, lambda: resolve.splat_resolve(*prep, width=w, height=h),
+                           lambda: parent_resolve(prep, w, h))
     pm_d, vel_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
     rasterize.render_points(pm_d, vel_d, cam, **frame)  # warm
     frame_ms = statistics.median(host_ms(lambda: rasterize.render_points(pm_d, vel_d, cam, **frame)) for _ in range(3))
@@ -1192,11 +1266,15 @@ def _render_times(name, pm, vel, cam, frame, dev, tmp: pathlib.Path) -> dict:
         "note": (f"stamp area {pix.numel()} pixels ({pix.numel() / max(n_vis, 1):.2f} a splat), "
                  f"{int((got != resolve.MISS).sum())} lit; frame end to end {frame_ms:.3f} ms; "
                  f"PNG write {png_ms:.3f} ms; ms includes the framebuffer fill; plain: one run, host clock"),
+        **parent,
         **splat_bound(pm.shape[0], n_vis, w, h),
     }
     print(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {library_ms:.4f} ms  "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{r['shape']}; {r['note']}]", flush=True)
+    print(f"    visible splats by floor(r) 0..8, 9+: {radii}", flush=True)
     return r
+
+
 
 
 def phase_render_times(dev) -> dict[str, dict]:
@@ -1222,7 +1300,8 @@ def phase_render_times(dev) -> dict[str, dict]:
             ck[f"{fmt} load"] = host_ms(lambda: Simulation.load(path, device=dev))
         print(f"  checkpoint two-galaxy N={sim.n_real}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ck.items()),
               flush=True)
-    main["scenes"] = {k: {x: v[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms", "note")}
+    main["scenes"] = {k: {x: v[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms", "note", "parent_ms",
+                                            "this_ms") if x in v}
                       for k, v in scenes.items()}
     return {"splat_resolve": main}
 
@@ -1307,6 +1386,67 @@ def _sr_agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     return ok, max_abs(got, want) / scale
 
 
+def _iroot(v: torch.Tensor, p: int) -> torch.Tensor:
+    """The largest k with k^p <= v, elementwise (v >= 1)."""
+    k = torch.floor(v.double() ** (1.0 / p)).long()
+    k = torch.where((k + 1) ** p <= v, k + 1, k)
+    return torch.where(k**p > v, k - 1, k)
+
+
+def window_extents(e: torch.Tensor, cap: int) -> torch.Tensor:
+    """csrc/mesh_deposit.cu's ``window_extents`` for each row of box extents
+    ``e (nb, 3)``: the window of at most ``cap`` cells, as even as the box
+    allows (the shortest axes keep their extent while below the even share)."""
+    f, o = torch.sort(e, dim=1, stable=True)
+    s3 = int(_iroot(torch.tensor(cap), 3))
+    rest = cap // f[:, 0].clamp(min=1)
+    s2 = _iroot(rest, 2)
+    w = torch.stack([f[:, 0], f[:, 1], torch.minimum(f[:, 2], rest // f[:, 1].clamp(min=1))], 1)
+    w = torch.where((f[:, 1] > s2)[:, None], torch.stack([f[:, 0], s2, s2], 1), w)
+    w = torch.where((f[:, 0] > s3)[:, None], s3, w)
+    return torch.empty_like(w).scatter_(1, o, w)
+
+
+DEPOSIT_BOX_CAP = 4096  # csrc/mesh_deposit.cu's kBoxCap
+
+
+def deposit_block_paths(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
+                        periodic: bool) -> tuple[int, int, int]:
+    """The blocks of ``mesh_deposit`` that take the whole box, a window of
+    it and global atomics alone, computed in torch as csrc/mesh_deposit.cu
+    decides: runs of 256 rows, each base cell unwrapped (periodic) to the
+    image nearest the run's first row's; the box of the rows of nonzero
+    mass plus the stencil if it holds at most ``DEPOSIT_BOX_CAP`` cells, else a
+    window of :func:`window_extents` about the mean cell on the axes it
+    cuts; global when fewer than 32 rows lie in the window."""
+    run = 256
+    n = c4.shape[0]
+    nb = -(-n // run)
+    c = torch.zeros((nb * run, 3), dtype=torch.long, device=c4.device)
+    m = torch.zeros(nb * run, dtype=fm.dtype, device=fm.device)
+    c[:n], m[:n] = c4[:, :3].long(), fm[:, 3]
+    c, live = c.view(nb, run, 3), (m != 0).view(nb, run, 1)
+    if periodic:
+        d = c - c[:, :1]
+        c = torch.where(d > grid // 2, c - grid, torch.where(d < -(grid // 2), c + grid, c))
+    big = 1 << 40
+    lo, hi = torch.where(live, c, big).amin(1), torch.where(live, c, -big).amax(1)
+    count, sums = live.sum(1), torch.where(live, c, 0).sum(1)  # (nb, 1), (nb, 3)
+    e = torch.where(count > 0, hi - lo + order, 0)
+    cut = e.prod(1) > DEPOSIT_BOX_CAP
+    path = torch.where(cut, 1, 0)
+    w = window_extents(e, DEPOSIT_BOX_CAP)
+    span = w - order + 1
+    start = torch.minimum(torch.maximum(torch.div(sums, count.clamp(min=1), rounding_mode="trunc") - span // 2, lo),
+                          hi - span + 1)
+    win = torch.where(cut[:, None] & (w < e), start, lo)
+    e = torch.where(cut[:, None], w, e)
+    rel = c - win[:, None, :]
+    inside = (live[..., 0] & ((rel >= 0) & (rel <= (e - order)[:, None, :])).all(2)).sum(1)
+    path = torch.where((path == 1) & (inside < 32), 2, path)
+    return tuple(int((path == k).sum()) for k in range(3))
+
+
 def phase_mesh_checks(dev) -> None:
     """8a: the three mesh kernels against their plain twins on the card, on
     the clustered two-galaxy scene (n = 4,096) at N = 8,192 and 7,936,
@@ -1343,6 +1483,7 @@ def phase_mesh_checks(dev) -> None:
                 check(ok and not got[:, 3].any(),
                       f"{tag}: short_range vs plain ({what}, {int((m == 0).sum())} slots off) "
                       f"rtol 2e-4, atol 3e-6 of max (max-abs/max {err:.3e})")
+    _deposit_adversarial_checks(dev, periodic=False)
 
 
 def _momentum(sim: Simulation) -> torch.Tensor:
@@ -1510,24 +1651,16 @@ def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p, periodi
     1/2, 1/2 an axis), so that a body in the far corner, whose stencil
     wraps, writes the first and the last cell; with ``seam`` (a scene with
     such a body) both must be written."""
-    idx, val = zip(*mc._stencil(c4, fm[:, :3], grid, order, mass=fm[:, 3], periodic=periodic))
-    idx, val = torch.cat(idx), torch.cat(val)
-    rho64 = torch.zeros(grid**3, dtype=torch.float64, device=fm.device).index_add_(0, idx, val.double())
-    adds = torch.bincount(idx, minlength=grid**3).double()
-    allowed = adds * 2.0**-24 * rho64
-    worst = {name: float(((r.view(-1).double() - rho64).abs() / allowed.clamp(min=1e-300)).max())
-             for name, r in (("kernel", rho), ("twin", rho_p))}
-    check(all(w <= 1.0 for w in worst.values()),
+    idx, val, rho64, allowed = f32_sum_bounds(c4, fm, grid, order, periodic)
+    worst = {name: f32_sum_excess(r, rho64, allowed) for name, r in (("kernel", rho), ("twin", rho_p))}
+    check(all(w[0] <= 1.0 for w in worst.values()),
           f"{tag}: mesh_deposit and twin vs f64 sums of the same terms, each cell within its f32 summation "
-          f"bound (worst error / bound: kernel {worst['kernel']:.3e}, twin {worst['twin']:.3e}; max-abs/max "
+          f"bound (worst error / bound: kernel {worst['kernel'][0]:.3e}, twin {worst['twin'][0]:.3e}; max-abs/max "
           f"{rel_err(rho.view(-1).double(), rho64):.3e}, twin {rel_err(rho_p.view(-1).double(), rho64):.3e}; "
-          f"up to {int(adds.max())} adds a cell)")
-    total = float(rho64.sum())
-    mass_err = {name: abs(float(r.double().sum()) - total) / total for name, r in (("kernel", rho), ("twin", rho_p))}
-    mass_bound = float(allowed.sum()) / total
-    check(max(mass_err.values()) <= mass_bound,
-          f"{tag}: total mass vs f64, relative error kernel {mass_err['kernel']:.3e}, twin {mass_err['twin']:.3e} "
-          f"<= {mass_bound:.3e} (the summed cell bounds)")
+          f"up to {int(torch.bincount(idx).max())} adds a cell)")
+    check(all(w[1] <= 1.0 for w in worst.values()),
+          f"{tag}: total mass vs f64, error / the summed cell bounds kernel {worst['kernel'][1]:.3e}, twin "
+          f"{worst['twin'][1]:.3e} <= 1 (the bound is {float(allowed.sum() / rho64.sum()):.3e} of the mass)")
     exact = fm.clone()
     exact[:, :3] = 0.5 if order == 3 or periodic else 0.0
     exact[:, 3] = 1.0
@@ -1539,6 +1672,33 @@ def _deposit_agrees(tag: str, c4, fm, grid: int, order: int, rho, rho_p, periodi
           f"{float(got.sum()):.1f} = {fm.shape[0]} bodies (worst cell |diff| {float((got - want).abs().max()):.3e})"
           + cells)
     return idx, val
+
+
+def _deposit_adversarial_checks(dev, periodic: bool) -> None:
+    """8a's (isolated) or 12a's (periodic) :func:`deposit_adversarial`
+    scenes at grids 32 and 128, TSC and CIC: the kernel against its twin as
+    :func:`_deposit_agrees` holds it (the exact-term deposit too), and its
+    count of blocks a path equal to :func:`deposit_block_paths`'.  Some
+    blocks must take each of the three paths."""
+    tally = {}
+    for name, (pm_np, n_real, per) in deposit_adversarial().items():
+        if per != periodic:
+            continue
+        for grid in (32, 128):
+            for order in (3, 2):
+                c4, fm = deposit_operands(pm_np, n_real, per, grid, order, dev, sort=name != "shuffled")
+                rho_p = mc.deposit_plain(c4, fm, grid, order, per)
+                paths = torch.zeros(3, dtype=torch.int32, device=dev)
+                rho = mc.deposit(c4, fm, grid, order, per, block_paths=paths)
+                got, want = tuple(paths.tolist()), deposit_block_paths(c4, fm, grid, order, per)
+                tag = f"{name} ({'unsorted' if name == 'shuffled' else 'Morton'}) grid {grid} order {order}"
+                check(got == want, f"{tag}: blocks on the whole box / a window / global atomics {got}, as "
+                                   f"computed in torch {want}")
+                _deposit_agrees(tag, c4, fm, grid, order, rho, rho_p, periodic=per, seam=name == "seam, periodic")
+                tally[name] = [a + b for a, b in zip(tally.get(name, (0, 0, 0)), got)]
+    check(all(sum(t[k] for t in tally.values()) > 0 for k in range(3)),
+          f"{'periodic' if periodic else 'isolated'} adversarial deposits: blocks took each path (whole box, "
+          f"window, global over both grids and orders: {tally})")
 
 
 def _p3m_checks_2m(sim: Simulation, samples: int = 4096, chunk: int = 32) -> None:
@@ -1616,6 +1776,42 @@ def _p3m_checks_2m(sim: Simulation, samples: int = 4096, chunk: int = 32) -> Non
           f"short range: median {med:.3e} < 2e-3, p99 {p99:.3e} < 1e-2 (max {e_alg.max():.3e})")
 
 
+def _two_level_grad(sim: Simulation) -> None:
+    """On 8b's state (8,193 tiles: the two-level selection, which 9b's 8,192
+    do not reach): ``short_range_bwd`` against its twin on the card at that
+    shape, for a random cotangent, and a 2-step rollout gradient by v0
+    through ``make_step_fn`` with the mesh path's twins raising, its ms/step
+    and peak memory."""
+    pos_mass, n_real, cfg = sim.state.pos_mass, sim.n_real, sim.config
+    n, block, dev = pos_mass.shape[0], p3m.DEFAULT_BLOCK, pos_mass.device
+    x = _p3m_inputs(pos_mass, n_real, cfg.pm_grid, block, cfg.p3m_nbr_k)
+    nb, k = x["nbr_idx"].shape
+    tag = f"[8b two-level grad] two-galaxy N={n_real} (n_pad {n}), {nb} tiles, k {k}"
+    check(nb > p3m._FLAT_MAX_TILES, f"{tag}: {nb} tiles > {p3m._FLAT_MAX_TILES}, the two-level selection")
+    args = (x["ps"], _random_cotangent(n, dev, 11), x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    got = p3m.short_range_tiles_bwd(*args)
+    want = None
+
+    def run_plain():
+        nonlocal want
+        want = p3m.short_range_tiles_bwd(*args, backend="jnp")
+
+    plain_ms = host_ms(run_plain)
+    _bwd_agrees(tag, got, want)
+    ms = cuda_ms(lambda: p3m.short_range_tiles_bwd(*args), reps=3)
+    print(f"  {tag}: short_range_bwd kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one run, host clock), "
+          f"{int((x['mask'] != 0).sum())} live slots", flush=True)
+    del got, want, args, x
+    torch.cuda.reset_peak_memory_stats()
+    step = make_step_fn(cfg, n, n_real, dev)
+    with no_twins():
+        t_f, t_g, g, _ = _rollout_times(step, pos_mass, sim.state.vel, 2,
+                                        lambda s: (s.pos_mass[:n_real, :3] ** 2).sum() / n_real)
+    print(f"  {tag}: 2-step rollout, forward {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, ratio {t_g / t_f:.3f}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, f"{tag}: 2-step gradient finite and nonzero")
+
+
 def _grid_sample_call(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int):
     """The CIC gather as one ``torch.nn.functional.grid_sample`` call
     (trilinear, ``align_corners=True``) on the ``(1, 3, G, G, G)`` grids: a
@@ -1628,18 +1824,70 @@ def _grid_sample_call(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, g
                                                    align_corners=True)
 
 
+def _deposit_row(tag: str, c4, fm, grid: int, order: int, periodic: bool = False) -> dict:
+    """``mesh_deposit`` at a full-size shape: the kernel (default knobs)
+    against its twin as :func:`_deposit_agrees` holds it, then in one go
+    the kernel's time, the twin's (host clock, one run), ``index_add_``
+    over the pre-expanded (cell, weight) pairs with the grid's zero fill
+    (the library call of the same function), the bound and the blocks a
+    path."""
+    dev, n = fm.device, fm.shape[0]
+    paths = torch.zeros(3, dtype=torch.int32, device=dev)
+    rho = mc.deposit(c4, fm, grid, order, periodic, block_paths=paths)
+    rho_p = None
+
+    def run_plain():
+        nonlocal rho_p
+        rho_p = mc.deposit_plain(c4, fm, grid, order, periodic)
+
+    plain_ms = host_ms(run_plain)
+    idx, val = _deposit_agrees(tag, c4, fm, grid, order, rho, rho_p, periodic=periodic)
+    lib_call = lambda: torch.zeros(grid**3, device=dev).index_add_(0, idx, val)  # noqa: E731
+    *_, rho64, allowed = f32_sum_bounds(c4, fm, grid, order, periodic)
+    e_lib = f32_sum_excess(lib_call(), rho64, allowed)
+    check(max(e_lib) <= 1.0, f"{tag}: index_add_ over the pairs vs f64 sums, each cell and the total within their "
+                             f"f32 summation bounds (worst error / bound {e_lib[0]:.3e}, total {e_lib[1]:.3e})")
+    del rho64, allowed
+    ms = cuda_ms(lambda: mc.deposit(c4, fm, grid, order, periodic), reps=20)
+    library_ms = cuda_ms(lib_call, reps=20)
+    del idx, val
+    parent = {}
+    if PARENT:
+        *_, rho64, allowed = f32_sum_bounds(c4, fm, grid, order, periodic)
+        e_par = f32_sum_excess(parent_deposit(c4, fm, grid, order, periodic), rho64, allowed)
+        check(max(e_par) <= 1.0, f"{tag}: the parent's kernel within the f32 summation bounds ({e_par[0]:.3e})")
+        del rho64, allowed
+        parent = vs_parent(tag, lambda: mc.deposit(c4, fm, grid, order, periodic),
+                           lambda: parent_deposit(c4, fm, grid, order, periodic))
+    kind = ("TSC" if order == 3 else "CIC") + (", torus" if periodic else "")
+    r = {
+        "max_abs_err": max_abs(rho, rho_p), "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "shape": f"({n}, 4) x 2 -> {grid}^3, {kind}",
+        "block_paths": paths.tolist(),
+        "note": f"blocks (whole box, window, global) {paths.tolist()}; library: index_add_ over the "
+                f"{order ** 3}N pre-expanded (cell, weight) pairs, with the grid's zero fill; plain: one run, "
+                f"host clock",
+        **parent,
+        **bound("mesh_deposit", n, 32 * n + 4 * grid**3),
+    }
+    print(f"  mesh_deposit {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {library_ms:.4f} ms  "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
+          flush=True)
+    return r
+
+
 def _pm_kernels_2m(sim: Simulation) -> dict:
     """8d's CIC kernels at its shape and data (the state after 8d's run)
-    against their twins: the deposit as :func:`_deposit_agrees`, the
-    gather at 1e-5 of the max; then the gather beside ``grid_sample``, the
-    library call of the same function (mesh_gather's ``library_ms``)."""
+    against their twins: the deposit as :func:`_deposit_row` (its entry
+    ``cic_8d``), the gather at 1e-5 of the max; then the gather beside
+    ``grid_sample``, the library call of the same function (mesh_gather's
+    ``library_ms``).  Returns ``(deposit row, gather's library fields)``."""
     grid = sim.config.pm_grid
     pos_mass = sim.state.pos_mass
     lo, h = pm._box(pos_mass[: sim.n_real, :3], grid)
     c4, fm = mc.mesh_operands(*pm._cic_cells(pos_mass[:, :3], lo, h, grid), pos_mass[:, 3])
-    rho, rho_p = mc.deposit(c4, fm, grid, 2), mc.deposit_plain(c4, fm, grid, 2)
-    _deposit_agrees(f"2M PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, rho, rho_p)
-    grids = pm.force_grids(pm.solve_potential(rho_p, h, sim.config.eps2), h)
+    dep = _deposit_row(f"2M PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2)
+    grids = pm.force_grids(pm.solve_potential(mc.deposit_plain(c4, fm, grid, 2), h, sim.config.eps2), h)
     acc = mc.gather(grids, c4, fm, grid, 2)
     e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2))
     check(e_acc < 1e-5, f"2M PM (CIC, N={fm.shape[0]}): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
@@ -1649,13 +1897,14 @@ def _pm_kernels_2m(sim: Simulation) -> dict:
     kernel_ms, lib_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2), reps=20), cuda_ms(lib_call, reps=20)
     print(f"  mesh_gather CIC at 8d's shape ({fm.shape[0]} particles, {grid}^3): kernel {kernel_ms:.4f} ms, "
           f"grid_sample {lib_ms:.4f} ms", flush=True)
-    return {"library_ms": lib_ms,
-            "library_note": f"torch.nn.functional.grid_sample (trilinear, align_corners=True) at 8d's CIC shape, "
-                            f"{fm.shape[0]} particles, {grid}^3; mesh_gather there {kernel_ms:.4f} ms"}
+    return dep, {"library_ms": lib_ms,
+                 "library_note": f"torch.nn.functional.grid_sample (trilinear, align_corners=True) at 8d's CIC "
+                                 f"shape, {fm.shape[0]} particles, {grid}^3; mesh_gather there {kernel_ms:.4f} ms"}
 
 
 def phase_mesh_times(dev) -> dict[str, dict]:
-    """8b's selection and force checks (:func:`_p3m_checks_2m`), then the
+    """8b's selection and force checks (:func:`_p3m_checks_2m`) and its
+    two-level gradient (:func:`_two_level_grad`), then the
     three kernels at 8b's shape and data (the state after 8b's run) beside
     their twins, bounds and (deposit) ``index_add_``; where a P3M force
     evaluation's device time goes, stage by stage; and 8d's CIC kernels
@@ -1663,32 +1912,15 @@ def phase_mesh_times(dev) -> dict[str, dict]:
     print("[8b mesh] kernel times at the P3M path's shape (CUDA events; plain: host clock, one run)", flush=True)
     sim = MESH_SIMS.pop("p3m")
     _p3m_checks_2m(sim)
+    _two_level_grad(sim)
     n_real, grid, block = sim.n_real, 128, p3m.DEFAULT_BLOCK
     x = _p3m_inputs(sim.state.pos_mass, n_real, grid, block)
     del sim
     ps, c4, fm, n = x["ps"], x["c4"], x["fm"], x["ps"].shape[0]
     out: dict[str, dict] = {}
 
+    out["mesh_deposit"] = _deposit_row(f"2M P3M (TSC, N={n})", c4, fm, grid, 3)
     rho = mc.deposit(c4, fm, grid, 3)
-    rho_p = None
-
-    def run_dep_plain():
-        nonlocal rho_p
-        rho_p = mc.deposit_plain(c4, fm, grid, 3)
-
-    dep_plain_ms = host_ms(run_dep_plain)
-    idx, val = _deposit_agrees(f"2M P3M (TSC, N={n})", c4, fm, grid, 3, rho, rho_p)
-    lib_call = lambda: torch.zeros(grid**3, device=dev).index_add_(0, idx, val)  # noqa: E731
-    out["mesh_deposit"] = {
-        "max_abs_err": max_abs(rho, rho_p), "ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 3), reps=20),
-        "plain_ms": dep_plain_ms, "library_ms": cuda_ms(lib_call, reps=20),
-        "shape": f"({n}, 4) x 2 -> {grid}^3, TSC",
-        "note": "library: index_add_ over the 27N pre-expanded (cell, weight) pairs, with the grid's zero fill; "
-                "plain: one run, host clock",
-        **bound("mesh_deposit", n, 32 * n + 4 * grid**3),
-    }
-    del idx, val, rho_p
-
     grids = p3m.solve_accel_long(rho, x["h"], EPS2, x["sigma"])
     acc = mc.gather(grids, c4, fm, grid, 3)
     acc_p = None
@@ -1729,7 +1961,7 @@ def phase_mesh_times(dev) -> dict[str, dict]:
         **bound("short_range", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU * pairs),
     }
     del sr_p
-    for name, r in out.items():
+    for name, r in ((k, v) for k, v in out.items() if k != "mesh_deposit"):
         print(f"  {name:14s} {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" + (f"  library {r['library_ms']:.4f} ms"
                                                                   if "library_ms" in r else "")
@@ -1739,7 +1971,8 @@ def phase_mesh_times(dev) -> dict[str, dict]:
     print(f"  P3M force evaluation at 2M by stage (CUDA events, sum {total:.3f} ms):", flush=True)
     for name, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"    {name:45s} {ms:9.3f} ms  {ms / total:6.1%}", flush=True)
-    out["mesh_gather"].update(_pm_kernels_2m(MESH_SIMS.pop("pm")))
+    out["mesh_deposit"]["cic_8d"], gather_lib = _pm_kernels_2m(MESH_SIMS.pop("pm"))
+    out["mesh_gather"].update(gather_lib)
     return out
 
 
@@ -2473,6 +2706,7 @@ def phase_periodic_checks(dev) -> None:
                 check(ok and ok64 and not got[:, 3].any(),
                       f"{tag}: periodic short_range ({what}, {int((m == 0).sum())} slots off) rtol 2e-4, atol "
                       f"3e-6 of max against the twin (max-abs/max {err:.3e}) and the f64 sum ({err64:.3e})")
+    _deposit_adversarial_checks(dev, periodic=True)
 
 
 def _box_run(dev, tag: str, method: str, chunks: int, chunk: int, **cfg):
@@ -2561,26 +2795,8 @@ def phase_periodic_times(dev) -> dict[str, dict]:
     (c4, fm), n = _periodic_cells(ps, x["h"], grid, 3), ps.shape[0]
     out: dict[str, dict] = {}
 
+    out["mesh_deposit"] = _deposit_row(f"2M periodic P3M (TSC, N={n})", c4, fm, grid, 3, periodic=True)
     rho = mc.deposit(c4, fm, grid, 3, True)
-    rho_p = None
-
-    def run_dep_plain():
-        nonlocal rho_p
-        rho_p = mc.deposit_plain(c4, fm, grid, 3, True)
-
-    dep_plain_ms = host_ms(run_dep_plain)
-    idx, val = _deposit_agrees(f"2M periodic P3M (TSC, N={n})", c4, fm, grid, 3, rho, rho_p, periodic=True)
-    lib_call = lambda: torch.zeros(grid**3, device=dev).index_add_(0, idx, val)  # noqa: E731
-    out["mesh_deposit"] = {
-        "max_abs_err": max_abs(rho, rho_p), "ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 3, True), reps=20),
-        "plain_ms": dep_plain_ms, "library_ms": cuda_ms(lib_call, reps=20),
-        "shape": f"({n}, 4) x 2 -> {grid}^3 torus, TSC",
-        "note": "library: index_add_ over the 27N pre-expanded wrapped (cell, weight) pairs, with the grid's zero "
-                "fill; plain: one run, host clock",
-        **bound("mesh_deposit", n, 32 * n + 4 * grid**3),
-    }
-    del idx, val, rho_p
-
     grids = ewald.spectral_accel_grids(rho, x["L"], x["sigma"], order=3)
     acc = mc.gather(grids, c4, fm, grid, 3, True)
     acc_p = None
@@ -2623,16 +2839,16 @@ def phase_periodic_times(dev) -> dict[str, dict]:
         **bound("short_range_periodic", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU_PERIODIC * pairs),
     }
     del sr_p
-    _print_times(out)
-    out["mesh_gather"]["cic"] = _periodic_pm_checks(PERIODIC_SIMS.pop("[12d periodic pm]"))
+    _print_times({k: v for k, v in out.items() if k != "mesh_deposit"})
+    out["mesh_deposit"]["cic"], out["mesh_gather"]["cic"] = _periodic_pm_checks(PERIODIC_SIMS.pop("[12d periodic pm]"))
     return out
 
 
 def _periodic_pm_checks(sim: Simulation) -> dict:
     """12d after its window: the net force below 3e-5 of sum |f|
     (tests/test_periodic.py:145), then its CIC kernels at its shape and data
-    against their twins (the deposit as :func:`_deposit_agrees`, the gather
-    at 1e-5 of the max) and their times."""
+    against their twins (the deposit as :func:`_deposit_row`, the gather at
+    1e-5 of the max) and their times: ``(deposit row, gather's)``."""
     from nbody3d_tpu_torch.ops.step import make_mesh_accel_fn
 
     pos_mass, grid = sim.state.pos_mass, sim.config.pm_grid
@@ -2642,17 +2858,15 @@ def _periodic_pm_checks(sim: Simulation) -> dict:
     L = torch.tensor(BOX_L, device=pos_mass.device)
     h = L / grid
     c4, fm = _periodic_cells(torch.cat([ewald.wrap_box(pos_mass[:, :3], L), pos_mass[:, 3:]], 1), h, grid, 2)
-    rho, rho_p = mc.deposit(c4, fm, grid, 2, True), mc.deposit_plain(c4, fm, grid, 2, True)
-    _deposit_agrees(f"2M periodic PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, rho, rho_p, periodic=True)
-    grids = ewald.spectral_accel_grids(rho_p, L, 1.5 * h, order=2)
+    dep = _deposit_row(f"2M periodic PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, periodic=True)
+    grids = ewald.spectral_accel_grids(mc.deposit_plain(c4, fm, grid, 2, True), L, 1.5 * h, order=2)
     acc = mc.gather(grids, c4, fm, grid, 2, True)
     e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2, True))
     check(e_acc < 1e-5, f"2M periodic PM (CIC): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
-    times = {"deposit_ms": cuda_ms(lambda: mc.deposit(c4, fm, grid, 2, True), reps=20),
-             "gather_ms": cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, True), reps=20)}
-    print(f"  periodic CIC at 12d's shape ({fm.shape[0]} particles, {grid}^3 torus): mesh_deposit "
-          f"{times['deposit_ms']:.4f} ms, mesh_gather {times['gather_ms']:.4f} ms", flush=True)
-    return times
+    gather_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, True), reps=20)
+    print(f"  periodic CIC at 12d's shape ({fm.shape[0]} particles, {grid}^3 torus): mesh_gather "
+          f"{gather_ms:.4f} ms", flush=True)
+    return dep, {"ms": gather_ms}
 
 
 def phase_periodic_accuracy(dev) -> None:
@@ -3213,6 +3427,7 @@ def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
         "launches": sum(by_path[p][name] for p in PERIODIC_PATHS),
         "launches_by_path": {p: by_path[p][name] for p in PERIODIC_PATHS if by_path[p][name]},
         **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "note")},
+        **({"block_paths": t["block_paths"]} if "block_paths" in t else {}),
         **({"cic_12d": t["cic"]} if "cic" in t else {}),
     }
 
@@ -3222,12 +3437,17 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true", help="stop after the small-shape kernel checks")
     ap.add_argument("--outdir", default=None,
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: time its splat_resolve and mesh_deposit beside this "
+                         "tree's, in turns, at 7c's and the deposit's full-size shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)
         return 1
     dev = phase_device()
     phase_build()
+    if args.parent:
+        load_parent(args.parent)
     phase_kernel_checks(dev)
     phase_vjp_checks(dev)
     phase_vjp_gate(dev)
@@ -3288,6 +3508,8 @@ def main() -> int:
             "library_ms": times[name].get("library_ms"),
             **({"library_note": times[name]["library_note"]} if "library_note" in times[name] else {}),
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
+            **({"block_paths": times[name]["block_paths"]} if "block_paths" in times[name] else {}),
+            **({"cic_8d": times[name]["cic_8d"]} if "cic_8d" in times[name] else {}),
             **({"periodic": _periodic_entry(name, periodic[name], by_path)} if name in periodic else {}),
         })
     if FAILURES:

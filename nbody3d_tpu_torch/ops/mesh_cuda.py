@@ -6,7 +6,10 @@ that of ``pallas_force``.  Two kernels (sources in
 
 ================  ==========================================================
 ``mesh_deposit``  TSC (order 3) or CIC (order 2) mass deposit onto a
-                  ``(G, G, G)`` grid: one thread a particle, ``atomicAdd``
+                  ``(G, G, G)`` grid: a block's 256 particles into a box
+                  (or a window of it) in shared memory, flushed with one
+                  ``atomicAdd`` a cell, the rest with global atomics of
+                  four cells each
 ``mesh_gather``   interpolation of the 3 force grids at the particles with
                   the same assignment function: one thread a particle
 ================  ==========================================================
@@ -25,9 +28,13 @@ too.)
 
 The TPU kernels deposit per Morton tile into a box of the grid held in
 VMEM and send the particles outside their tile's box to an XLA repair pass
-with a fixed budget of tiles.  On the card every particle is deposited in
-the one pass, so there are no tiles, boxes, corners or repair here, and
-PM needs no Morton sort.
+with a fixed budget of tiles.  On the card the deposit keeps the box (one
+per block, in shared memory, over a run of 256 consecutive particles) but
+not the budget: the particles outside a block's box (or the window of it
+that fits) deposit with global atomics in the same launch, so every
+particle is deposited in the one pass and there is no repair.  Any order
+is right; Morton-sorted rows (P3M's) give small boxes, and PM's unsorted
+rows a window on their densest region.
 
 The wrappers launch the kernels on a CUDA tensor and take the twins only
 for a CPU tensor.  ``p3m.accel_p3m`` and ``pm.accel_pm`` run deposit, FFT
@@ -128,15 +135,23 @@ def deposit_plain(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, per
     return rho.view(grid, grid, grid)
 
 
-def deposit(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
+def deposit(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False, *,
+            block_paths: torch.Tensor | None = None) -> torch.Tensor:
     """Mass deposit → ``(grid, grid, grid)`` (mass per cell), on the torus
     when ``periodic``.  On the card the atomics add in no fixed order, so
-    two runs agree to f32 rounding, not bit for bit."""
+    two runs agree to f32 rounding, not bit for bit.  ``block_paths``: an
+    int32 ``(3,)`` tensor on the card to which the kernel adds its blocks
+    that took the whole box, a window of it, and global atomics alone
+    (``csrc/mesh_deposit.cu``); the twin leaves it alone."""
     dev = _check("mesh_deposit", c4, fm, grid, order)
     if dev.type == "cpu":
         return deposit_plain(c4, fm, grid, order, periodic)
+    if block_paths is not None and (block_paths.dtype != torch.int32 or tuple(block_paths.shape) != (3,)
+                                    or block_paths.device != dev):
+        raise ValueError("mesh_deposit: block_paths must be an int32 (3,) tensor on the card")
     rho = torch.zeros((grid, grid, grid), dtype=torch.float32, device=dev)
-    launch("mesh_deposit", dev, lib().nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic))
+    launch("mesh_deposit", dev, lib().nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic),
+           block_paths)
     return rho
 
 

@@ -29,7 +29,7 @@ from nbody3d_tpu.models.registry import make_preset  # noqa: E402
 from nbody3d_tpu.ops.morton import morton_keys as jax_morton_keys  # noqa: E402
 from nbody3d_tpu.ops.step import make_step_fn as jax_make_step_fn  # noqa: E402
 from nbody3d_tpu.state import init_state as jax_init_state  # noqa: E402
-from nbody3d_tpu_torch import SimConfig  # noqa: E402
+from nbody3d_tpu_torch import SimConfig, scatter_checks  # noqa: E402
 from nbody3d_tpu_torch.ops import mesh_cuda as mc  # noqa: E402
 from nbody3d_tpu_torch.ops import p3m, pm  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import launch_counts, reset_launch_counts  # noqa: E402
@@ -204,3 +204,64 @@ def test_mesh_launch_counts_stay_zero_on_cpu(scene):
     pm.accel_pm(torch.from_numpy(ps_np.copy()), G, grid=32, n_real=n_real)
     assert rho.shape == (32, 32, 32)
     assert all(c == 0 for c in launch_counts().values())
+
+
+ADVERSARIAL = {k: v for k, v in scatter_checks.deposit_adversarial().items() if not v[2]}
+
+
+@pytest.mark.parametrize("order", [3, 2])
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_deposit_twin_on_adversarial_scenes(name, order):
+    """``scatter_checks``' isolated adversarial scenes (all bodies in one cell,
+    unsorted blobs, Morton runs across octant boundaries), on which the card
+    holds the kernel to this twin, against the JAX package's XLA deposit:
+    1e-5 of the max; and both against the f64 sums of the twin's terms, each
+    cell and the total within the bound of f32 summation in any order, with
+    8 ulp a term for JAX's own rounding of its products (a
+    pile-up of 8,190 terms in one cell leaves a fixed 1e-6 of the total)."""
+    pm_np, n_real, _ = ADVERSARIAL[name]
+    grid = 32
+    c4, fm = scatter_checks.deposit_operands(pm_np, n_real, False, grid, order, torch.device("cpu"),
+                                             sort=name != "shuffled")
+    got = mc.deposit(c4, fm, grid, order).numpy()
+    jps = jnp.asarray(pm_np)
+    lo, h = jpm._box(jps[:n_real, :3], grid)
+    want = np.asarray((jp3m.tsc_deposit if order == 3 else jpm.cic_deposit)(jps[:, :3], jps[:, 3], lo, h, grid))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    *_, rho64, allowed = scatter_checks.f32_sum_bounds(c4, fm, grid, order, term_ulps=8)
+    for rho in (got, want):
+        assert max(scatter_checks.f32_sum_excess(torch.tensor(rho), rho64, allowed)) <= 1.0
+    if name == "one cell":
+        base, count = torch.unique(c4[:, :3], dim=0, return_counts=True)
+        assert int(count.max()) == pm_np.shape[0] - 2
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("order", [3, 2])
+def test_deposit_checks_hold_the_twin(order, periodic):
+    """The two checks the card holds every deposit to, on each adversarial
+    scene of the boundary: each cell of the twin within its bound of f32
+    summation in any order (``f32_sum_bounds``); and on exact terms (mass 1,
+    weights 0, 1/2 or 1 an axis, as chip_smoke.py makes them) the f32 sums
+    in a shuffled order equal to the f64 sums in every cell, so that one
+    lost or repeated add shows even in a pile-up, where it is inside the
+    first bound."""
+    gen = torch.Generator().manual_seed(0)
+    for name, (pm_np, n_real, per) in scatter_checks.deposit_adversarial().items():
+        if per != periodic:
+            continue
+        c4, fm = scatter_checks.deposit_operands(pm_np, n_real, per, 32, order, torch.device("cpu"),
+                                                 sort=name != "shuffled")
+        *_, rho64, allowed = scatter_checks.f32_sum_bounds(c4, fm, 32, order, periodic=per)
+        rho = mc.deposit(c4, fm, 32, order, periodic=per)
+        assert max(scatter_checks.f32_sum_excess(rho, rho64, allowed)) <= 1.0, name
+        exact = fm.clone()
+        exact[:, :3] = 0.5 if order == 3 or per else 0.0
+        exact[:, 3] = 1.0
+        idx, val, rho64, _ = scatter_checks.f32_sum_bounds(c4, exact, 32, order, periodic=per)
+        perm = torch.randperm(idx.shape[0], generator=gen)
+        got = torch.zeros(32**3).index_add_(0, idx[perm], val[perm])
+        assert torch.equal(got.double(), rho64) and float(got.sum()) == fm.shape[0], name
+        k = int(torch.argmax(val))
+        got[idx[k]] -= val[k]
+        assert not torch.equal(got.double(), rho64), name

@@ -34,7 +34,7 @@ from nbody3d_tpu.ops.ewald import ewald_accel_reference as jax_oracle  # noqa: E
 from nbody3d_tpu.ops.morton import morton_keys as jax_morton_keys  # noqa: E402
 from nbody3d_tpu.ops.step import make_step_fn as jax_make_step_fn  # noqa: E402
 from nbody3d_tpu.state import init_state as jax_init_state  # noqa: E402
-from nbody3d_tpu_torch import SimConfig, Simulation, cli  # noqa: E402
+from nbody3d_tpu_torch import SimConfig, Simulation, cli, scatter_checks  # noqa: E402
 from nbody3d_tpu_torch.ops import ewald, p3m, pm  # noqa: E402
 from nbody3d_tpu_torch.ops import mesh_cuda as mc  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import launch_counts, reset_launch_counts  # noqa: E402
@@ -429,3 +429,34 @@ def test_periodic_tiles_within_rcut_and_overflow():
     np.testing.assert_array_equal(within, want)
     for k in (4, 16, 64):
         assert p3m.p3m_neighbor_overflow(torch.from_numpy(pm_np), nbr_k=k, **kw) == int((want > k).sum())
+
+
+ADVERSARIAL = {k: v for k, v in scatter_checks.deposit_adversarial().items() if v[2]}
+
+
+@pytest.mark.parametrize("order", [3, 2])
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_periodic_deposit_twin_on_adversarial_scenes(name, order):
+    """``scatter_checks``' periodic adversarial scenes (all bodies in one cell
+    by the far corner, a cube about the torus' corner whose Morton runs
+    cross the seams, uniform runs across octant boundaries), on which the
+    card holds the kernel to this twin, against JAX's periodic XLA deposit:
+    1e-5 of the max; and both against the f64 sums of the twin's terms, each
+    cell and the total within the bound of f32 summation in any order, with
+    8 ulp a term for JAX's own rounding of its products (a
+    pile-up of 8,192 terms in one cell leaves a fixed 1e-6 of the total)."""
+    pm_np, n_real, _ = ADVERSARIAL[name]
+    grid = 32
+    c4, fm = scatter_checks.deposit_operands(pm_np, n_real, True, grid, order, torch.device("cpu"))
+    got = mc.deposit(c4, fm, grid, order, periodic=True).numpy()
+    jps = jnp.asarray(pm_np)
+    dep = jp3m.tsc_deposit if order == 3 else jpm.cic_deposit
+    want = np.asarray(dep(jps[:, :3], jps[:, 3], jnp.zeros(3), jnp.float32(L) / grid, grid, periodic=True))
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    *_, rho64, allowed = scatter_checks.f32_sum_bounds(c4, fm, grid, order, periodic=True, term_ulps=8)
+    for rho in (got, want):
+        assert max(scatter_checks.f32_sum_excess(torch.tensor(rho), rho64, allowed)) <= 1.0
+    if name == "seam, periodic":
+        for axis in range(3):
+            faces = np.moveaxis(got, axis, 0)
+            assert faces[0].sum() > 0 and faces[-1].sum() > 0

@@ -31,10 +31,12 @@ from nbody3d_tpu.render.pallas_resolve import resolve_all_pallas  # noqa: E402
 from nbody3d_tpu.utils import mathlib as jax_mathlib  # noqa: E402
 from nbody3d_tpu.utils.camera import Camera as JaxCamera  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import launch_counts, reset_launch_counts  # noqa: E402
+from nbody3d_tpu_torch import scatter_checks  # noqa: E402
 from nbody3d_tpu_torch.render import rasterize, resolve  # noqa: E402
 from nbody3d_tpu_torch.render.image import read_png, save_png  # noqa: E402
 from nbody3d_tpu_torch.utils import mathlib  # noqa: E402
 from nbody3d_tpu_torch.utils.camera import Camera  # noqa: E402
+
 
 
 def scene(n, seed, *, scale=2.5, heavy=2, masses=None):
@@ -152,6 +154,69 @@ def test_twin_matches_native_on_adversarial_radii():
     got = resolve.resolve_keys_plain(torch.from_numpy(cx), torch.from_numpy(cy),
                                      torch.from_numpy(keys.view(np.int64)), torch.from_numpy(r), width=w, height=h)
     np.testing.assert_array_equal(got.numpy(), want.view(np.int64))
+
+
+ADVERSARIAL = scatter_checks.resolve_adversarial()
+
+
+@pytest.mark.parametrize("name", list(ADVERSARIAL))
+def test_twin_matches_native_on_adversarial_scenes(name):
+    """``scatter_checks``' adversarial scenes (a pile-up of 4,096 splats on one
+    pixel; r = 64 discs at the corners and off the frame), on which the card
+    holds the kernel to this twin: the twin's frame is native/_raster.c's,
+    word for word."""
+    if native.raster is None:
+        pytest.skip("the JAX package's native raster module is not built here")
+    cx, cy, depth, rgb, r, vis, w, h = ADVERSARIAL[name]
+    keys = (depth[vis].view(np.uint32).astype(np.uint64) << np.uint64(32)) | rgb[vis].view(np.uint32).astype(np.uint64)
+    want = np.full(w * h, np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+    native.raster.stamp_discs(want, h, w, cx[vis].astype(np.int64), cy[vis].astype(np.int64),
+                              r[vis].astype(np.float64), keys)
+    got = resolve.splat_resolve(*(torch.from_numpy(a) for a in (cx, cy, depth, rgb, r, vis)), width=w, height=h)
+    np.testing.assert_array_equal(got.numpy(), want.view(np.int64))
+    assert (want != np.uint64(0xFFFFFFFFFFFFFFFF)).sum() > 300
+
+
+def kernel_row_counts(r: np.float32) -> tuple[np.ndarray, np.ndarray]:
+    """csrc/splat_resolve.cu's disc, mirrored: ``(dy, pixels)`` of every row
+    |dy| <= floor(r) of the square |dx|, |dy| <= floor(r), a pixel covered
+    when the integer dx^2 + dy^2 is at most floor(r^2) (r^2 exact in f64)."""
+    irad = int(np.floor(np.float64(r)))
+    r2 = int(np.floor(np.float64(r) * np.float64(r)))
+    d = np.arange(-irad, irad + 1, dtype=np.int64)
+    return d, (d[None, :] ** 2 + d[:, None] ** 2 <= r2).sum(axis=1)
+
+
+def _f32_neighbours(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float32)
+    return np.concatenate([np.nextafter(x, np.float32(0)), x, np.nextafter(x, np.float32(1e9))])
+
+
+SPAN_RADII = {
+    "sqrt(k) +- ulp": _f32_neighbours(np.sqrt(np.arange(1, 4097, dtype=np.float64))),
+    "integers +- ulp": _f32_neighbours(np.arange(1.0, 65.0)),
+    "0.5 to 64": np.linspace(0.5, 64.0, 1001, dtype=np.float32),
+}
+
+
+@pytest.mark.parametrize("radii", list(SPAN_RADII))
+def test_kernel_disc_matches_native(radii):
+    """The kernel's integer predicate (:func:`kernel_row_counts`) against
+    native/_raster.c's: one disc a radius, every row, the pixel counts
+    equal."""
+    if native.raster is None:
+        pytest.skip("the JAX package's native raster module is not built here")
+    for r in SPAN_RADII[radii]:
+        dy, count = kernel_row_counts(r)
+        side = 2 * int(np.floor(r)) + 5
+        c = side // 2
+        buf = np.full(side * side, np.uint64(0xFFFFFFFFFFFFFFFF), np.uint64)
+        native.raster.stamp_discs(buf, side, side, np.array([c], np.int64), np.array([c], np.int64),
+                                  np.array([r], np.float64), np.array([7], np.uint64))
+        lit = (buf.reshape(side, side) == 7).sum(axis=1)
+        want = np.zeros(side, np.int64)
+        want[c + dy] = count
+        np.testing.assert_array_equal(lit, want, err_msg=f"r = {r!r}")
 
 
 @pytest.mark.parametrize("small_max", [0, 10**9])
