@@ -4,16 +4,24 @@
     python3 chip_smoke.py                 # everything below, one card
     python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
-    python3 chip_smoke.py --parent DIR    # also time a parent checkout's two scatter kernels
+    python3 chip_smoke.py --parent DIR    # also time a parent checkout's scatter and sym kernels
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc builds the nineteen kernels from ``nbody3d_tpu_torch/csrc``,
-   one nvcc process per source, all started together.
+   one nvcc process per source, all started together; ``sym_hops``' and
+   ``pair_sym``'s registers and spill bytes (ptxas) and, where
+   ``cuobjdump`` is on the machine, the count of their SASS instructions
+   by opcode (``ATOMS``, ``RED``, ``LDS``, ``MUFU``, ``SHFL``, ...), the
+   parent's too with ``--parent``.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
-   included (forward: accelerations and the step; VJP: x̄, m̄ and Ḡ); the
+   included (forward: accelerations and the step; VJP: x̄, m̄ and Ḡ);
+   ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
+   and padded rows, at tile counts that cut a block's run of hops short
+   (nt = 2, 8, 19, 35 and 36), at eps2 = 1e-14 (a subnormal eps2^3) and at
+   tiles of 512 and 1024 rows: < 2e-5 of scale; the
    VJP accuracy gate of ``benchmarks/grad_bench.py`` (median x̄ relative
    error <= 1e-4 against an f64 numpy oracle, uniform-sphere N = 4,096,
    both schedules); then each kernel's time beside its twin's at the
@@ -184,7 +192,10 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``pair_sym`` against its twin at Nt x Ns = 8,192 x 7,936, 512 x 256 and
    256 x 256, tiles 128 and 256, padded rows and a 1e7 body (< 2e-5 of
    scale, the momentum printed), and ``accel_sym_macro`` at N = 8,192 with
-   4 chunks against ``accel_sym``; (b) benchmarks/scale_sweep.py's top
+   4 chunks against ``accel_sym``; ``pair_sym`` at source tile counts that
+   cut a block's run short (ns = 2, 9 and 17 against nt = 3, 5 and 2, 1e7
+   bodies on both sides, also at eps2 = 1e-14 and a tile of 1024, < 2e-5);
+   (b) benchmarks/scale_sweep.py's top
    rung: uniform-sphere N = 2,097,152, sym, ``morton_every=64``, Verlet, 1
    warm and 5 timed 1-step chunks, ms/step, G-int/s, the momentum error
    (<= 1e-5 of sum |m v|) and each step's launches (4 ``sym_diag_prep``,
@@ -242,7 +253,9 @@ from nbody3d_tpu_torch.ops import force_vjp as fv
 from nbody3d_tpu_torch.ops import mesh_cuda as mc
 from nbody3d_tpu_torch.ops import p3m, pm
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
-from nbody3d_tpu_torch.ops.launch import KERNELS, launch, launch_counts, reset_launch_counts, split_hops
+from nbody3d_tpu_torch.ops.launch import (
+    KERNELS, hop_blocks, launch, launch_counts, reset_launch_counts, split_hops, sym_runs,
+)
 from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import (
     GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
@@ -430,6 +443,88 @@ def phase_build() -> None:
     for line in _build.build_log().splitlines():
         if "Used" in line or "Function properties" in line:
             print(f"  ptxas: {line.strip()}")
+    sym_kernel_report("this tree", _build.build_log(), path)
+
+
+# The Newton-3 pair kernels whose inner loop PERF.md describes from these counts.
+SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel")
+SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "MUFU", "FFMA", "FMUL", "FADD", "FSEL", "BAR")
+
+
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each entry function in an ``nvcc
+    -Xptxas -v`` log, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[name]["spill_stores"], out[name]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_listing(lib_path) -> dict[str, list[tuple[int, str, int | None]]]:
+    """Each function's SASS in the library (``cuobjdump -sass``), by mangled
+    name, as ``(address, opcode, branch target)``; {} where there is no
+    cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=120).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            name = m.group(1)
+            out[name] = []
+        elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)):
+            target = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2) == "BRA" else None
+            out[name].append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
+    return out
+
+
+def _op_counts(listing) -> dict[str, int]:
+    counts: dict[str, int] = {}
+    for _, op, _ in listing:
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def pair_loop(listing) -> list:
+    """The instructions of the pair loop: of the loops (a backward branch
+    and its target), the one that holds the most MUFUs (one a pair), the
+    shortest if several do; [] if there is none."""
+    mufu = [a for a, op, _ in listing if op == "MUFU"]
+    loops = [(t, a) for a, op, t in listing if op == "BRA" and t is not None and t < a]
+    held = {span: sum(span[0] <= m <= span[1] for m in mufu) for span in loops}
+    if not held or max(held.values()) == 0:
+        return []
+    lo, hi = min(held, key=lambda span: (-held[span], span[1] - span[0]))
+    return [x for x in listing if lo <= x[0] <= hi]
+
+
+def sym_kernel_report(tag: str, log: str, lib_path) -> None:
+    """Registers and spills (ptxas) of the Newton-3 pair kernels, their SASS
+    instructions by opcode, and those of the pair loop (each instance; one
+    MUFU a pair, so the loop's counts over its MUFUs are a pair's)."""
+    usage, sass = ptxas_usage(log), sass_listing(lib_path)
+    for kernel in SYM_PAIR_KERNELS:
+        for name in sorted(n for n in set(usage) | set(sass) if re.search(rf"\d{kernel}", n)):
+            listing = sass.get(name, [])
+            if not listing:
+                print(f"  [{tag}] {name}: {usage.get(name, {})}; no cuobjdump", flush=True)
+                continue
+            ops, loop = _op_counts(listing), _op_counts(pair_loop(listing))
+            pairs = loop.get("MUFU", 0)
+            print(f"  [{tag}] {name}: {usage.get(name, {})}; SASS {len(listing)} instructions: "
+                  + ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPS), flush=True)
+            print(f"    pair loop: {sum(loop.values())} instructions for {pairs} pairs a lane "
+                  f"({sum(loop.values()) / max(pairs, 1):.2f} a pair): "
+                  + ", ".join(f"{op} {c}" for op, c in sorted(loop.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def _inputs(rng, n_pad: int, n_real: int, dev):
@@ -475,6 +570,35 @@ def phase_kernel_checks(dev) -> None:
         es = rel_err(a1[:n_real], ex[:n_real])
         check(es < 2e-5, f"N={n_pad} nt={nt}: sym accel vs exact accel {es:.3e} < 2e-5")
         torch.cuda.synchronize()
+    phase_sym_run_checks(dev)
+
+
+# (N, tile, eps2): tile counts whose runs of hops are cut short (SYM_RUN =
+# 8): nt = 2 (the half hop alone), 8 (3 hops, one short run, and the half
+# hop), 19 (odd: 9 hops, 8 + 1), 35 (odd: 17, 8 + 8 + 1) and 36 (17 hops and
+# the half hop); nt = 19 at eps2 = 1e-14, where eps2^3 is subnormal (the
+# padded rows' d2^3 too), so the kernel takes rsqrtf with its guard; tiles of
+# 512 and 1024 rows (the latter's shared memory above 48 KB).
+SYM_RUN_SHAPES = ((512, 256, EPS2), (2048, 256, EPS2), (4864, 256, EPS2), (4480, 128, EPS2), (4608, 128, EPS2),
+                  (4864, 256, 1e-14), (4608, 512, EPS2), (8192, 1024, EPS2))
+
+
+def phase_sym_run_checks(dev) -> None:
+    """``sym_hops`` against its twin (summed with the diagonal, as the
+    force is) where a block's run of hops is cut short; a 1e7 body and
+    padded rows, < 2e-5 of scale."""
+    rng = np.random.default_rng(3)
+    for n_pad, b, eps2 in SYM_RUN_SHAPES:
+        nt = n_pad // b
+        pm = _inputs(rng, n_pad, n_pad - 37, dev)[0]
+        pm[n_pad // 3, 3] = 1e7
+        src, acc_d = cf.sym_diag_prep(pm, G, eps2, b)
+        acc_h, acc_h_p = cf.sym_hops(src, eps2, b), cf.sym_hops_plain(src, eps2, b)
+        torch.cuda.synchronize()
+        e = rel_err(acc_d + acc_h, acc_d + acc_h_p)
+        check(e < 2e-5 and not acc_h[:, 3].any() and bool(torch.isfinite(acc_h).all()),
+              f"N={n_pad} tile {b} nt={nt} eps2 {eps2:g} (launches (k0, nk, grid_i, runs) {hop_blocks(nt)}): "
+              f"sym_hops vs plain with a 1e7 body (summed accel) {e:.3e} < 2e-5, finite, w lane 0")
 
 
 def phase_kernel_times(dev) -> dict[str, dict]:
@@ -526,12 +650,19 @@ def phase_kernel_times(dev) -> dict[str, dict]:
     total_p = acc_d + acc_h_p
     check(rel_err(acc_d + acc_h, total_p) < 2e-5,
           f"uniform-sphere N={n}: sym_hops vs plain (summed accel) {rel_err(acc_d + acc_h, total_p):.3e} < 2e-5")
+    parent = {}
+    if PARENT:
+        e_par = rel_err(acc_d + parent_sym_hops(src, EPS2, b), total_p)
+        check(e_par < 2e-5, f"uniform-sphere N={n}: the parent's sym_hops vs plain (summed accel) {e_par:.3e} < 2e-5")
+        parent = vs_parent(f"sym_hops N={n}", lambda: cf.sym_hops(src, EPS2, b),
+                           lambda: parent_sym_hops(src, EPS2, b), reps=3)
     out["sym_hops"] = {
         "max_abs_err": max_abs(acc_h, acc_h_p),
         "ms": cuda_ms(lambda: cf.sym_hops(src, EPS2, b), reps=3),
         "plain_ms": plain_hops_ms,
         "shape": f"({n}, 4), tile {b}, nt {n // b}",
         **bound("sym_hops", hop_pairs(n, b), 32 * n, rsqrts=hop_pairs(n, b)),
+        **parent,
     }
     del acc_h_p, total_p
 
@@ -1099,6 +1230,7 @@ def load_parent(path: str) -> None:
     spec.loader.exec_module(mod)
     PARENT["lib"] = mod.load_library()
     print(f"[parent] kernels of {path} built", flush=True)
+    sym_kernel_report("parent", mod.build_log(), mod.build()[0])
 
 
 def _parent_call(fn, *args) -> None:
@@ -1109,23 +1241,41 @@ def _parent_call(fn, *args) -> None:
 
 
 def parent_deposit(c4, fm, grid: int, order: int, periodic: bool) -> torch.Tensor:
-    """The parent's ``mesh_deposit`` (a thread a particle, global atomics)."""
+    """The parent's ``mesh_deposit`` (this tree's C signature; no block-path counter)."""
     rho = torch.zeros(grid**3, device=fm.device)
-    _parent_call(PARENT["lib"].nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic))
+    _parent_call(PARENT["lib"].nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic), None)
     return rho
 
 
 def parent_resolve(prep, w: int, h: int) -> torch.Tensor:
-    """The parent's ``splat_resolve`` (a warp a splat, a read before each atomic)."""
+    """The parent's ``splat_resolve`` (this tree's C signature)."""
     buf = torch.full((h * w,), resolve.MISS, dtype=torch.int64, device=prep[0].device)
     _parent_call(PARENT["lib"].nb_splat_resolve, *prep, buf, prep[0].shape[0], w, h)
     return buf
 
 
-def vs_parent(tag: str, fn, parent_fn) -> dict:
+def parent_sym_hops(src, eps2: float, b: int) -> torch.Tensor:
+    """The parent's ``sym_hops`` (the C signature of its first design, a
+    block a tile pair: no run count), its launches as ``split_hops``."""
+    acc = torch.zeros_like(src)
+    nt = src.shape[0] // b
+    for k0, nk, grid_i in split_hops(nt):
+        _parent_call(PARENT["lib"].nb_sym_hops, src, acc, nt, b, k0, nk, grid_i, float(eps2))
+    return acc
+
+
+def parent_pair_sym(tgt, src, g: float, eps2: float, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The parent's ``pair_sym`` (the C signature of its first design: no run count)."""
+    acc_t, acc_s = torch.zeros_like(tgt), torch.zeros_like(src)
+    _parent_call(PARENT["lib"].nb_pair_sym, tgt, src, acc_t, acc_s, tgt.shape[0] // b, src.shape[0] // b, b,
+                 float(g), float(eps2))
+    return acc_t, acc_s
+
+
+def vs_parent(tag: str, fn, parent_fn, reps: int = 20) -> dict:
     """``fn`` and the parent's ``parent_fn`` timed in turns (parent, this,
-    this, parent; CUDA events, 20 launches each): their mean ms."""
-    t = [cuda_ms(f, reps=20) for f in (parent_fn, fn, fn, parent_fn)]
+    this, parent; CUDA events, ``reps`` launches each): their mean ms."""
+    t = [cuda_ms(f, reps=reps) for f in (parent_fn, fn, fn, parent_fn)]
     out = {"parent_ms": (t[0] + t[3]) / 2, "this_ms": (t[1] + t[2]) / 2}
     print(f"    {tag} beside the parent's kernel (same card, in turns parent, this, this, parent): parent "
           f"{t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
@@ -2318,6 +2468,19 @@ def phase_unfused_times(dev) -> dict[str, dict]:
     }
     warm = {k: cuda_ms(f, reps=50) for k, f in calls.items()}
     cold = {k: cuda_ms_cold(f, 50, flush) for k, f in calls.items()}
+    # The kernel and torch.add in turns (kernel, add, add, kernel), three
+    # rounds, L2 flushed: does the kernel lose by more than the spread?
+    turns = {"kernel": [], "library": []}
+    for _ in range(3):
+        for k in ("kernel", "library", "library", "kernel"):
+            turns[k].append(cuda_ms_cold(calls[k], 50, flush))
+    mean = {k: statistics.mean(v) for k, v in turns.items()}
+    spread = max(max(v) - min(v) for v in turns.values())
+    verdict = "loses" if mean["kernel"] - mean["library"] > spread else "does not lose"
+    print(f"  sym_combine vs torch.add in turns, L2 flushed (kernel, add, add, kernel) x 3: kernel "
+          f"{[round(t, 5) for t in turns['kernel']]} mean {mean['kernel']:.5f} ms, torch.add "
+          f"{[round(t, 5) for t in turns['library']]} mean {mean['library']:.5f} ms, spread {spread:.5f} ms: "
+          f"the kernel {verdict} by more than the spread", flush=True)
     out["sym_combine"] = {
         "max_abs_err": max_abs(comb, comb_p),
         "ms": cold["kernel"],
@@ -2325,7 +2488,8 @@ def phase_unfused_times(dev) -> dict[str, dict]:
         "library_ms": cold["library"],
         "library_note": "torch.add(acc_diag, acc_hop), L2 flushed",
         "shape": f"2 x ({n}, 4) in, ({n}, 4) out",
-        "note": "L2 flushed; L2 warm " + ", ".join(f"{k} {t:.4f} ms" for k, t in warm.items()),
+        "note": "L2 flushed; L2 warm " + ", ".join(f"{k} {t:.4f} ms" for k, t in warm.items())
+                + f"; in turns kernel {mean['kernel']:.5f}, torch.add {mean['library']:.5f}, spread {spread:.5f}",
         **bound("sym_combine", n, 48 * n),
     }
     del flush
@@ -3198,6 +3362,24 @@ def phase_macro_checks(dev) -> None:
                   f"Nt x Ns = {nt_rows} x {ns_rows} tile {b}: pair_sym vs plain max-abs/scale targets {e_t:.3e}, "
                   f"sources {e_s:.3e} < 2e-5, w lanes 0; momentum |sum m a| / sum m|a| kernel "
                   f"{_pair_momentum(tgt, src, acc_t, acc_s):.3e}, twin {_pair_momentum(tgt, src, want_t, want_s):.3e}")
+    # Source tile counts whose runs are cut short (SYM_RUN = 8): 9 = 8 + 1,
+    # 17 (odd) = 8 + 8 + 1, 2 (one short run); 1e7 bodies on both sides;
+    # eps2 = 1e-14 (subnormal eps2^3: rsqrtf with its guard); a tile of 1024
+    # rows (shared memory above 48 KB).
+    for nt, ns, b, eps2 in ((3, 9, 256, EPS2), (5, 17, 128, EPS2), (2, 2, 256, EPS2), (3, 9, 256, 1e-14),
+                            (2, 3, 1024, EPS2)):
+        tgt = _inputs(rng, nt * b, nt * b - 40, dev)[0]
+        src = _inputs(rng, ns * b, ns * b - 24, dev)[0]
+        src[:, :3] += 0.5
+        tgt[7, 3] = src[ns * b // 2, 3] = 1e7
+        acc_t, acc_s = cf.accel_pair_sym(tgt, src, G, eps2=eps2, b=b)
+        want_t, want_s = cf.accel_pair_sym_plain(tgt, src, G, eps2=eps2, b=b)
+        torch.cuda.synchronize()
+        e_t, e_s = rel_err(acc_t, want_t), rel_err(acc_s, want_s)
+        lanes = not acc_t[:, 3].any() and not acc_s[:, 3].any()
+        check(e_t < 2e-5 and e_s < 2e-5 and lanes,
+              f"nt x ns = {nt} x {ns} tiles of {b} eps2 {eps2:g} ({sym_runs(ns)} runs a target tile): pair_sym vs "
+              f"plain with 1e7 bodies on both sides, targets {e_t:.3e}, sources {e_s:.3e} < 2e-5, w lanes 0")
     n = 8192
     pm = _inputs(rng, n, n - 192, dev)[0]
     pm[0, 3] = 1e7
@@ -3297,6 +3479,16 @@ def phase_macro_times(dev) -> dict[str, dict]:
     check(e_t < 2e-5 and e_s < 2e-5,
           f"pair_sym at ({k}, 4) x ({k}, 4) of 14b's state vs plain max-abs/scale targets {e_t:.3e}, sources "
           f"{e_s:.3e} < 2e-5; momentum |sum m a| / sum m|a| {_pair_momentum(t_s, s_s, *got):.3e}")
+    parent = {}
+    if PARENT:
+        par = parent_pair_sym(t_s, s_s, g, eps2, b)
+        e_pt, e_ps = rel_err(par[0], want[0]), rel_err(par[1], want[1])
+        check(e_pt < 2e-5 and e_ps < 2e-5,
+              f"the parent's pair_sym at ({k}, 4) x ({k}, 4) vs plain targets {e_pt:.3e}, sources {e_ps:.3e} < 2e-5")
+        del par
+        parent = vs_parent(f"pair_sym ({size}, 4) x ({size}, 4)",
+                           lambda: cf.accel_pair_sym(tgt, src, g, eps2=eps2, b=b),
+                           lambda: parent_pair_sym(tgt, src, g, eps2, b), reps=3)
     times = {"pair_sym": {
         "max_abs_err": max(max_abs(got[0], want[0]), max_abs(got[1], want[1])),
         "ms": ms,
@@ -3305,6 +3497,7 @@ def phase_macro_times(dev) -> dict[str, dict]:
         "note": f"plain_ms and max_abs_err at ({k}, 4) x ({k}, 4), the twin's one run by host clock; "
                 f"kernel there {small_ms:.4f} ms",
         **bound("pair_sym", size * size, 32 * 2 * size, rsqrts=size * size),
+        **parent,
     }}
     _print_times(times)
     return times
@@ -3438,8 +3631,9 @@ def main() -> int:
     ap.add_argument("--outdir", default=None,
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: time its splat_resolve and mesh_deposit beside this "
-                         "tree's, in turns, at 7c's and the deposit's full-size shapes")
+                    help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops and "
+                         "pair_sym beside this tree's, in turns, at 7c's, the deposit's, phase 3's (N = 262,144) "
+                         "and 14c's (524,288 x 524,288) shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)

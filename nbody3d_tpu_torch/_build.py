@@ -35,11 +35,11 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "nb_force_exact": [P, P, P, I, I, F, F, P],
     "nb_sym_diag_prep": [P, P, P, I, I, F, F, P],
-    "nb_sym_hops": [P, P, I, I, I, I, I, F, P],
+    "nb_sym_hops": [P, P, I, I, I, I, I, I, F, P],
     "nb_sym_epilogue": [P, P, P, P, P, I, I, F, P],
     "nb_sym_diag": [P, P, I, I, F, P],
     "nb_sym_combine": [P, P, P, I, P],
-    "nb_pair_sym": [P, P, P, P, I, I, I, F, F, P],
+    "nb_pair_sym": [P, P, P, P, I, I, I, I, F, F, P],
     "nb_fused_step_exact": [P, P, P, P, P, P, I, I, F, F, F, P],
     "nb_force_fast": [P, P, P, P, I, I, F, I, I, I, P],
     "nb_fused_step_fast": [P, P, P, P, P, P, P, I, I, F, F, P],

@@ -19,6 +19,18 @@ __device__ __forceinline__ float pair_inv3(float dx, float dy, float dz, float e
     return rsqrtf(d2 * (d2 * d2));
 }
 
+// pair_inv3 for a caller that knows d2^3 is a normal float for every pair:
+// eps2 * (eps2 * eps2) >= FLT_MIN, since d2 >= eps2 and rounding is
+// monotone.  rsqrtf guards a subnormal argument (a compare and two
+// multiplies, about 3 of a pair's ~20 issue slots); the ftz form has no
+// guard and returns the same bits for any normal or infinite argument.
+__device__ __forceinline__ float pair_inv3_normal(float dx, float dy, float dz, float eps2) {
+    const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2 * (d2 * d2)));
+    return r;
+}
+
 // The pull on `me` from every row of src[0, n_s), for a block of kTile
 // threads that all call it (force_exact and fused_step_exact).  The block
 // stages each tile of kTile sources through shared memory `tile` (G folded

@@ -24,96 +24,60 @@
 //
 // What bounds it on an H100: operations.  Per pair 25 FP32 FLOP (an FMA
 // counts 2): the separation (3), d2 (3 FMA), d2^3 (2), the two weights
-// G*m*inv3 (2), the forward sum (3 FMA) and the reverse terms (3 multiplies
-// and 3 shared-memory atomic adds), and one MUFU rsqrt: FP32 binds, 25 /
-// 256 FLOP a clock and SM against 1 / 16 MUFU results.  Global memory sees
-// 6 b float atomics a block, 3 (Nt ns + Ns nt) in all: 6 for every b pairs,
-// a small share.
+// G*m*inv3 (2), the forward sum (3 FMA) and the reverse terms (3), and one
+// MUFU rsqrt: FP32 binds, 25 / 256 FLOP a clock and SM against 1 / 16 MUFU
+// results; with the loop's shuffles, loads and index arithmetic a pair
+// issues 20.4 instructions (sym_hops.cu).  Global memory sees one float4
+// atomic a source row and tile and one a target row and run, a small share.
 //
-// Design: sym_hops.cu's, over the full (target tile, source tile) grid.
-// One CUDA block per tile pair (blockIdx.x the target tile, blockIdx.y the
-// source tile), one thread per target row.  The source tile is staged in
-// shared memory as SoA with G folded into its masses.  Thread t visits
-// source s = (t + r) mod b at step r: the forward sum stays in registers;
-// the reverse term goes to a shared-memory accumulator with atomicAdd, and
-// in the staggered order the lanes of a warp hit 32 distinct addresses.
-// Unlike the hop launch, many blocks share a target tile as well as a
-// source tile, so each block ends with one global atomicAdd per row and
-// component for each side.  Atomics make the f32 sum order vary from run
-// to run: results agree with the plain version to f32 reduction-order
-// tolerance, not bit for bit.
+// What the first design lost: sym_hops.cu's first design, a block a
+// tile pair, four staggered scalar shared loads and three shared-memory
+// float atomicAdds a pair (0.198 of the FP32 bound).
+//
+// Design: sym_pairs.cuh's loop.  A block takes target tile blockIdx.x and
+// a run of up to kRun consecutive source tiles (ops/launch.py pair_schedule:
+// the last run is cut short), so the forward sums stay in registers across the
+// run; each pair reads its source as one float4 from shared memory with G
+// folded into the mass, and the reverse sums go through registers and warp
+// shuffles to one float4 global atomic a source row and tile.  Atomics make
+// the f32 sum order vary from run to run: results agree with the plain
+// version to f32 reduction-order tolerance, not bit for bit.
 #include <cuda_runtime.h>
 
-#include "pair.cuh"
+#include "sym_pairs.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
-pair_sym_kernel(const float4* __restrict__ tgt, const float4* __restrict__ src, float* __restrict__ acc_t,
-                float* __restrict__ acc_s, int b, float G, float eps2) {
-    extern __shared__ float sh[];
-    float* sx = sh;
-    float* sy = sx + b;
-    float* sz = sy + b;
-    float* sg = sz + b;
-    float* rx = sg + b;
-    float* ry = rx + b;
-    float* rz = ry + b;
-    const int t = threadIdx.x;
-    const long long row_i = static_cast<long long>(blockIdx.x) * b + t;
-    const long long row_j = static_cast<long long>(blockIdx.y) * b + t;
-    const float4 me = tgt[row_i];
-    const float gm_i = G * me.w;
-    const float4 q = src[row_j];
-    sx[t] = q.x;
-    sy[t] = q.y;
-    sz[t] = q.z;
-    sg[t] = G * q.w;
-    rx[t] = 0.f;
-    ry[t] = 0.f;
-    rz[t] = 0.f;
-    __syncthreads();
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int r = 0; r < b; ++r) {
-        int s = t + r;
-        if (s >= b) s -= b;
-        const float dx = sx[s] - me.x;
-        const float dy = sy[s] - me.y;
-        const float dz = sz[s] - me.z;
-        const float inv3 = pair_inv3(dx, dy, dz, eps2);
-        const float wf = sg[s] * inv3;
-        ax = fmaf(wf, dx, ax);
-        ay = fmaf(wf, dy, ay);
-        az = fmaf(wf, dz, az);
-        const float wr = gm_i * inv3;
-        atomicAdd(&rx[s], -(wr * dx));
-        atomicAdd(&ry[s], -(wr * dy));
-        atomicAdd(&rz[s], -(wr * dz));
-    }
-    __syncthreads();
-    float* ai = acc_t + row_i * 4;
-    atomicAdd(ai + 0, ax);
-    atomicAdd(ai + 1, ay);
-    atomicAdd(ai + 2, az);
-    float* aj = acc_s + row_j * 4;
-    atomicAdd(aj + 0, rx[t]);
-    atomicAdd(aj + 1, ry[t]);
-    atomicAdd(aj + 2, rz[t]);
+template <bool kNormal>
+__global__ void __launch_bounds__(sym_pairs::kMaxThreads)
+pair_sym_kernel(const float4* __restrict__ tgt, const float4* __restrict__ src, float4* __restrict__ acc_t,
+                float4* __restrict__ acc_s, int ns, int b, float G, float eps2) {
+    const long long rows = static_cast<long long>(blockIdx.x) * b;
+    // Block (i, r) takes run (r + i) mod runs: the blocks in flight together
+    // (consecutive i) add into different source tiles.
+    const int first = static_cast<int>((blockIdx.y + blockIdx.x) % gridDim.y) * sym_pairs::kRun;
+    const int n_run = min(sym_pairs::kRun, ns - first);
+    sym_pairs::tile_run<kNormal>(tgt + rows, acc_t + rows, src, acc_s, b, n_run, [=](int c) { return first + c; },
+                                 G, eps2);
 }
 
 }  // namespace
 
 // tgt (nt*b, 4), src (ns*b, 4), acc_t and acc_s zeroed by the caller;
-// b <= 1024, ns <= 65535 (the grid's y extent).
-extern "C" int nb_pair_sym(const void* tgt, const void* src, void* acc_t, void* acc_s, int nt, int ns, int b,
-                           float G, float eps2, void* stream) {
-    if (ns > 65535) return static_cast<int>(cudaErrorInvalidValue);
+// b <= 1024; `runs` blocks a target tile (ops/launch.py sym_runs; refused
+// unless it is sym_pairs::runs_for(ns)).
+extern "C" int nb_pair_sym(const void* tgt, const void* src, void* acc_t, void* acc_s, int nt, int ns, int runs,
+                           int b, float G, float eps2, void* stream) {
     if (nt > 0 && ns > 0) {
-        const size_t smem = 7 * static_cast<size_t>(b) * sizeof(float);
-        const dim3 grid(nt, ns);
-        pair_sym_kernel<<<grid, b, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(tgt), static_cast<const float4*>(src), static_cast<float*>(acc_t),
-            static_cast<float*>(acc_s), b, G, eps2);
+        if (runs != sym_pairs::runs_for(ns) || runs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+        const size_t smem = sym_pairs::smem_bytes(b);
+        const auto kernel = sym_pairs::normal_cubes(eps2) ? pair_sym_kernel<true> : pair_sym_kernel<false>;
+        const cudaError_t e = sym_pairs::allow_smem(kernel, smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const dim3 grid(nt, runs);
+        kernel<<<grid, sym_pairs::threads_for(b), smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(tgt), static_cast<const float4*>(src), static_cast<float4*>(acc_t),
+            static_cast<float4*>(acc_s), ns, b, G, eps2);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -21,92 +21,69 @@
 // f32 dx, so the pair's momentum cancels to f32 rounding of the two
 // products, not of a limb reconstruction.
 //
-// What bounds it on an H100: the step's N^2/2 pairs, each ~12 FP32 issue
-// slots, one MUFU rsqrt and three shared-memory float atomics (the reverse
-// sum).  Global memory sees O(N * nt) atomics in all, a small share.
+// What bounds it on an H100: instruction issue.  A pair is 16 FP32
+// instructions (25 FLOP, an FMA counting 2: the separation, d2, d2^3, the
+// two weights, the forward FMAs and the reverse terms) and one MUFU rsqrt;
+// sym_pairs.cuh's loop adds about 0.8 shuffles, 0.8 shuffle adds, 0.25
+// float4 loads and 1.3 integer operations a pair, 20.4 instructions in all
+// (its SASS), against 128 lanes a clock issued on each SM: about 6.3 pairs a
+// clock and SM at full issue, 0.6 of the FP32 rate.
 //
-// Design: one CUDA block per tile pair, one thread per target row of tile
-// i.  Tile j is staged in shared memory (SoA, so a warp reads 32 banks).
-// Thread t visits source s = (t + r) mod b at step r: the forward sum stays
-// in registers, and the reverse term goes to a shared-memory accumulator
-// with atomicAdd; in the staggered order the lanes of a warp hit 32
-// distinct addresses, so they rarely collide.  CUDA blocks run in parallel
-// and in no order, unlike the TPU's sequential grid that carried the
-// reverse accumulator in VMEM, so each block ends with one global atomicAdd
-// per row and component for each side.  Atomics make the f32 sum order
-// vary from run to run: results agree with the plain version to f32
-// reduction-order tolerance, not bit for bit.
+// What the first design lost: a block took one tile pair, read
+// each source as four staggered scalar loads from SoA shared arrays and
+// added each reverse term with three shared-memory float atomicAdds, so a
+// pair cost about seven LSU operations beside its arithmetic (2.0 pairs a
+// clock and SM measured, 0.197 of the FP32 bound), and each tile pair ended
+// in 6 b global atomics.
+//
+// Design: sym_pairs.cuh's loop.  A block takes target tile i and a run of
+// up to kRun consecutive hops k of its launch (ops/launch.py hop_blocks: the
+// last run of a launch is cut short), so the forward sums stay in registers
+// across the run and reach global memory once; each pair reads its source
+// as one float4 from shared memory, and the reverse sums go through
+// registers and warp shuffles, one float4 global atomic a source row and
+// tile.  Call C (the half hop) has one hop, so its runs are one tile.
+// Atomics make the f32 sum order vary from run to run: results agree with
+// the plain version to f32 reduction-order tolerance, not bit for bit.
 #include <cuda_runtime.h>
 
-#include "pair.cuh"
+#include "sym_pairs.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
-sym_hops_kernel(const float4* __restrict__ src, float* __restrict__ acc, int nt, int b, int k0,
+template <bool kNormal>
+__global__ void __launch_bounds__(sym_pairs::kMaxThreads)
+sym_hops_kernel(const float4* __restrict__ src, float4* __restrict__ acc, int nt, int b, int k0, int nk,
                 float eps2) {
-    extern __shared__ float sh[];
-    float* sx = sh;
-    float* sy = sx + b;
-    float* sz = sy + b;
-    float* sg = sz + b;
-    float* rx = sg + b;
-    float* ry = rx + b;
-    float* rz = ry + b;
-    const int t = threadIdx.x;
     const int i = blockIdx.x;
-    int j = i + k0 + static_cast<int>(blockIdx.y);
-    if (j >= nt) j -= nt;
-    const long long row_i = static_cast<long long>(i) * b + t;
-    const long long row_j = static_cast<long long>(j) * b + t;
-    const float4 me = src[row_i];
-    const float4 q = src[row_j];
-    sx[t] = q.x;
-    sy[t] = q.y;
-    sz[t] = q.z;
-    sg[t] = q.w;
-    rx[t] = 0.f;
-    ry[t] = 0.f;
-    rz[t] = 0.f;
-    __syncthreads();
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int r = 0; r < b; ++r) {
-        int s = t + r;
-        if (s >= b) s -= b;
-        const float dx = sx[s] - me.x;
-        const float dy = sy[s] - me.y;
-        const float dz = sz[s] - me.z;
-        const float inv3 = pair_inv3(dx, dy, dz, eps2);
-        const float wf = sg[s] * inv3;
-        ax = fmaf(wf, dx, ax);
-        ay = fmaf(wf, dy, ay);
-        az = fmaf(wf, dz, az);
-        const float wr = me.w * inv3;
-        atomicAdd(&rx[s], -(wr * dx));
-        atomicAdd(&ry[s], -(wr * dy));
-        atomicAdd(&rz[s], -(wr * dz));
-    }
-    __syncthreads();
-    float* ai = acc + row_i * 4;
-    atomicAdd(ai + 0, ax);
-    atomicAdd(ai + 1, ay);
-    atomicAdd(ai + 2, az);
-    float* aj = acc + row_j * 4;
-    atomicAdd(aj + 0, rx[t]);
-    atomicAdd(aj + 1, ry[t]);
-    atomicAdd(aj + 2, rz[t]);
+    const int first = k0 + static_cast<int>(blockIdx.y) * sym_pairs::kRun;
+    const int n_run = min(sym_pairs::kRun, k0 + nk - first);
+    const long long rows = static_cast<long long>(i) * b;
+    sym_pairs::tile_run<kNormal>(
+        src + rows, acc + rows, src, acc, b, n_run,
+        [=](int c) {
+            const int j = i + first + c;
+            return j >= nt ? j - nt : j;
+        },
+        1.f, eps2);
 }
 
 }  // namespace
 
-// One launch: tile rows i = 0..grid_i-1 against hops k = k0..k0+nk-1.
-extern "C" int nb_sym_hops(const void* src, void* acc_hop, int nt, int b, int k0, int nk,
-                           int grid_i, float eps2, void* stream) {
+// One launch: tile rows i = 0..grid_i-1 against hops k = k0..k0+nk-1, in
+// `runs` blocks a row (ops/launch.py hop_blocks; refused unless it is
+// sym_pairs::runs_for(nk)).
+extern "C" int nb_sym_hops(const void* src, void* acc_hop, int nt, int b, int k0, int nk, int grid_i, int runs,
+                           float eps2, void* stream) {
     if (grid_i > 0 && nk > 0) {
-        const size_t smem = 7 * static_cast<size_t>(b) * sizeof(float);
-        const dim3 grid(grid_i, nk);
-        sym_hops_kernel<<<grid, b, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(src), static_cast<float*>(acc_hop), nt, b, k0, eps2);
+        if (runs != sym_pairs::runs_for(nk) || runs > 65535) return static_cast<int>(cudaErrorInvalidValue);
+        const size_t smem = sym_pairs::smem_bytes(b);
+        const auto kernel = sym_pairs::normal_cubes(eps2) ? sym_hops_kernel<true> : sym_hops_kernel<false>;
+        const cudaError_t e = sym_pairs::allow_smem(kernel, smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+        const dim3 grid(grid_i, runs);
+        kernel<<<grid, sym_pairs::threads_for(b), smem, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float4*>(src), static_cast<float4*>(acc_hop), nt, b, k0, nk, eps2);
     }
     return static_cast<int>(cudaGetLastError());
 }

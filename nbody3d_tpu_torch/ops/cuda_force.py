@@ -50,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, valid_mask
-from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, launch, lib, split_hops
+from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, hop_blocks, launch, lib, split_hops, sym_runs
 
 
 # ------------------------------------------------------------ force_exact
@@ -435,8 +435,8 @@ def sym_hops(src: torch.Tensor, eps2: float, b: int) -> torch.Tensor:
         return sym_hops_plain(src, eps2, b)
     acc = torch.zeros_like(src)
     fn = lib().nb_sym_hops
-    for k0, nk, grid_i in split_hops(nt):
-        launch("sym_hops", dev, fn, src, acc, nt, b, k0, nk, grid_i, float(eps2))
+    for k0, nk, grid_i, runs in hop_blocks(nt):
+        launch("sym_hops", dev, fn, src, acc, nt, b, k0, nk, grid_i, runs, float(eps2))
     return acc
 
 
@@ -597,7 +597,9 @@ def accel_pair_sym(
         return accel_pair_sym_plain(tgt, src, G, eps2=eps2, b=b)
     acc_t = torch.zeros_like(tgt)
     acc_s = torch.zeros_like(src)
-    launch("pair_sym", dev, lib().nb_pair_sym, tgt, src, acc_t, acc_s, nt, ns, b, float(G), float(eps2))
+    launch(
+        "pair_sym", dev, lib().nb_pair_sym, tgt, src, acc_t, acc_s, nt, ns, sym_runs(ns), b, float(G), float(eps2)
+    )
     return acc_t, acc_s
 
 

@@ -113,6 +113,47 @@ def split_hops(nt: int) -> list[tuple[int, int, int]]:
     return calls
 
 
+# Source tiles a sym_hops or pair_sym block takes: csrc/sym_pairs.cuh kRun,
+# which the C entry points check the grids against.
+SYM_RUN = 8
+
+
+def sym_runs(n_src: int, run: int = SYM_RUN) -> int:
+    """Blocks along the run axis for ``n_src`` source tiles (or hops) taken
+    in runs of ``run``, the last run cut short."""
+    return -(-n_src // run)
+
+
+def hop_blocks(nt: int, run: int = SYM_RUN) -> list[tuple[int, int, int, int]]:
+    """``(k0, nk, grid_i, runs)`` of each ``sym_hops`` launch: the launches
+    of :func:`split_hops`, each a grid of ``grid_i`` target tiles by
+    ``runs`` runs of hops."""
+    return [(k0, nk, grid_i, sym_runs(nk, run)) for k0, nk, grid_i in split_hops(nt)]
+
+
+def hop_schedule(nt: int, run: int = SYM_RUN):
+    """``(i, [j, ...])`` of every ``sym_hops`` block, launch by launch: its
+    target tile and the source tiles of its run, in the kernel's order
+    (block ``(i, r)`` takes hops ``k0 + r*run`` up to the launch's end)."""
+    for k0, nk, grid_i, runs in hop_blocks(nt, run):
+        for i in range(grid_i):
+            for r in range(runs):
+                ks = range(k0 + r * run, min(k0 + nk, k0 + (r + 1) * run))
+                yield i, [(i + k) % nt for k in ks]
+
+
+def pair_schedule(nt: int, ns: int, run: int = SYM_RUN):
+    """``(i, [j, ...])`` of every ``pair_sym`` block: target tile ``i`` and
+    its run of consecutive source tiles (block ``(i, r)`` takes run
+    ``(r + i) mod runs``, source tiles from ``run`` times that up to
+    ``ns``)."""
+    runs = sym_runs(ns, run)
+    for i in range(nt):
+        for r in range(runs):
+            first = (r + i) % runs * run
+            yield i, list(range(first, min(ns, first + run)))
+
+
 def lib():
     from nbody3d_tpu_torch._build import load_library
 

@@ -34,7 +34,9 @@ from nbody3d_tpu.state import SimState as JaxState  # noqa: E402
 from nbody3d_tpu_torch import SimConfig, Simulation, cli  # noqa: E402
 from nbody3d_tpu_torch.ops import cuda_force as cf  # noqa: E402
 from nbody3d_tpu_torch.ops import step as tstep  # noqa: E402
-from nbody3d_tpu_torch.ops.launch import KERNELS, launch_counts, reset_launch_counts  # noqa: E402
+from nbody3d_tpu_torch.ops.launch import (  # noqa: E402
+    KERNELS, SYM_RUN, launch_counts, pair_schedule, reset_launch_counts, sym_runs,
+)
 from nbody3d_tpu_torch.state import SimState  # noqa: E402
 
 G, EPS2, DT = 1e-4, 1e-4, 1e-3
@@ -111,6 +113,26 @@ def test_pair_sym_newton3_momentum(rng, nt, ns, b, heavy):
     scale = float((m_t * acc_t.double().norm(dim=1, keepdim=True)).sum()
                   + (m_s * acc_s.double().norm(dim=1, keepdim=True)).sum())
     assert float(p.abs().max()) < 1e-6 * scale
+
+
+@pytest.mark.parametrize("run", [1, 3, SYM_RUN])
+@pytest.mark.parametrize("nt,ns", [(1, 1), (1, 9), (3, 8), (2, 17), (5, 16), (4, 2048), (2, 2049)])
+def test_pair_schedule_covers_each_tile_pair_once(nt, ns, run):
+    """The ``pair_sym`` block schedule: every (target tile, source tile)
+    exactly once, runs of at most ``run`` consecutive source tiles, only
+    the last run of a target tile cut short, ``sym_runs(ns)`` blocks a
+    target tile (the wrapper's grid)."""
+    seen = {}
+    blocks = list(pair_schedule(nt, ns, run))
+    for i, js in blocks:
+        assert 1 <= len(js) <= run and js == list(range(js[0], js[0] + len(js)))
+        for j in js:
+            seen[(i, j)] = seen.get((i, j), 0) + 1
+    assert set(seen) == {(i, j) for i in range(nt) for j in range(ns)}
+    assert set(seen.values()) == {1}
+    runs = sym_runs(ns, run)
+    assert len(blocks) == nt * runs and (runs - 1) * run < ns <= runs * run
+    assert sum(len(js) < run for _, js in blocks) == (nt if ns % run else 0)
 
 
 # ---------------------------------------------------------- (f) refusals

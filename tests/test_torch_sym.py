@@ -19,7 +19,9 @@ import jax.numpy as jnp  # noqa: E402
 from nbody3d_tpu.ops.force_jnp import accel_direct as jax_accel_direct  # noqa: E402
 from nbody3d_tpu.ops.pallas_force import accel_sym_pallas, sym_verlet_step_pallas  # noqa: E402
 from nbody3d_tpu_torch.ops import cuda_force as cf  # noqa: E402
-from nbody3d_tpu_torch.ops.launch import launch_counts, split_hops  # noqa: E402
+from nbody3d_tpu_torch.ops.launch import (  # noqa: E402
+    SYM_RUN, hop_blocks, hop_schedule, launch_counts, split_hops,
+)
 
 G, EPS2, DT = 1e-4, 1e-4, 1e-3
 
@@ -100,6 +102,42 @@ def test_hop_pair_sets_cover_each_pair_once(nt):
                 seen[pair] = seen.get(pair, 0) + 1
     assert len(seen) == nt * (nt - 1) // 2
     assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("run", [1, 3, 7, SYM_RUN])
+@pytest.mark.parametrize("nt", [1, 2, 3, 4, 5, 6, 7, 8, 9, 157, 1024])
+def test_hop_schedule_covers_each_pair_once(nt, run):
+    """The ``sym_hops`` block schedule (target tile, run of source tiles):
+    every unordered pair of distinct tiles exactly once, runs of at most
+    ``run`` consecutive hops, only a launch's last run cut short, and the
+    grids of ``hop_blocks`` (what the wrapper launches) holding exactly
+    these blocks.  ``run`` divides the hop count of some cases (run 1; 3
+    and 7 at nt = 157, 1024) and not of others."""
+    seen = {}
+    blocks = list(hop_schedule(nt, run))
+    for i, js in blocks:
+        assert 1 <= len(js) <= run
+        assert all((b - a) % nt == 1 for a, b in zip(js, js[1:]))  # consecutive hops
+        for j in js:
+            pair = frozenset((i, j))
+            assert len(pair) == 2
+            seen[pair] = seen.get(pair, 0) + 1
+    assert len(seen) == nt * (nt - 1) // 2
+    assert set(seen.values()) <= {1}
+    launches = hop_blocks(nt, run)
+    assert [(k0, nk, gi) for k0, nk, gi, _ in launches] == split_hops(nt)
+    assert len(blocks) == sum(gi * runs for _, _, gi, runs in launches)
+    for _, nk, _, runs in launches:
+        assert (runs - 1) * run < nk <= runs * run
+
+
+def test_sym_run_matches_the_kernel_constant():
+    """``SYM_RUN`` sizes the grids of ``sym_hops`` and ``pair_sym``; the
+    kernels take runs of ``kRun`` source tiles (and refuse other grids)."""
+    from nbody3d_tpu_torch._build import CSRC
+
+    header = (CSRC / "sym_pairs.cuh").read_text()
+    assert f"constexpr int kRun = {SYM_RUN};" in header
 
 
 def test_epilogue_plain_order_matches_integrator(rng):
