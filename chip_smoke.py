@@ -4,24 +4,28 @@
     python3 chip_smoke.py                 # everything below, one card
     python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
-    python3 chip_smoke.py --parent DIR    # also time a parent checkout's scatter and sym kernels
+    python3 chip_smoke.py --parent DIR    # also time a parent checkout's redesigned kernels
 
 Phases, one line each (a failed check prints FAIL and the run exits 1):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc builds the nineteen kernels from ``nbody3d_tpu_torch/csrc``,
-   one nvcc process per source, all started together; ``sym_hops``' and
-   ``pair_sym``'s registers and spill bytes (ptxas) and, where
-   ``cuobjdump`` is on the machine, the count of their SASS instructions
-   by opcode (``ATOMS``, ``RED``, ``LDS``, ``MUFU``, ``SHFL``, ...), the
-   parent's too with ``--parent``.
+   one nvcc process per source, all started together; the registers and
+   spill bytes (ptxas) of ``sym_hops``, ``pair_sym``, ``vjp_sym_hops`` and
+   ``short_range`` and, where ``cuobjdump`` is on the machine, the count of
+   their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
+   ``MUFU``, ``SHFL``, ``VOTE``, ``BSSY``, ...), in all and in the pair
+   loop, the parent's too with ``--parent``.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
    included (forward: accelerations and the step; VJP: x̄, m̄ and Ḡ);
    ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
    and padded rows, at tile counts that cut a block's run of hops short
    (nt = 2, 8, 19, 35 and 36), at eps2 = 1e-14 (a subnormal eps2^3) and at
-   tiles of 512 and 1024 rows: < 2e-5 of scale; the
+   tiles of 512 and 1024 rows: < 2e-5 of scale; ``vjp_sym_hops`` (summed
+   with the diagonal) at the same tile counts and tiles, at eps2 = 1e-40
+   (subnormal) and on ``pair_checks.vjp_heavy`` (a 1e7 body), < 2e-5 of
+   scale, the parent's kernel too with ``--parent``; the
    VJP accuracy gate of ``benchmarks/grad_bench.py`` (median x̄ relative
    error <= 1e-4 against an f64 numpy oracle, uniform-sphere N = 4,096,
    both schedules); then each kernel's time beside its twin's at the
@@ -30,7 +34,10 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``vjp_combine`` with L2 warm and with L2 flushed, at full width the
    sym VJP against the full-grid VJP and both against f64 on 256 rows, and
    the VJP stages at the exact gradient path's shape and data (two-galaxy,
-   nt = 157) against their twins, the full grid and f64.
+   nt = 157) against their twins, the full grid and f64; with
+   ``--parent`` the parent's ``sym_hops`` and ``vjp_sym_hops`` beside this
+   tree's in turns (N = 262,144; ``vjp_sym_hops`` also at nt = 157), and
+   ``vjp_sym_hops`` with its guarded rsqrt beside its ftz one.
 4. exact main path: ``Simulation.from_preset("two-galaxy", SimConfig())``,
    200 steps in chunks of 50, energy drift <= 1e-3 and momentum error
    <= 1e-5 of sum |m v|.
@@ -62,7 +69,10 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    7a) ``short_range``, ``mesh_deposit`` and ``mesh_gather`` against their
    plain twins on the clustered two-galaxy scene (n = 4,096) at N = 8,192
    and 7,936, tiles 128 and 256, grids 32 and 128, TSC and CIC, and
-   ``short_range`` with slots masked; then ``mesh_deposit`` on
+   ``short_range`` with slots masked (bit-equal to the parent's kernel with
+   ``--parent``), and on ``pair_checks``' planted pairs (r^2 one ulp either
+   side of rcut^2, a warp with one live lane, masked slots, coincident
+   rows) against its twin and the parent's kernel; then ``mesh_deposit`` on
    ``scatter_checks.deposit_adversarial``'s isolated scenes (one cell,
    unsorted, Morton runs across octant boundaries), each against its twin
    as 8b's and its blocks a path equal to :func:`deposit_block_paths`'
@@ -78,7 +88,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    against its twin under that two-level selection and a 2-step rollout
    gradient's ms/step and peak memory; the three kernels at
    that shape beside their twins, bounds and (deposit) ``index_add_``
-   (the deposit per cell within the f32 summation bound, the total mass,
+   (``short_range``'s bound counts the pairs within rcut, its all-pairs
+   bound beside it, with the shares of its live-slot pairs within rcut and
+   through the warps' votes and the slots that skip the votes counted on
+   the card, and with ``--parent`` bit-equal to the parent's kernel and
+   timed beside it in turns;
+   the deposit per cell within the f32 summation bound, the total mass,
    and bit for bit on exact terms; its blocks a path), and a force
    evaluation's device time stage by stage; (c) p3m_bench's accuracy probe (two-galaxy
    n = 16,384, grid 128) against ``force_exact``, median < 2e-3 and
@@ -101,8 +116,10 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    the flat selection), a 5-step rollout, loss sum |x|^2 / n, gradient by
    v0, forward and gradient ms/step, their ratio and the peak memory, with
    every plain twin of the mesh path patched to raise; after the windows
-   ``short_range_bwd`` at that shape beside its twin; (c) the same for PM
-   (grid 128, CIC); (d) at N = 8,192 (8e's scene) the kernel route's 5-step
+   ``short_range_bwd`` at that shape beside its twin, and ``short_range``'s
+   slots without votes there (with ``--parent`` also ``short_range``
+   bit-equal to the parent's kernel and timed beside it in turns); (c) the
+   same for PM (grid 128, CIC); (d) at N = 8,192 (8e's scene) the kernel route's 5-step
    rollout gradient against ``backend="jnp"``'s for both methods, by v0,
    dt and G, rtol 2e-3.
 10. the unfused sym step (``--integrator yoshida4|euler``,
@@ -150,7 +167,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    CIC: the deposit per cell within its f32 summation bound, bit for bit
    on exact terms with the first and last cells written, the gather within
    1e-5 of the max, ``short_range`` rtol 2e-4, atol 3e-6 of the max against
-   the twin and the twin in f64; the periodic ``mesh_deposit`` on
+   the twin and the twin in f64 (and the parent's kernel bit for bit with
+   ``--parent``), and on ``pair_checks``' periodic planted pairs (8a's, and
+   pairs across the seams); the periodic ``mesh_deposit`` on
    ``scatter_checks.deposit_adversarial``'s periodic scenes (one cell by the far
    corner, Morton runs across the seams and across octant boundaries), as
    8a's; (b) p3m_bench's periodic configuration
@@ -160,7 +179,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    inherited ``nbr_k`` fault, reported and not gated (2,048 sampled bodies
    against the f64 Ewald oracle, the tile overflow, the quantiles of the
    tiles within rcut) and the three kernels at that shape beside their
-   twins, bounds and (deposit) ``index_add_``; (c) the accuracy gate:
+   twins, bounds and (deposit) ``index_add_`` (``short_range`` as 8b's:
+   both bounds, the shares and the parent's kernel); (c) the
+   accuracy gate:
    uniform-box N = 32,768, box 1, grid 32, k = 128 (overflow 0), interlace
    off and on, 2,048 sampled bodies against the f64 Ewald oracle, median <
    3e-3 and p99 < 2e-2; ``cli run --boundary periodic`` (the JAX collapse
@@ -245,7 +266,7 @@ import time
 import numpy as np
 import torch
 
-from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli
+from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli, pair_checks
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import ewald
@@ -446,9 +467,10 @@ def phase_build() -> None:
     sym_kernel_report("this tree", _build.build_log(), path)
 
 
-# The Newton-3 pair kernels whose inner loop PERF.md describes from these counts.
-SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel")
-SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "MUFU", "FFMA", "FMUL", "FADD", "FSEL", "BAR")
+# The pair kernels whose inner loop PERF.md describes from these counts.
+SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel", "vjp_sym_hops_kernel", "short_range_kernel")
+SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "VOTE", "BSSY", "MUFU", "FFMA", "FMUL", "FADD", "FSEL",
+            "BAR")
 
 
 def ptxas_usage(log: str) -> dict[str, dict]:
@@ -494,23 +516,29 @@ def _op_counts(listing) -> dict[str, int]:
     return counts
 
 
-def pair_loop(listing) -> list:
-    """The instructions of the pair loop: of the loops (a backward branch
-    and its target), the one that holds the most MUFUs (one a pair), the
-    shortest if several do; [] if there is none."""
+def pair_loops(listing) -> list[list]:
+    """The instructions of each pair loop: of the loops (a backward branch
+    and its target) that hold MUFUs (one a pair) and no other such loop,
+    those that hold the most; [] if there is none.  ``short_range``'s
+    isolated form has two, the sweep with the votes and the one without."""
     mufu = [a for a, op, _ in listing if op == "MUFU"]
-    loops = [(t, a) for a, op, t in listing if op == "BRA" and t is not None and t < a]
+    loops = {(t, a) for a, op, t in listing if op == "BRA" and t is not None and t < a}
     held = {span: sum(span[0] <= m <= span[1] for m in mufu) for span in loops}
-    if not held or max(held.values()) == 0:
+    held = {s: n for s, n in held.items() if n}
+    inner = {s: n for s, n in held.items() if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in held)}
+    if not inner:
         return []
-    lo, hi = min(held, key=lambda span: (-held[span], span[1] - span[0]))
-    return [x for x in listing if lo <= x[0] <= hi]
+    top = sorted(s for s, n in inner.items() if n == max(inner.values()))
+    return [[x for x in listing if lo <= x[0] <= hi] for lo, hi in top]
 
 
 def sym_kernel_report(tag: str, log: str, lib_path) -> None:
-    """Registers and spills (ptxas) of the Newton-3 pair kernels, their SASS
-    instructions by opcode, and those of the pair loop (each instance; one
-    MUFU a pair, so the loop's counts over its MUFUs are a pair's)."""
+    """Registers and spills (ptxas) of the pair kernels, their SASS
+    instructions by opcode, and those of the pair loop (each instance; the
+    Newton-3 kernels issue one MUFU a pair, so the loop's counts over its
+    MUFUs are a pair's; ``short_range`` four, SR_MUFU, on a pair that takes
+    the arithmetic, so its counts are a pair's when the vote is live, and a
+    pair whose vote is not skips the arithmetic's branch)."""
     usage, sass = ptxas_usage(log), sass_listing(lib_path)
     for kernel in SYM_PAIR_KERNELS:
         for name in sorted(n for n in set(usage) | set(sass) if re.search(rf"\d{kernel}", n)):
@@ -518,13 +546,14 @@ def sym_kernel_report(tag: str, log: str, lib_path) -> None:
             if not listing:
                 print(f"  [{tag}] {name}: {usage.get(name, {})}; no cuobjdump", flush=True)
                 continue
-            ops, loop = _op_counts(listing), _op_counts(pair_loop(listing))
-            pairs = loop.get("MUFU", 0)
+            ops = _op_counts(listing)
             print(f"  [{tag}] {name}: {usage.get(name, {})}; SASS {len(listing)} instructions: "
                   + ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPS), flush=True)
-            print(f"    pair loop: {sum(loop.values())} instructions for {pairs} pairs a lane "
-                  f"({sum(loop.values()) / max(pairs, 1):.2f} a pair): "
-                  + ", ".join(f"{op} {c}" for op, c in sorted(loop.items(), key=lambda kv: -kv[1])), flush=True)
+            for loop in map(_op_counts, pair_loops(listing)):
+                pairs = loop.get("MUFU", 0) / (SR_MUFU if kernel == "short_range_kernel" else 1)
+                print(f"    pair loop: {sum(loop.values())} instructions for {pairs:g} pairs a lane "
+                      f"({sum(loop.values()) / max(pairs, 1):.2f} a pair): "
+                      + ", ".join(f"{op} {c}" for op, c in sorted(loop.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def _inputs(rng, n_pad: int, n_real: int, dev):
@@ -741,6 +770,47 @@ def phase_vjp_checks(dev) -> None:
               f"{tag}: sym schedule vs full grid x̄ {ex:.3e}, m̄ {em:.3e} < 2e-5, Ḡ {eg:.3e} < 1e-5")
         pad0 = bool((sym_k[0][n_real:, :3] == 0).all() and (full_k[0][n_real:, :3] == 0).all())
         check(pad0 and bool(torch.isfinite(sym_k[0]).all()), f"{tag}: padded rows' x̄ exactly 0, all finite")
+    phase_vjp_run_checks(dev)
+
+
+def _hops_err(acc_d, acc_h, acc_h_p) -> float:
+    """``vjp_sym_hops`` against its twin summed with the diagonal, as the
+    VJP sums them: the worst of the five columns' max-abs over scale."""
+    return max(rel_err(acc_d[:, c] + acc_h[:, c], acc_d[:, c] + acc_h_p[:, c]) for c in range(5))
+
+
+# (N, tile, eps2) of vjp_sym_hops' run checks: SYM_RUN_SHAPES' tile counts
+# (runs of hops cut short) and tiles (512 and 1024 rows: shared memory above
+# 48 KB), eps2 = 1e-40 (subnormal: the kernel takes rsqrtf with its guard;
+# no padded rows there, whose coincident pairs would make w overflow).
+VJP_RUN_SHAPES = tuple((n, b, 1e-40 if eps2 < EPS2 else eps2) for n, b, eps2 in SYM_RUN_SHAPES)
+
+
+def phase_vjp_run_checks(dev) -> None:
+    """``vjp_sym_hops`` against its twin where a block's run of hops is cut
+    short, at tiles of 512 and 1024 and a subnormal eps2, with a 1e7 body
+    and padded rows, and on ``pair_checks.vjp_heavy``; < 2e-5 of scale
+    (summed with the diagonal), the parent's kernel too with ``--parent``."""
+    rng = np.random.default_rng(4)
+    cases = [(f"N={n} tile {b} eps2 {eps2:g}", _inputs(rng, n, n - (37 if eps2 >= EPS2 else 0), dev)[0], b, eps2)
+             for n, b, eps2 in VJP_RUN_SHAPES]
+    pm_h, abar_h = (torch.from_numpy(a).to(dev) for a in pair_checks.vjp_heavy())
+    for tag, pm, b, eps2 in cases + [("pair_checks.vjp_heavy N=1024 tile 256", pm_h, 256, EPS2)]:
+        if pm is pm_h:
+            abar = abar_h
+        else:
+            pm[pm.shape[0] // 3, 3] = 1e7
+            abar = _cotangent(rng, pm.shape[0], int((pm[:, 3] != 0).sum()), dev)
+        acc_d = fv.vjp_sym_diag(pm, abar, eps2, b)
+        acc_h, acc_h_p = fv.vjp_sym_hops(pm, abar, eps2, b), fv.vjp_sym_hops_plain(pm, abar, eps2, b)
+        torch.cuda.synchronize()
+        e = _hops_err(acc_d, acc_h, acc_h_p)
+        check(e < 2e-5 and not acc_h[:, 5:].any() and bool(torch.isfinite(acc_h).all()),
+              f"{tag} (launches (k0, nk, grid_i, runs) {hop_blocks(pm.shape[0] // b)}): vjp_sym_hops vs plain "
+              f"with a 1e7 body (summed with diag), worst column {e:.3e} < 2e-5, finite, columns 5-7 zero")
+        if PARENT:
+            e_par = _hops_err(acc_d, parent_vjp_sym_hops(pm, abar, eps2, b), acc_h_p)
+            check(e_par < 2e-5, f"{tag}: the parent's vjp_sym_hops vs plain, worst column {e_par:.3e} < 2e-5")
 
 
 def _vjp_oracle_f64(pm: np.ndarray, abar: np.ndarray, rows: np.ndarray, chunk: int = 64):
@@ -814,8 +884,14 @@ def phase_vjp_two_galaxy(dev, pm: torch.Tensor, n_real: int) -> None:
     torch.cuda.synchronize()
     e_d = max(rel_err(acc_d[:, c], acc_d_p[:, c]) for c in range(5))
     check(e_d < 1e-5, f"{tag}: vjp_sym_diag vs plain, worst column {e_d:.3e} < 1e-5")
-    e_h = max(rel_err(acc_d[:, c] + acc_h[:, c], acc_d[:, c] + acc_h_p[:, c]) for c in range(5))
+    e_h = _hops_err(acc_d, acc_h, acc_h_p)
     check(e_h < 2e-5, f"{tag}: vjp_sym_hops vs plain (summed with diag), worst column {e_h:.3e} < 2e-5")
+    if PARENT:
+        e_par = _hops_err(acc_d, parent_vjp_sym_hops(pm, abar, EPS2, b), acc_h_p)
+        check(e_par < 2e-5, f"{tag}: the parent's vjp_sym_hops vs plain, worst column {e_par:.3e} < 2e-5")
+        vs_parent(f"{tag} vjp_sym_hops", lambda: fv.vjp_sym_hops(pm, abar, EPS2, b),
+                  lambda: parent_vjp_sym_hops(pm, abar, EPS2, b), reps=10)
+        vs_guarded_rsqrt(tag, pm, abar, b, reps=10)
     sym = fv.force_vjp_sym(pm, G, abar, eps2=EPS2, b=b)
     full = fv.force_vjp(pm, G, abar, eps2=EPS2)
     for what, want in (("plain stages", fv.vjp_combine_plain(acc_d_p, acc_h_p, G)), ("full-grid VJP", full)):
@@ -864,8 +940,15 @@ def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
     plain_hops_ms = host_ms(run_plain_hops)
     acc_h = fv.vjp_sym_hops(pm, abar, EPS2, b)
     torch.cuda.synchronize()
-    e_h = max(rel_err(acc_d[:, c] + acc_h[:, c], acc_d[:, c] + acc_h_p[:, c]) for c in range(5))
+    e_h = _hops_err(acc_d, acc_h, acc_h_p)
     check(e_h < 2e-5, f"uniform-sphere N={n}: vjp_sym_hops vs plain (summed with diag), worst column {e_h:.3e} < 2e-5")
+    parent = {}
+    if PARENT:
+        e_par = _hops_err(acc_d, parent_vjp_sym_hops(pm, abar, EPS2, b), acc_h_p)
+        check(e_par < 2e-5, f"uniform-sphere N={n}: the parent's vjp_sym_hops vs plain, worst column {e_par:.3e} < 2e-5")
+        parent = vs_parent(f"vjp_sym_hops N={n}", lambda: fv.vjp_sym_hops(pm, abar, EPS2, b),
+                           lambda: parent_vjp_sym_hops(pm, abar, EPS2, b), reps=3)
+        vs_guarded_rsqrt(f"uniform-sphere N={n}", pm, abar, b, reps=3)
     out["vjp_sym_hops"] = {
         "max_abs_err": max_abs(acc_h, acc_h_p),
         "ms": cuda_ms(lambda: fv.vjp_sym_hops(pm, abar, EPS2, b), reps=3),
@@ -873,6 +956,7 @@ def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
         "shape": f"2 x ({n}, 4) -> ({n}, 8), tile {b}, nt {n // b}",
         "note": f"plain: one run, host clock; worst column max-abs/scale {e_h:.3e}",
         **bound("vjp_sym_hops", hop_pairs(n, b), 64 * n, rsqrts=hop_pairs(n, b)),
+        **parent,
     }
     del acc_h_p
 
@@ -1221,8 +1305,8 @@ PARENT: dict = {}  # the kernel library of a checkout of the parent commit
 
 def load_parent(path: str) -> None:
     """Build the kernels of a checkout of the parent commit at ``path`` with
-    its own ``_build.py`` (into its own build directory), to time its
-    ``splat_resolve`` and ``mesh_deposit`` beside this tree's on one card."""
+    its own ``_build.py`` (into its own build directory), to hold its
+    kernels beside this tree's on one card."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("parent_build", pathlib.Path(path) / "nbody3d_tpu_torch" / "_build.py")
@@ -1255,21 +1339,56 @@ def parent_resolve(prep, w: int, h: int) -> torch.Tensor:
 
 
 def parent_sym_hops(src, eps2: float, b: int) -> torch.Tensor:
-    """The parent's ``sym_hops`` (the C signature of its first design, a
-    block a tile pair: no run count), its launches as ``split_hops``."""
+    """The parent's ``sym_hops`` (this tree's C signature and launches,
+    ``hop_blocks``)."""
     acc = torch.zeros_like(src)
     nt = src.shape[0] // b
-    for k0, nk, grid_i in split_hops(nt):
-        _parent_call(PARENT["lib"].nb_sym_hops, src, acc, nt, b, k0, nk, grid_i, float(eps2))
+    for k0, nk, grid_i, runs in hop_blocks(nt):
+        _parent_call(PARENT["lib"].nb_sym_hops, src, acc, nt, b, k0, nk, grid_i, runs, float(eps2))
     return acc
 
 
 def parent_pair_sym(tgt, src, g: float, eps2: float, b: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The parent's ``pair_sym`` (the C signature of its first design: no run count)."""
+    """The parent's ``pair_sym`` (this tree's C signature)."""
     acc_t, acc_s = torch.zeros_like(tgt), torch.zeros_like(src)
-    _parent_call(PARENT["lib"].nb_pair_sym, tgt, src, acc_t, acc_s, tgt.shape[0] // b, src.shape[0] // b, b,
+    ns = src.shape[0] // b
+    _parent_call(PARENT["lib"].nb_pair_sym, tgt, src, acc_t, acc_s, tgt.shape[0] // b, ns, sym_runs(ns), b,
                  float(g), float(eps2))
     return acc_t, acc_s
+
+
+def parent_short_range(ps, nbr_idx, eps2: float, sigma, rcut, block: int, mask, box: float | None = None):
+    """The parent's ``short_range`` (this tree's C signature: a thread a
+    target row, every pair's arithmetic)."""
+    ops = p3m._kernel_operands("short_range", ps.device, nbr_idx, mask, sigma, rcut)
+    out = torch.empty_like(ps)
+    _parent_call(PARENT["lib"].nb_short_range, ps, *ops, out, nbr_idx.shape[0], nbr_idx.shape[1], block,
+                 float(eps2), float(box or 0.0))
+    return out
+
+
+def parent_vjp_sym_hops(pm, abar, eps2: float, b: int) -> torch.Tensor:
+    """The parent's ``vjp_sym_hops`` (the C signature of its first design, a
+    block a tile pair: no run count), its launches as ``split_hops``."""
+    acc = torch.zeros((pm.shape[0], 8), dtype=torch.float32, device=pm.device)
+    nt = pm.shape[0] // b
+    for k0, nk, grid_i in split_hops(nt):
+        _parent_call(PARENT["lib"].nb_vjp_sym_hops, pm, abar, acc, nt, b, k0, nk, grid_i, float(eps2))
+    return acc
+
+
+def vs_guarded_rsqrt(tag: str, pm, abar, b: int, reps: int) -> None:
+    """With ``--parent``: ``vjp_sym_hops``' two instances timed in turns
+    (guarded, ftz, ftz, guarded; CUDA events, ``reps`` launches each): the
+    one eps2 = 1e-40 selects (``rsqrtf`` with its subnormal guard) and the
+    one the main paths' eps2 selects (the ftz rsqrt, eps2 >= FLT_MIN).
+    The same pairs and instructions but the rsqrt's."""
+    def run(eps2):
+        return lambda: fv.vjp_sym_hops(pm, abar, eps2, b)
+
+    t = [cuda_ms(run(e), reps=reps) for e in (1e-40, EPS2, EPS2, 1e-40)]
+    print(f"    {tag} vjp_sym_hops, rsqrtf with its guard (eps2 = 1e-40) beside the ftz rsqrt (eps2 = {EPS2:g}), "
+          f"in turns: guarded {t[0]:.4f} / {t[3]:.4f} ms, ftz {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
 
 
 def vs_parent(tag: str, fn, parent_fn, reps: int = 20) -> dict:
@@ -1536,6 +1655,103 @@ def _sr_agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     return ok, max_abs(got, want) / scale
 
 
+# FP32 FLOP of a short_range pair's distance test, which every live-slot
+# pair takes: the separation (3), r^2 (5) and the predicate's compares; the
+# periodic minimum image adds its 6 selected adds.  A pair within rcut takes
+# the rest of its FLOP["short_range"] (47) or FLOP["short_range_periodic"]
+# (60) and its MUFU results.
+SR_TEST_FLOP = {"short_range": 12, "short_range_periodic": 18}
+
+
+def rcut_shares(ps, nbr_idx, mask, rcut, block: int, box: float | None = None, tiles: int = 32) -> dict:
+    """Counted on the card from ``short_range``'s inputs: the live-slot
+    pairs (mask not 0), those with 0 < r^2 < rcut^2, and those the warps'
+    votes send through the pair arithmetic (32 consecutive target rows
+    against one source, all 32 if any is within rcut).  r^2 is the twin's
+    f32 sum, not fused as the kernel's: a pair within an ulp of rcut may
+    count the other way."""
+    nb, k = nbr_idx.shape
+    rows = ps[:, :3].reshape(nb, block, 3)
+    rcut2 = (rcut * rcut).to(torch.float32)
+    pairs = in_rcut = voted = 0
+    for t0 in range(0, nb, tiles):
+        t1 = min(nb, t0 + tiles)
+        live_slot = mask[t0:t1] != 0
+        src = rows[nbr_idx[t0:t1].long()]  # (T, k, b, 3)
+        r2 = None
+        for axis in (2, 1, 0):  # dx*dx + (dy*dy + dz*dz), as the kernel nests it
+            d = src[:, :, None, :, axis] - rows[t0:t1, None, :, None, axis]  # (T, k, target, source)
+            if box is not None:
+                d = p3m.min_image(d, box)
+            r2 = d * d if r2 is None else d * d + r2
+        live = (r2 > 0) & (r2 < rcut2) & live_slot[:, :, None, None]
+        pairs += int(live_slot.sum()) * block * block
+        in_rcut += int(live.sum())
+        voted += int(live.reshape(t1 - t0, k, block // 32, 32, block).any(dim=3).sum()) * 32
+    return {"pairs": pairs, "in_rcut": in_rcut, "voted": voted}
+
+
+def sr_bound(name: str, shares: dict, nbytes: float, mufu: int) -> dict:
+    """``bound_ms`` and ``bound_by`` of ``short_range``, counted from what
+    this run's data needs: every live-slot pair's distance test, and the
+    rest of the pair's FLOP and its ``mufu`` MUFU results for the pairs
+    within rcut alone, against the FP32, MUFU and HBM rates.  Beside it,
+    ``bound_all_pairs_ms``: the full arithmetic on every live-slot pair
+    (the first design's work)."""
+    test = SR_TEST_FLOP[name]
+    flop = shares["pairs"] * test + shares["in_rcut"] * (FLOP[name] - test)
+    ops_s = max(flop / FP32_FLOPS, shares["in_rcut"] * mufu / MUFU_RATE)
+    bytes_s = nbytes / HBM_BYTES
+    all_pairs = bound(name, shares["pairs"], nbytes, rsqrts=mufu * shares["pairs"])
+    return {
+        "bound_ms": max(ops_s, bytes_s) * 1e3,
+        "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "bound_all_pairs_ms": all_pairs["bound_ms"],
+        "bound_all_pairs_by": all_pairs["bound_by"],
+        "in_rcut_share": shares["in_rcut"] / shares["pairs"],
+        "vote_share": shares["voted"] / shares["pairs"],
+    }
+
+
+def dense_slots(ps, nbr_idx, mask, rcut, block: int) -> int:
+    """The live slots that the isolated ``short_range`` sweeps without its
+    votes (``p3m._dense_slots``)."""
+    return int(((p3m._dense_slots(ps, nbr_idx, block, rcut) != 0) & (mask != 0)).sum())
+
+
+def _sr_vs_parent(tag: str, got, args: tuple, box: float | None = None, reps: int = 5) -> dict:
+    """With ``--parent``: the parent's ``short_range`` on ``args`` (those of
+    ``p3m.short_range_tiles``) equal to ``got`` bit for bit, and both timed
+    in turns; {} without."""
+    if not PARENT:
+        return {}
+    par = parent_short_range(*args, box=box)
+    check(torch.equal(got, par), f"{tag}: short_range bit-equal to the parent's kernel "
+                                 f"(max-abs {max_abs(got, par):.3e})")
+    return vs_parent(f"{tag} short_range", lambda: p3m.short_range_tiles(*args, box=box),
+                     lambda: parent_short_range(*args, box=box), reps=reps)
+
+
+def planted_short_range_checks(dev, periodic: bool) -> None:
+    """``short_range`` on ``pair_checks``' planted scenes against its twin
+    (rtol 2e-4, atol 3e-6 of the max) and, with ``--parent``, the parent's
+    kernel bit for bit."""
+    for name, sc in pair_checks.short_range_scenes(periodic).items():
+        ps = torch.from_numpy(sc["ps"]).to(dev)
+        args = (ps, torch.from_numpy(sc["nbr_idx"]).to(dev), sc["eps2"], torch.tensor(sc["sigma"], device=dev),
+                torch.tensor(sc["rcut"], device=dev), sc["block"], torch.from_numpy(sc["mask"]).to(dev))
+        got = p3m.short_range_tiles(*args, box=sc["box"])
+        want = p3m.short_range_tiles(*args, backend="jnp", box=sc["box"])
+        torch.cuda.synchronize()
+        ok, err = _sr_agree(got, want)
+        tag = f"planted ({name})"
+        check(ok and not got[:, 3].any(), f"{tag}: short_range vs plain rtol 2e-4, atol 3e-6 of max "
+                                          f"(max-abs/max {err:.3e})")
+        if PARENT:
+            par = parent_short_range(*args, box=sc["box"])
+            check(torch.equal(got, par), f"{tag}: short_range bit-equal to the parent's kernel")
+
+
 def _iroot(v: torch.Tensor, p: int) -> torch.Tensor:
     """The largest k with k^p <= v, elementwise (v >= 1)."""
     k = torch.floor(v.double() ** (1.0 / p)).long()
@@ -1633,6 +1849,10 @@ def phase_mesh_checks(dev) -> None:
                 check(ok and not got[:, 3].any(),
                       f"{tag}: short_range vs plain ({what}, {int((m == 0).sum())} slots off) "
                       f"rtol 2e-4, atol 3e-6 of max (max-abs/max {err:.3e})")
+                if PARENT:
+                    check(torch.equal(got, parent_short_range(*args, m)),
+                          f"{tag}: short_range ({what}) bit-equal to the parent's kernel")
+    planted_short_range_checks(dev, periodic=False)
     _deposit_adversarial_checks(dev, periodic=False)
 
 
@@ -2104,18 +2324,23 @@ def phase_mesh_times(dev) -> dict[str, dict]:
     live = int((x["mask"] != 0).sum())
     pairs = live * block * block
     nb, k = x["nbr_idx"].shape
+    shares = rcut_shares(ps, x["nbr_idx"], x["mask"], x["rcut"], block)
+    dense = dense_slots(ps, x["nbr_idx"], x["mask"], x["rcut"], block)
     out["short_range"] = {
         "max_abs_err": max_abs(sr, sr_p), "ms": cuda_ms(lambda: p3m.short_range_tiles(*args), reps=5),
         "plain_ms": sr_plain_ms, "shape": f"({n}, 4), {nb} tiles of {block}, k {k}, {live} live slots",
-        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
-        **bound("short_range", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU * pairs),
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped), {shares['in_rcut']:.4e} within rcut, "
+                f"{shares['voted']:.4e} through the votes, {dense} slots without votes; plain: one run, "
+                f"host clock",
+        **sr_bound("short_range", shares, 32 * n + 8 * nb * k, SR_MUFU),
+        **_sr_vs_parent("2M P3M (8b)", sr, args),
     }
     del sr_p
     for name, r in ((k, v) for k, v in out.items() if k != "mesh_deposit"):
         print(f"  {name:14s} {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})" + (f"  library {r['library_ms']:.4f} ms"
                                                                   if "library_ms" in r else "")
-              + f"  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]", flush=True)
+              + f"  max-abs err {r['max_abs_err']:.3e}" + _extras(r) + f"  [{r['note']}]", flush=True)
     stages = _stage_ms(x, n_real, grid, block)
     total = sum(stages.values())
     print(f"  P3M force evaluation at 2M by stage (CUDA events, sum {total:.3f} ms):", flush=True)
@@ -2271,6 +2496,10 @@ def phase_mesh_grad_times(dev) -> dict[str, dict]:
     print(f"  short_range_bwd {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
           f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
           flush=True)
+    fwd = (x["ps"], x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
+    print(f"  short_range at this shape: {dense_slots(x['ps'], x['nbr_idx'], x['mask'], x['rcut'], block)} of "
+          f"{live} live slots without votes", flush=True)
+    _sr_vs_parent("2M uniform-sphere (9b)", p3m.short_range_tiles(*fwd), fwd)
     return {"short_range_bwd": r}
 
 
@@ -2870,6 +3099,10 @@ def phase_periodic_checks(dev) -> None:
                 check(ok and ok64 and not got[:, 3].any(),
                       f"{tag}: periodic short_range ({what}, {int((m == 0).sum())} slots off) rtol 2e-4, atol "
                       f"3e-6 of max against the twin (max-abs/max {err:.3e}) and the f64 sum ({err64:.3e})")
+                if PARENT:
+                    check(torch.equal(got, parent_short_range(*args, m, box=1.0)),
+                          f"{tag}: periodic short_range ({what}) bit-equal to the parent's kernel")
+    planted_short_range_checks(dev, periodic=True)
     _deposit_adversarial_checks(dev, periodic=True)
 
 
@@ -2995,12 +3228,15 @@ def phase_periodic_times(dev) -> dict[str, dict]:
     live = int((x["mask"] != 0).sum())
     pairs = live * block * block
     nb, k = x["nbr_idx"].shape
+    shares = rcut_shares(ps, x["nbr_idx"], x["mask"], x["rcut"], block, box=BOX_L)
     out["short_range"] = {
         "max_abs_err": max_abs(sr, sr_p), "ms": cuda_ms(lambda: p3m.short_range_tiles(*args, box=BOX_L), reps=5),
         "plain_ms": sr_plain_ms, "library_ms": None,
         "shape": f"({n}, 4) torus, {nb} tiles of {block}, k {k}, {live} live slots",
-        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
-        **bound("short_range_periodic", pairs, 32 * n + 8 * nb * k, rsqrts=SR_MUFU_PERIODIC * pairs),
+        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped), {shares['in_rcut']:.4e} within rcut, "
+                f"{shares['voted']:.4e} through the votes; plain: one run, host clock",
+        **sr_bound("short_range_periodic", shares, 32 * n + 8 * nb * k, SR_MUFU_PERIODIC),
+        **_sr_vs_parent("2M periodic P3M (12b)", sr, args, box=BOX_L),
     }
     del sr_p
     _print_times({k: v for k, v in out.items() if k != "mesh_deposit"})
@@ -3533,12 +3769,27 @@ def phase_macro_grad_crosscheck(dev, n: int = 8192) -> None:
           f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
 
 
+def _extras(r: dict) -> str:
+    """A row's all-pairs bound and shares, and the parent's time, where it has them."""
+    out = ""
+    if "bound_all_pairs_ms" in r:
+        out += (f"  all-pairs bound {r['bound_all_pairs_ms']:.4f} ms ({r['bound_all_pairs_by']}), in rcut "
+                f"{r['in_rcut_share']:.4f}, through the votes {r['vote_share']:.4f} of the pairs")
+    if "parent_ms" in r:
+        out += f"  parent {r['parent_ms']:.4f} ms, this {r['this_ms']:.4f} ms (in turns)"
+    return out
+
+
+# Keys of a row that the kernels line carries where the row has them.
+ROW_EXTRAS = ("bound_all_pairs_ms", "bound_all_pairs_by", "in_rcut_share", "vote_share", "parent_ms", "this_ms")
+
+
 def _print_times(out: dict[str, dict]) -> None:
     for name, r in out.items():
         print(f"  {name:16s} {r['shape']:34s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}"
               + (f"  library {r['library_ms']:.4f} ms" if r.get("library_ms") is not None else "")
-              + (f"  [{r['note']}]" if "note" in r else ""), flush=True)
+              + _extras(r) + (f"  [{r['note']}]" if "note" in r else ""), flush=True)
 
 
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
@@ -3620,6 +3871,7 @@ def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
         "launches": sum(by_path[p][name] for p in PERIODIC_PATHS),
         "launches_by_path": {p: by_path[p][name] for p in PERIODIC_PATHS if by_path[p][name]},
         **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "note")},
+        **{k: t[k] for k in ROW_EXTRAS if k in t},
         **({"block_paths": t["block_paths"]} if "block_paths" in t else {}),
         **({"cic_12d": t["cic"]} if "cic" in t else {}),
     }
@@ -3631,9 +3883,10 @@ def main() -> int:
     ap.add_argument("--outdir", default=None,
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops and "
-                         "pair_sym beside this tree's, in turns, at 7c's, the deposit's, phase 3's (N = 262,144) "
-                         "and 14c's (524,288 x 524,288) shapes")
+                    help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops, "
+                         "pair_sym, vjp_sym_hops and short_range beside this tree's, in turns, at 7c's, the "
+                         "deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), 14c's "
+                         "(524,288 x 524,288) and 8b's and 12b's shapes, short_range also bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)
@@ -3701,6 +3954,7 @@ def main() -> int:
             # pairs, grid_sample, torch.add).
             "library_ms": times[name].get("library_ms"),
             **({"library_note": times[name]["library_note"]} if "library_note" in times[name] else {}),
+            **{k: times[name][k] for k in ROW_EXTRAS if k in times[name]},
             **({"scenes": times[name]["scenes"]} if "scenes" in times[name] else {}),
             **({"block_paths": times[name]["block_paths"]} if "block_paths" in times[name] else {}),
             **({"cic_8d": times[name]["cic_8d"]} if "cic_8d" in times[name] else {}),

@@ -45,10 +45,10 @@ SIGNATURES = {
     "nb_fused_step_fast": [P, P, P, P, P, P, P, I, I, F, F, P],
     "nb_vjp_full": [P, P, P, P, I, F, F, P],
     "nb_vjp_sym_diag": [P, P, P, I, I, F, P],
-    "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, F, P],
+    "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, I, F, P],
     "nb_vjp_combine": [P, P, P, P, I, F, P],
     "nb_splat_resolve": [P, P, P, P, P, P, P, I, I, I, P],
-    "nb_short_range": [P, P, P, P, P, I, I, I, F, F, P],
+    "nb_short_range": [P, P, P, P, P, P, I, I, I, F, F, P],
     "nb_short_range_bwd": [P, P, P, P, P, P, P, I, I, I, F, F, P],
     "nb_mesh_deposit": [P, P, P, I, I, I, I, P, P],
     "nb_mesh_gather": [P, P, P, P, I, I, I, I, P],

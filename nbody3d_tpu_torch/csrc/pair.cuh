@@ -19,16 +19,21 @@ __device__ __forceinline__ float pair_inv3(float dx, float dy, float dz, float e
     return rsqrtf(d2 * (d2 * d2));
 }
 
-// pair_inv3 for a caller that knows d2^3 is a normal float for every pair:
-// eps2 * (eps2 * eps2) >= FLT_MIN, since d2 >= eps2 and rounding is
-// monotone.  rsqrtf guards a subnormal argument (a compare and two
-// multiplies, about 3 of a pair's ~20 issue slots); the ftz form has no
-// guard and returns the same bits for any normal or infinite argument.
+// rsqrtf of a normal or infinite argument: rsqrtf guards a subnormal
+// argument (a compare and two multiplies, about 3 of a pair's ~20 issue
+// slots); the ftz form has no guard and returns the same bits there.
+// pair_inv3_normal is pair_inv3 for a caller that knows d2^3 is a normal
+// float for every pair: eps2 * (eps2 * eps2) >= FLT_MIN, since d2 >= eps2
+// and rounding is monotone.
+__device__ __forceinline__ float rsqrt_normal(float x) {
+    float r;
+    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+}
+
 __device__ __forceinline__ float pair_inv3_normal(float dx, float dy, float dz, float eps2) {
     const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-    float r;
-    asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d2 * (d2 * d2)));
-    return r;
+    return rsqrt_normal(d2 * (d2 * d2));
 }
 
 // The pull on `me` from every row of src[0, n_s), for a block of kTile
@@ -106,6 +111,8 @@ __device__ __forceinline__ float3 in_tile_pull(const float* sx, const float* sy,
 //   t = w g - 3 w5 (d.g) d       x̄_k += t,  x̄_j -= t (antisymmetric)
 //   m̄_k += -w (d.A_j)            m̄_j += w (d.A_k)
 //   φ_k  +=  w m_j (d.A_k)        φ_j  += -w m_k (d.A_j)     Ḡ = Σ φ
+//   φ_k + φ_j = -w (d.g)          (phi: one product for the Newton-3
+//                                  kernel, which needs the pair's sum alone)
 //
 // (the math of nbody3d_tpu/ops/force_vjp.py's docstring, with the x̄ term
 // accumulated per pair rather than folded through row sums).  d.g is
@@ -117,16 +124,19 @@ struct VjpPair {
     float mbar_t;      // m̄ term of the target
     float mbar_s;      // m̄ term of the source
     float phi_t;       // φ term of the target
-    float phi_s;       // φ term of the source
+    float phi;         // φ term of the target and the source, -w (d.g)
 };
 
+// kNormal: eps2 >= FLT_MIN, so d2 >= eps2 is normal and rsqrt_normal gives
+// rsqrtf's bits.
+template <bool kNormal = false>
 __device__ __forceinline__ VjpPair vjp_pair(float4 xk, float3 ak, float4 xj, float3 aj,
                                             float eps2) {
     const float dx = xj.x - xk.x;
     const float dy = xj.y - xk.y;
     const float dz = xj.z - xk.z;
     const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
-    const float r = rsqrtf(d2);
+    const float r = kNormal ? rsqrt_normal(d2) : rsqrtf(d2);
     const float inv = r * r;
     const float w = inv * r;
     const float w5 = w * inv;
@@ -144,6 +154,6 @@ __device__ __forceinline__ VjpPair vjp_pair(float4 xk, float3 ak, float4 xj, flo
     e.mbar_t = -(w * p);
     e.mbar_s = w * q;
     e.phi_t = w * xj.w * q;
-    e.phi_s = -(w * xk.w * p);
+    e.phi = -(w * dg);
     return e;
 }

@@ -1,6 +1,8 @@
 // The Newton-3 pair loop that sym_hops.cu and pair_sym.cu share: one target
 // tile against a run of source tiles, both directions of each pair from one
-// weight, with no atomic inside the pair loop.
+// weight, with no atomic inside the pair loop.  vjp_sym_hops.cu runs the
+// same schedule and pattern on the VJP's pair terms with the helpers here
+// (threads_for, padded, smem_bytes, allow_smem, reduce8, kRun, kGroup).
 //
 // What it computes, for the target tile's rows i and each source tile's
 // rows j (both [x, y, z, m] f32; the caller's G scales both masses):
@@ -55,8 +57,8 @@ constexpr int kGroup = 8;  // sources between two warp reductions (reduce8 is wr
 constexpr int kRun = 8;    // source tiles a block takes (ops/launch.py SYM_RUN)
 constexpr unsigned kAll = 0xffffffffu;
 
-// Threads for a tile of b target rows: kRows rows each, whole warps.
-__host__ __device__ constexpr int threads_for(int b) { return ((b + kRows - 1) / kRows + 31) / 32 * 32; }
+// Threads for a tile of b target rows: `rows` rows each, whole warps.
+__host__ __device__ constexpr int threads_for(int b, int rows = kRows) { return ((b + rows - 1) / rows + 31) / 32 * 32; }
 
 // Threads of the largest tile, b = 1024: the kernels' launch bound.
 constexpr int kMaxThreads = threads_for(1024);
@@ -72,14 +74,17 @@ __host__ __device__ constexpr int padded(int b) { return (b + kGroup - 1) / kGro
 // Blocks along the run axis for n source tiles, the last run cut short.
 __host__ __device__ constexpr int runs_for(int n) { return (n + kRun - 1) / kRun; }
 
-// Dynamic shared memory: the staged tile and one slab of 3 x padded(b)
-// reverse sums a warp.
-inline size_t smem_bytes(int b) {
-    return padded(b) * sizeof(float4) + static_cast<size_t>(threads_for(b) / 32) * 3 * padded(b) * sizeof(float);
+// Dynamic shared memory: the staged tile (`planes` float4 rows a source
+// row) and one slab of comps x padded(b) reverse sums a warp, for blocks of
+// threads_for(b, rows).
+inline size_t smem_bytes(int b, int planes = 1, int comps = 3, int rows = kRows) {
+    return static_cast<size_t>(planes) * padded(b) * sizeof(float4) +
+           static_cast<size_t>(threads_for(b, rows) / 32) * comps * padded(b) * sizeof(float);
 }
 
 // Allows a kernel more than the default 48 KB of dynamic shared memory (a
-// tile of more than 288 rows needs it).
+// sym_hops tile of more than 288 rows needs it, a vjp_sym_hops tile of more
+// than 256).
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;

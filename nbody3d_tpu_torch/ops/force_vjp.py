@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, launch, lib, split_hops
+from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, hop_blocks, launch, lib, split_hops
 
 Tensors2 = tuple[torch.Tensor, torch.Tensor]
 
@@ -202,8 +202,8 @@ def vjp_sym_hops(pos_mass: torch.Tensor, abar: torch.Tensor, eps2: float, b: int
         return vjp_sym_hops_plain(pos_mass, abar, eps2, b)
     acc = torch.zeros((pos_mass.shape[0], 8), dtype=torch.float32, device=dev)
     fn = lib().nb_vjp_sym_hops
-    for k0, nk, grid_i in split_hops(nt):
-        launch("vjp_sym_hops", dev, fn, pos_mass, abar, acc, nt, b, k0, nk, grid_i, float(eps2))
+    for k0, nk, grid_i, runs in hop_blocks(nt):
+        launch("vjp_sym_hops", dev, fn, pos_mass, abar, acc, nt, b, k0, nk, grid_i, runs, float(eps2))
     return acc
 
 

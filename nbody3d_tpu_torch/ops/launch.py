@@ -113,8 +113,8 @@ def split_hops(nt: int) -> list[tuple[int, int, int]]:
     return calls
 
 
-# Source tiles a sym_hops or pair_sym block takes: csrc/sym_pairs.cuh kRun,
-# which the C entry points check the grids against.
+# Source tiles a sym_hops, vjp_sym_hops or pair_sym block takes:
+# csrc/sym_pairs.cuh kRun, which the C entry points check the grids against.
 SYM_RUN = 8
 
 
@@ -125,16 +125,17 @@ def sym_runs(n_src: int, run: int = SYM_RUN) -> int:
 
 
 def hop_blocks(nt: int, run: int = SYM_RUN) -> list[tuple[int, int, int, int]]:
-    """``(k0, nk, grid_i, runs)`` of each ``sym_hops`` launch: the launches
-    of :func:`split_hops`, each a grid of ``grid_i`` target tiles by
-    ``runs`` runs of hops."""
+    """``(k0, nk, grid_i, runs)`` of each ``sym_hops`` and ``vjp_sym_hops``
+    launch: the launches of :func:`split_hops`, each a grid of ``grid_i``
+    target tiles by ``runs`` runs of hops."""
     return [(k0, nk, grid_i, sym_runs(nk, run)) for k0, nk, grid_i in split_hops(nt)]
 
 
 def hop_schedule(nt: int, run: int = SYM_RUN):
-    """``(i, [j, ...])`` of every ``sym_hops`` block, launch by launch: its
-    target tile and the source tiles of its run, in the kernel's order
-    (block ``(i, r)`` takes hops ``k0 + r*run`` up to the launch's end)."""
+    """``(i, [j, ...])`` of every ``sym_hops`` and ``vjp_sym_hops`` block,
+    launch by launch: its target tile and the source tiles of its run, in
+    the kernel's order (block ``(i, r)`` takes hops ``k0 + r*run`` up to
+    the launch's end)."""
     for k0, nk, grid_i, runs in hop_blocks(nt, run):
         for i in range(grid_i):
             for r in range(runs):

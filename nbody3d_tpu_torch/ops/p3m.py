@@ -434,6 +434,22 @@ def _kernel_operands(name, dev, nbr_idx, nbr_mask, sigma, rcut):
     return ids, msk, scal.to(torch.float32)
 
 
+def _dense_slots(ps: torch.Tensor, nbr_idx: torch.Tensor, block: int, rcut: torch.Tensor) -> torch.Tensor:
+    """``(nb, k)`` uint8 for the isolated ``short_range`` kernel: 1 where
+    the farthest corners of a slot's two tile boxes (every row of each
+    tile) lie within rcut, so every pair of the slot but a coincident one
+    is within rcut and the kernel sweeps it without its warp votes.  The
+    flag only picks one of two loops that give the same bits: a wrong one
+    costs time, not results.  ``|fl(x_s - x_t)| <= max(fl(hi_s - lo_t),
+    fl(hi_t - lo_s))`` as rounding is monotone; the 0.9999 covers the
+    rounding of the sums of squares."""
+    xyz = ps[:, :3].reshape(-1, block, 3)
+    lo, hi = torch.amin(xyz, dim=1), torch.amax(xyz, dim=1)
+    ids = nbr_idx.long()
+    far = torch.maximum(hi[ids] - lo[:, None], hi[:, None] - lo[ids])
+    return ((far * far).sum(-1) < 0.9999 * (rcut * rcut)).to(torch.uint8)
+
+
 def short_range_tiles(
     ps: torch.Tensor,
     nbr_idx: torch.Tensor,
@@ -460,9 +476,11 @@ def short_range_tiles(
     dev = _check_tiles("short_range", block, nbr_idx, ps)
     if backend == "jnp" or dev.type == "cpu":
         return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
-    ops = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
+    ids, msk, scal = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
+    dense = None if box is not None else _dense_slots(ps, ids, block, rcut)
     out = torch.empty_like(ps)
-    launch("short_range", dev, lib().nb_short_range, ps, *ops, out, nb, k, block, float(eps2), float(box or 0.0))
+    launch("short_range", dev, lib().nb_short_range, ps, ids, msk, dense, scal, out, nb, k, block, float(eps2),
+           float(box or 0.0))
     return out
 
 

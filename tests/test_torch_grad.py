@@ -9,6 +9,8 @@ autodiff rtol 1e-4 / atol 1e-5 of scale, Ḡ rtol 1e-5; the Newton-3
 schedule against the full grid rtol 1e-5 / atol 1e-6 of scale; rollout
 gradients rtol 2e-3.  Both sides are f32 with sums in different orders."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,7 @@ from nbody3d_tpu.ops.force_vjp import force_vjp_pallas, force_vjp_reference as j
 from nbody3d_tpu.ops.force_vjp import force_vjp_sym_pallas  # noqa: E402
 from nbody3d_tpu.ops.step import make_step_fn as jax_make_step_fn  # noqa: E402
 from nbody3d_tpu.state import SimState as JaxState  # noqa: E402
+from nbody3d_tpu_torch import pair_checks  # noqa: E402
 from nbody3d_tpu_torch.config import SimConfig  # noqa: E402
 from nbody3d_tpu_torch.ops import force_vjp as fv  # noqa: E402
 from nbody3d_tpu_torch.ops.force_torch import accel_direct  # noqa: E402
@@ -316,3 +319,45 @@ def test_cpu_runs_launch_nothing_and_wrappers_check(rng):
         fv.vjp_combine(t(pm), t(pm), G)  # accumulators are (N, 8)
     with pytest.raises(ValueError, match="grad_precision"):
         make_step_fn(SimConfig(grad_precision="bf16"), 64, 64, "cpu")
+
+
+# ------------------------------------------------------------------ (h)
+@pytest.mark.parametrize("b", [128, 256])
+def test_sym_twins_with_a_1e7_body_match_pallas(b):
+    """``pair_checks.vjp_heavy``: a 1e7 body among bodies of mass 10-50 in
+    one tile, padded rows, on which the card holds ``vjp_sym_hops`` to its
+    twin; the sym twins through ``force_vjp_sym`` against
+    ``force_vjp_sym_pallas`` (interpret mode) and the full-grid twin, the
+    bounds of (c)."""
+    pm, abar = pair_checks.vjp_heavy(n=1024, b=b)
+    got, g_got = fv.force_vjp_sym(t(pm), G, t(abar), eps2=EPS2, b=b)
+    want, g_want = force_vjp_sym_pallas(jnp.asarray(pm), G, jnp.asarray(abar), eps2=EPS2, block=b, interpret=True)
+    full, g_full = fv.force_vjp(t(pm), G, t(abar), eps2=EPS2)
+    assert_pm_bar(got, want, 1e-5, 1e-6)
+    assert_pm_bar(got, full, 1e-5, 1e-6)
+    np.testing.assert_allclose(float(g_got), float(g_want), rtol=1e-5)
+    np.testing.assert_allclose(float(g_got), float(g_full), rtol=1e-5)
+    assert not got[1000:, :3].any()
+
+
+def test_pair_phi_sum_is_minus_w_dg():
+    """``csrc/pair.cuh``'s ``VjpPair::phi``, which ``vjp_sym_hops`` adds in
+    place of ``phi_t + phi_s``: the identity ``w m_j (d.A_k) - w m_k (d.A_j)
+    = -w (d.g)``, ``g = m_k A_j - m_j A_k``, in f64 on random pairs through
+    the twins' ``_pair_terms`` with their w, to 1e-14 of the products'
+    size w |d| (m_k |A_j| + m_j |A_k|) before the dot products cancel."""
+    rng = np.random.default_rng(11)
+    n = 4096
+    xk, xj = (torch.from_numpy(np.c_[rng.standard_normal((n, 3)), rng.uniform(1, 1e7, (n, 1))]) for _ in range(2))
+    ak, aj = (torch.from_numpy(rng.standard_normal((n, 3))) for _ in range(2))
+    _, _, _, phi_t, phi_s = fv._pair_terms(xk, ak, xj, aj, EPS2)
+    d = xj[:, :3] - xk[:, :3]
+    r = torch.rsqrt(d[:, 0] * d[:, 0] + (d[:, 1] * d[:, 1] + (d[:, 2] * d[:, 2] + EPS2)))
+    w = r * r * r  # the twins' w, bit for bit
+    g = xk[:, 3:] * aj - xj[:, 3:] * ak
+    folded = -w * torch.sum(d * g, dim=1)
+    # The size of the products before the dot products cancel.
+    norm = functools.partial(torch.linalg.norm, dim=1)
+    size = w * norm(d) * (xk[:, 3] * norm(aj) + xj[:, 3] * norm(ak))
+    assert phi_t.dtype == torch.float64
+    assert ((phi_t + phi_s - folded).abs() <= 1e-14 * size).all()

@@ -30,7 +30,7 @@ from nbody3d_tpu.ops.force_jnp import accel_direct as jax_accel_direct  # noqa: 
 from nbody3d_tpu.ops.morton import morton_keys as jax_morton_keys  # noqa: E402
 from nbody3d_tpu.ops.step import make_step_fn as jax_make_step_fn  # noqa: E402
 from nbody3d_tpu.state import init_state as jax_init_state  # noqa: E402
-from nbody3d_tpu_torch import SimConfig, Simulation, cli  # noqa: E402
+from nbody3d_tpu_torch import SimConfig, Simulation, cli, pair_checks  # noqa: E402
 from nbody3d_tpu_torch.ops import cuda_force as cf  # noqa: E402
 from nbody3d_tpu_torch.ops import p3m, pm  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import launch_counts, reset_launch_counts  # noqa: E402
@@ -233,6 +233,29 @@ def test_short_range_twin_matches_jax(scene, block, nbr_k):
         np.testing.assert_allclose(got[:, :3], want, rtol=2e-4, atol=3e-6 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_dense_slots_hold_every_pair_within_rcut(scene, block):
+    """The slots the wrapper flags for the isolated ``short_range`` kernel's
+    vote-free loop (``p3m._dense_slots``) hold no pair at or past rcut,
+    exactly (f64) and in the kernel's f32 r² = dx·dx + (dy·dy + dz·dz), so
+    that loop and the voting one give the same bits; the scene has slots of
+    both kinds."""
+    pm_np, _, n_real = scene
+    _, (tps, tlo, thi, th) = sorted_tiles(pm_np, n_real, 32, block)
+    rcut = p3m.DEFAULT_RCUT_SIGMAS * p3m.DEFAULT_SIGMA_CELLS * th
+    _, _, idx = p3m._select_neighbors(tlo, thi, th, 8)
+    dense = p3m._dense_slots(tps, idx.to(torch.int32), block, rcut).numpy()
+    assert dense.dtype == np.uint8 and dense.any() and not dense.all()
+    rows = tps[:, :3].reshape(-1, block, 3).numpy()
+    rcut2 = np.float32(rcut) * np.float32(rcut)
+    for t in range(rows.shape[0]):
+        src = rows[idx[t].numpy()[dense[t] != 0]]  # (slots, source, 3)
+        d = src[:, None, :, :] - rows[t][None, :, None, :]  # (slots, target, source, 3) f32
+        r2 = d[..., 0] * d[..., 0] + (d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
+        d64 = src[:, None, :, :].astype(np.float64) - rows[t][None, :, None, :].astype(np.float64)
+        assert (r2 < rcut2).all() and ((d64 * d64).sum(-1) < rcut2).all()
+
+
 def test_sym_jitter_matches_jax():
     """The hash's factors give JAX's jitter; ``u(i, j) == u(j, i)``."""
     ids = np.random.default_rng(3).integers(0, 70000, (2, 500)).astype(np.int32)
@@ -380,3 +403,44 @@ def test_unported_mesh_configs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
         Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
 
+
+
+PLANTED = pair_checks.short_range_scenes(periodic=False)
+
+
+@pytest.mark.parametrize("name", list(PLANTED))
+def test_short_range_twin_on_planted_pairs(name):
+    """``pair_checks``' planted pairs (r² one ulp either side of rcut² along
+    one axis, a warp with one live lane, masked slots, coincident rows), on
+    which the card holds the kernel to this twin and to the parent design
+    bit for bit, against the Pallas kernel (interpret mode) and the jnp
+    form: rtol 2e-4, atol 3e-6 of the max, the bound above.  The pair one
+    ulp inside rcut counts and the one at rcut does not, in both."""
+    sc = PLANTED[name]
+    ps, idx, mask, block = sc["ps"], sc["nbr_idx"], sc["mask"], sc["block"]
+    nb = ps.shape[0] // block
+    args = (jnp.asarray(ps), jnp.asarray(idx), 0, nb, sc["eps2"], jnp.float32(sc["sigma"]), jnp.float32(sc["rcut"]),
+            block)
+    ref = np.asarray(jp3m._short_range_tiles(*args, nbr_mask=jnp.asarray(mask)))
+    pal = np.asarray(jp3m._short_range_tiles_pallas(*args, nbr_mask=jnp.asarray(mask), interpret=True))
+    got = p3m.short_range_tiles(torch.from_numpy(ps), torch.from_numpy(idx), sc["eps2"], torch.tensor(sc["sigma"]),
+                                torch.tensor(sc["rcut"]), block, torch.from_numpy(mask)).numpy()
+    assert not got[:, 3].any() and np.isfinite(got).all()
+    assert not got[2 * block : 3 * block].any()  # tile 2: every slot masked
+    for want in (ref, pal[:, :3]):
+        np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=2e-4, atol=3e-6 * np.abs(want).max())
+    # Tile 1 alone against tile 0: a row feels its partner where dx² < rcut²
+    # in f32: rows 7 and 34 (one ulp inside), not 32 (at rcut) or 33.
+    dx = ps[block : 2 * block, 0]
+    inside = np.flatnonzero(dx * dx < sc["rcut"] * sc["rcut"]).tolist()
+    assert 7 in inside and 34 in inside and 32 not in inside and 33 not in inside and min(inside[1:]) == 34
+    one = np.array([[0]] * nb, np.int32)
+    keep = np.zeros((nb, 1), np.float32)
+    keep[1] = 1.0
+    solo = p3m.short_range_tiles(torch.from_numpy(ps), torch.from_numpy(one), sc["eps2"], torch.tensor(sc["sigma"]),
+                                 torch.tensor(sc["rcut"]), block, torch.from_numpy(keep)).numpy()
+    pal1 = np.asarray(jp3m._short_range_tiles_pallas(*args[:1], jnp.asarray(one), *args[2:], nbr_mask=jnp.asarray(keep),
+                                                     interpret=True))
+    for out in (solo, pal1):
+        x = out[block : 2 * block, 0]
+        assert np.flatnonzero(x).tolist() == inside and (x[inside] < 0).all()

@@ -34,7 +34,7 @@ from nbody3d_tpu.ops.ewald import ewald_accel_reference as jax_oracle  # noqa: E
 from nbody3d_tpu.ops.morton import morton_keys as jax_morton_keys  # noqa: E402
 from nbody3d_tpu.ops.step import make_step_fn as jax_make_step_fn  # noqa: E402
 from nbody3d_tpu.state import init_state as jax_init_state  # noqa: E402
-from nbody3d_tpu_torch import SimConfig, Simulation, cli, scatter_checks  # noqa: E402
+from nbody3d_tpu_torch import SimConfig, Simulation, cli, pair_checks, scatter_checks  # noqa: E402
 from nbody3d_tpu_torch.ops import ewald, p3m, pm  # noqa: E402
 from nbody3d_tpu_torch.ops import mesh_cuda as mc  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import launch_counts, reset_launch_counts  # noqa: E402
@@ -460,3 +460,35 @@ def test_periodic_deposit_twin_on_adversarial_scenes(name, order):
         for axis in range(3):
             faces = np.moveaxis(got, axis, 0)
             assert faces[0].sum() > 0 and faces[-1].sum() > 0
+
+
+PLANTED = pair_checks.short_range_scenes(periodic=True)
+
+
+@pytest.mark.parametrize("name", list(PLANTED))
+def test_periodic_short_range_twin_on_planted_pairs(name):
+    """``pair_checks``' periodic scenes (r² one ulp either side of rcut²
+    inside a box of 4, a warp with one live lane, masked slots, coincident
+    rows; pairs across one, two and three seams, bodies at 0 and one float
+    below the box), on which the card holds the kernel to this twin and to
+    the parent design bit for bit, against ``short_range_tiles(box=...)``
+    in interpret mode and the jnp form: atol 3e-6 of the max, the bound
+    above.  On the seams every target row feels some source."""
+    sc = PLANTED[name]
+    ps, idx, mask, block, box = sc["ps"], sc["nbr_idx"], sc["mask"], sc["block"], sc["box"]
+    nb = ps.shape[0] // block
+    args = (jnp.asarray(ps), jnp.asarray(idx), 0, nb, sc["eps2"], jnp.float32(sc["sigma"]), jnp.float32(sc["rcut"]),
+            block)
+    kw = dict(nbr_mask=jnp.asarray(mask), box=jnp.float32(box))
+    ref = np.asarray(jp3m.short_range_tiles(*args, backend="jnp", **kw))
+    pal = np.asarray(jp3m.short_range_tiles(*args, backend="pallas", interpret=True, **kw))
+    got = p3m.short_range_tiles(torch.from_numpy(ps), torch.from_numpy(idx), sc["eps2"], torch.tensor(sc["sigma"]),
+                                torch.tensor(sc["rcut"]), block, torch.from_numpy(mask), box=box).numpy()
+    assert not got[:, 3].any() and np.isfinite(got).all()
+    for want in (ref, pal[:, :3]):
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got[:, :3] / scale, want[:, :3] / scale, atol=3e-6)
+    if name == "pairs across the seams":
+        assert (np.abs(got[:, :3]).sum(axis=1) > 0).all()
+    else:
+        assert not got[2 * block : 3 * block].any()  # tile 2: every slot masked
