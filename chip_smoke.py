@@ -11,11 +11,14 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc builds the nineteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together; the registers and
-   spill bytes (ptxas) of ``sym_hops``, ``pair_sym``, ``vjp_sym_hops`` and
-   ``short_range`` and, where ``cuobjdump`` is on the machine, the count of
-   their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
-   ``MUFU``, ``SHFL``, ``VOTE``, ``BSSY``, ...), in all and in the pair
-   loop, the parent's too with ``--parent``.
+   spill bytes (ptxas) of ``sym_hops``, ``pair_sym``, ``vjp_sym_hops``,
+   ``short_range``, ``short_range_bwd``, ``force_fast`` and
+   ``fused_step_fast`` and, where ``cuobjdump`` is on the machine, the
+   count of their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
+   ``MUFU``, ``SHFL``, ``VOTE``, ``BSSY``, ``F2FP``, ``HMMA``, ...), in all
+   and in the pair loop, a pair's by class (FP32, MUFU, LDS, F2FP, HMMA,
+   VOTE, BSSY, BRA), the parent's too with ``--parent``; whether the
+   machine has ``ncu``.
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
    included (forward: accelerations and the step; VJP: x̄, m̄ and Ḡ);
@@ -85,7 +88,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    direct-equivalent G-int/s; then, on the state it leaves, the force of
    4,096 sampled bodies against ``force_exact`` (median < 2e-3,
    p99 < 1e-2) with the selection's tile overflow; ``short_range_bwd``
-   against its twin under that two-level selection and a 2-step rollout
+   against its twin under that two-level selection (its time, bounds and
+   shares, and with ``--parent`` bit-equal to the parent's kernel and
+   timed beside it in turns) and a 2-step rollout
    gradient's ms/step and peak memory; the three kernels at
    that shape beside their twins, bounds and (deposit) ``index_add_``
    (``short_range``'s bound counts the pairs within rcut, its all-pairs
@@ -110,15 +115,18 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``"pm"``): (a, after 8a) ``short_range_bwd`` against its plain twin on
    8a's scenes (N = 8,192 and 7,936, tiles 128 and 256) with a massless
    source tile and slots masked in mutual pairs: x̄ and m̄ rtol 1e-4, atol
-   1e-5 of the scale, σ̄ rel 1e-3 (the JAX tests' gradient bounds); (b)
+   1e-5 of the scale, σ̄ rel 1e-3 (the JAX tests' gradient bounds), then
+   on ``pair_checks``' planted scenes (with ``--parent`` each bit-equal to
+   the parent's kernel); (b)
    the P3M gradient at benchmarks/grad_bench.py's configuration:
    uniform-sphere n = 2,097,152, grid 128, k = 32, tile 256 (8,192 tiles,
    the flat selection), a 5-step rollout, loss sum |x|^2 / n, gradient by
    v0, forward and gradient ms/step, their ratio and the peak memory, with
    every plain twin of the mesh path patched to raise; after the windows
-   ``short_range_bwd`` at that shape beside its twin, and ``short_range``'s
-   slots without votes there (with ``--parent`` also ``short_range``
-   bit-equal to the parent's kernel and timed beside it in turns); (c) the
+   ``short_range_bwd`` at that shape beside its twin, both bounds, the
+   shares and the slots without votes (with ``--parent`` also
+   ``short_range_bwd`` and ``short_range`` bit-equal to the parent's
+   kernels and timed beside them in turns); (c) the
    same for PM (grid 128, CIC); (d) at N = 8,192 (8e's scene) the kernel route's 5-step
    rollout gradient against ``backend="jnp"``'s for both methods, by v0,
    dt and G, rtol 2e-3.
@@ -147,17 +155,23 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    f64), ``force_fast`` on disjoint source sets (1,999 sources: ragged)
    and with the diagonal at offsets 1,000 (all rows, and a restricted row
    range) and -1,000, ``fused_step_fast``
-   bit-equal to ``force_fast`` + the torch Verlet, and ``force_fast``
+   bit-equal to ``force_fast`` + the torch Verlet, all of these at eps2 =
+   1e-4 and at 1e-14 (a subnormal eps2^3: the kernels' instance with
+   ``rsqrtf`` and its guard), and ``force_fast``
    against an f64 numpy direct sum on the two-galaxy scene (2,048 rows
    with both centres) and on a near-coincident pair (N = 4,096): max-abs
    over scale <= 5e-3, a centre's own row <= 6e-3, the momentum rate
-   printed; (b) bench.py's fast configuration, uniform-sphere N =
+   printed; with ``--parent`` each ``force_fast`` and ``fused_step_fast``
+   result bit-equal to the parent's kernel; (b) bench.py's fast configuration, uniform-sphere N =
    262,144, ``morton_every=64``, 1 warm and 2 timed chunks of 20 steps,
    phase 5's token; (c) phase 4's run with ``force_mode="fast"`` and then
    with ``fuse_integrate=True``, phase 4's token, each with a profiled
    3-step rollout; after the windows both kernels' times beside their
    twins, their bounds and ``force_exact``/``fused_step_exact`` at the
-   same shapes; (d) at N = 4,096 6d's rollout gradient through the fast
+   same shapes (with ``--parent`` bit-equal to the parent's kernels and
+   timed beside them in turns, the launch alone, at 11b's and 11c's
+   shapes, and ``force_fast`` with ``rsqrtf``'s guard, eps2 = 1e-14,
+   beside the ftz instance); (d) at N = 4,096 6d's rollout gradient through the fast
    route against ``backend="jnp"``'s, by v0, dt and G, within 5e-3 of
    scale, and a gradient request through the fused fast step raises.
 12. the periodic box (``boundary="periodic"``), forward: (a, after
@@ -196,14 +210,19 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    8,192 and 7,936, tiles 128 and 256, grids 32 and 128, tile 3 massless
    and slots killed in mutual pairs, and on the planted pairs against the
    twin in f64 (1e-5 of the row plus 8 ulp of ``s⁻³ + k_long``, the
-   forward's k with k_long's series below u = 0.5); ``deposit_vjp`` and ``gather_vjp`` with ``periodic=True``
+   forward's k with k_long's series below u = 0.5), and on
+   ``pair_checks``' periodic planted scenes (a warp astride the k' switch
+   at u = 0.2 among them; with ``--parent`` each bit-equal to the parent's
+   kernel); ``deposit_vjp`` and ``gather_vjp`` with ``periodic=True``
    against autograd through their twins (1e-5 of the max), the gather's
    grid cotangent on exact terms bit for bit with the first and last cells
    written; (b) grad_bench's rollout (5 steps, by v0) through periodic P3M
    at p3m_bench's box (12b's), plain and ``--interlace``, every plain twin
    raising: forward and gradient ms/step, ratio, peak memory, the gradient
    finite and nonzero; after the windows the periodic ``short_range_bwd``
-   at that shape beside its twin and bound; (c) the same through periodic
+   at that shape beside its twin and both bounds (the pairs within rcut,
+   all pairs) with the shares within rcut and through the votes (and the
+   parent's kernel, bit for bit and in turns); (c) the same through periodic
    PM (CIC); (d) at N = 8,192 the kernel route's 5-step rollout gradient
    (by v0, dt, G) against ``backend="jnp"``'s for periodic P3M, interlaced
    P3M and PM, rtol 2e-3.
@@ -254,6 +273,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import itertools
 import json
 import pathlib
 import re
@@ -465,12 +485,22 @@ def phase_build() -> None:
         if "Used" in line or "Function properties" in line:
             print(f"  ptxas: {line.strip()}")
     sym_kernel_report("this tree", _build.build_log(), path)
+    print(f"  ncu (Nsight Compute): {ncu_path() or 'not on PATH, none under /usr/local/cuda/bin'}", flush=True)
 
 
 # The pair kernels whose inner loop PERF.md describes from these counts.
-SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel", "vjp_sym_hops_kernel", "short_range_kernel")
+SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel", "vjp_sym_hops_kernel", "short_range_kernel",
+                    "short_range_bwd_kernel", "force_fast_kernel", "fused_step_fast_kernel")
 SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "VOTE", "BSSY", "MUFU", "FFMA", "FMUL", "FADD", "FSEL",
-            "BAR")
+            "BAR", "F2FP", "HMMA", "BRA")
+# The FP32 pipe's opcodes, summed as one class in the pair loops' counts.
+FP32_OPS = ("FADD", "FMUL", "FFMA", "FSEL", "FSETP", "FMNMX", "FSET")
+# A pair's rsqrts (MUFU.RSQ): how a loop's instructions become a pair's, for
+# the kernels that do not issue one MUFU a pair.  short_range counts all of
+# its MUFUs (SR_MUFU); short_range_bwd's branches hold other MUFUs (erff,
+# erfcf, the division) that a pair may not reach, but every pair that takes
+# the arithmetic takes its two rsqrts.
+PAIR_RSQ = {"short_range_bwd_kernel": 2}
 
 
 def ptxas_usage(log: str) -> dict[str, dict]:
@@ -488,10 +518,10 @@ def ptxas_usage(log: str) -> dict[str, dict]:
     return out
 
 
-def sass_listing(lib_path) -> dict[str, list[tuple[int, str, int | None]]]:
+def sass_listing(lib_path) -> dict[str, list[tuple[int, str, int | None, str]]]:
     """Each function's SASS in the library (``cuobjdump -sass``), by mangled
-    name, as ``(address, opcode, branch target)``; {} where there is no
-    cuobjdump."""
+    name, as ``(address, opcode, branch target, opcode with its
+    modifiers)``; {} where there is no cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -503,15 +533,17 @@ def sass_listing(lib_path) -> dict[str, list[tuple[int, str, int | None]]]:
         if m := re.search(r"Function : (\S+)", line):
             name = m.group(1)
             out[name] = []
-        elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)):
-            target = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2) == "BRA" else None
-            out[name].append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None))
+        elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)((?:\.[A-Z0-9_]+)*)(.*)",
+                                      line)):
+            target = re.search(r"0x([0-9a-f]+)", m.group(4)) if m.group(2) == "BRA" else None
+            out[name].append((int(m.group(1), 16), m.group(2), int(target.group(1), 16) if target else None,
+                              m.group(2) + m.group(3)))
     return out
 
 
 def _op_counts(listing) -> dict[str, int]:
     counts: dict[str, int] = {}
-    for _, op, _ in listing:
+    for _, op, _, _ in listing:
         counts[op] = counts.get(op, 0) + 1
     return counts
 
@@ -521,8 +553,8 @@ def pair_loops(listing) -> list[list]:
     and its target) that hold MUFUs (one a pair) and no other such loop,
     those that hold the most; [] if there is none.  ``short_range``'s
     isolated form has two, the sweep with the votes and the one without."""
-    mufu = [a for a, op, _ in listing if op == "MUFU"]
-    loops = {(t, a) for a, op, t in listing if op == "BRA" and t is not None and t < a}
+    mufu = [a for a, op, _, _ in listing if op == "MUFU"]
+    loops = {(t, a) for a, op, t, _ in listing if op == "BRA" and t is not None and t < a}
     held = {span: sum(span[0] <= m <= span[1] for m in mufu) for span in loops}
     held = {s: n for s, n in held.items() if n}
     inner = {s: n for s, n in held.items() if not any(o != s and s[0] <= o[0] and o[1] <= s[1] for o in held)}
@@ -532,13 +564,31 @@ def pair_loops(listing) -> list[list]:
     return [[x for x in listing if lo <= x[0] <= hi] for lo, hi in top]
 
 
+def loop_pairs(kernel: str, loop) -> float:
+    """Pairs a lane in one pass of a pair loop (see PAIR_RSQ)."""
+    if kernel in PAIR_RSQ:
+        return sum(full == "MUFU.RSQ" for _, _, _, full in loop) / PAIR_RSQ[kernel]
+    return sum(op == "MUFU" for _, op, _, _ in loop) / (SR_MUFU if kernel == "short_range_kernel" else 1)
+
+
+def ncu_path() -> str | None:
+    """Nsight Compute's command line where the machine has it."""
+    import shutil
+
+    tool = shutil.which("ncu") or "/usr/local/cuda/bin/ncu"
+    return tool if pathlib.Path(tool).exists() else None
+
+
 def sym_kernel_report(tag: str, log: str, lib_path) -> None:
     """Registers and spills (ptxas) of the pair kernels, their SASS
     instructions by opcode, and those of the pair loop (each instance; the
-    Newton-3 kernels issue one MUFU a pair, so the loop's counts over its
-    MUFUs are a pair's; ``short_range`` four, SR_MUFU, on a pair that takes
-    the arithmetic, so its counts are a pair's when the vote is live, and a
-    pair whose vote is not skips the arithmetic's branch)."""
+    Newton-3 kernels and fast mode issue one MUFU a pair, so the loop's
+    counts over its MUFUs are a pair's; ``short_range`` four, SR_MUFU, on a
+    pair that takes the arithmetic, so its counts are a pair's when the vote
+    is live, and a pair whose vote is not skips the arithmetic's branch;
+    ``short_range_bwd`` two rsqrts, PAIR_RSQ, and the counts are static: a
+    branch's instructions count whether a pair takes it or not).  The
+    classes: FP32 (FP32_OPS), MUFU, LDS, F2FP, HMMA, VOTE, BSSY, BRA."""
     usage, sass = ptxas_usage(log), sass_listing(lib_path)
     for kernel in SYM_PAIR_KERNELS:
         for name in sorted(n for n in set(usage) | set(sass) if re.search(rf"\d{kernel}", n)):
@@ -549,10 +599,15 @@ def sym_kernel_report(tag: str, log: str, lib_path) -> None:
             ops = _op_counts(listing)
             print(f"  [{tag}] {name}: {usage.get(name, {})}; SASS {len(listing)} instructions: "
                   + ", ".join(f"{op} {ops.get(op, 0)}" for op in SASS_OPS), flush=True)
-            for loop in map(_op_counts, pair_loops(listing)):
-                pairs = loop.get("MUFU", 0) / (SR_MUFU if kernel == "short_range_kernel" else 1)
-                print(f"    pair loop: {sum(loop.values())} instructions for {pairs:g} pairs a lane "
-                      f"({sum(loop.values()) / max(pairs, 1):.2f} a pair): "
+            for raw in pair_loops(listing):
+                loop, pairs = _op_counts(raw), loop_pairs(kernel, raw)
+                n = sum(loop.values())
+                classes = {"FP32": sum(loop.get(op, 0) for op in FP32_OPS),
+                           **{op: loop.get(op, 0) for op in ("MUFU", "LDS", "F2FP", "HMMA", "VOTE", "BSSY", "BRA")}}
+                classes["other"] = n - sum(classes.values())
+                print(f"    pair loop: {n} instructions for {pairs:g} pairs a lane "
+                      f"({n / max(pairs, 1):.2f} a pair; by class a pair: "
+                      + ", ".join(f"{c} {v / max(pairs, 1):.3f}" for c, v in classes.items()) + "): "
                       + ", ".join(f"{op} {c}" for op, c in sorted(loop.items(), key=lambda kv: -kv[1])), flush=True)
 
 
@@ -1358,23 +1413,93 @@ def parent_pair_sym(tgt, src, g: float, eps2: float, b: int) -> tuple[torch.Tens
 
 
 def parent_short_range(ps, nbr_idx, eps2: float, sigma, rcut, block: int, mask, box: float | None = None):
-    """The parent's ``short_range`` (this tree's C signature: a thread a
-    target row, every pair's arithmetic)."""
-    ops = p3m._kernel_operands("short_range", ps.device, nbr_idx, mask, sigma, rcut)
+    """The parent's ``short_range`` (this tree's C signature and dense
+    flags)."""
+    ids, msk, scal = p3m._kernel_operands("short_range", ps.device, nbr_idx, mask, sigma, rcut)
+    dense = None if box is not None else p3m._dense_slots(ps, ids, block, rcut)
     out = torch.empty_like(ps)
-    _parent_call(PARENT["lib"].nb_short_range, ps, *ops, out, nbr_idx.shape[0], nbr_idx.shape[1], block,
-                 float(eps2), float(box or 0.0))
+    _parent_call(PARENT["lib"].nb_short_range, ps, ids, msk, dense, scal, out, nbr_idx.shape[0], nbr_idx.shape[1],
+                 block, float(eps2), float(box or 0.0))
     return out
 
 
 def parent_vjp_sym_hops(pm, abar, eps2: float, b: int) -> torch.Tensor:
-    """The parent's ``vjp_sym_hops`` (the C signature of its first design, a
-    block a tile pair: no run count), its launches as ``split_hops``."""
+    """The parent's ``vjp_sym_hops`` (this tree's C signature and launches,
+    ``hop_blocks``)."""
     acc = torch.zeros((pm.shape[0], 8), dtype=torch.float32, device=pm.device)
     nt = pm.shape[0] // b
-    for k0, nk, grid_i in split_hops(nt):
-        _parent_call(PARENT["lib"].nb_vjp_sym_hops, pm, abar, acc, nt, b, k0, nk, grid_i, float(eps2))
+    for k0, nk, grid_i, runs in hop_blocks(nt):
+        _parent_call(PARENT["lib"].nb_vjp_sym_hops, pm, abar, acc, nt, b, k0, nk, grid_i, runs, float(eps2))
     return acc
+
+
+def parent_force_fast(tgt, src, g: float, eps2: float, diag=cf.SELF_DIAG) -> torch.Tensor:
+    """The parent's ``force_fast`` (this tree's C signature and operands:
+    the wrapper's limb fragments)."""
+    out = torch.empty_like(tgt)
+    frag = cf.fragment_order(cf.limbs_bf16(src, g))
+    _parent_call(PARENT["lib"].nb_force_fast, tgt, src, frag, out, tgt.shape[0], src.shape[0], float(eps2),
+                 *(int(x) for x in diag))
+    return out
+
+
+def parent_fused_step_fast(pm, vel, aold, dt: float, g: float, eps2: float, n_real: int):
+    """The parent's ``fused_step_fast`` (this tree's C signature)."""
+    n = pm.shape[0]
+    out = tuple(torch.empty_like(pm) for _ in range(3))
+    _parent_call(PARENT["lib"].nb_fused_step_fast, pm, cf.fragment_order(cf.limbs_bf16(pm, g)), vel, aold, *out, n,
+                 min(int(n_real), n), float(dt), float(eps2))
+    return out
+
+
+def parent_short_range_bwd(ps, g, nbr_idx, eps2: float, sigma, rcut, block: int, mask, box: float | None = None):
+    """The parent's ``short_range_bwd`` (its C signature: no dense flags; a
+    thread a target row, every pair's arithmetic), as
+    ``p3m.short_range_tiles_bwd`` returns it."""
+    ids, msk, scal = p3m._kernel_operands("short_range_bwd", ps.device, nbr_idx, mask, sigma, rcut)
+    dps = torch.empty_like(ps)
+    dsig = torch.empty(ps.shape[0], dtype=torch.float32, device=ps.device)
+    _parent_call(PARENT["lib"].nb_short_range_bwd, ps, g, ids, msk, scal, dps, dsig, nbr_idx.shape[0],
+                 nbr_idx.shape[1], block, float(eps2), float(box or 0.0))
+    return dps, torch.sum(dsig)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in f32 units in the last place between a and b
+    (elementwise, both finite), by their ordered int32 patterns."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(1 << 31) - i, i)
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _parent_equal(tag: str, got, parent_fn, *args, **kwargs) -> None:
+    """With ``--parent``: ``got`` (a tensor or a tuple of them) equal bit for
+    bit to the parent's kernel, ``parent_fn(*args, **kwargs)``; else the
+    largest ulp difference is printed."""
+    if not PARENT:
+        return
+    want = parent_fn(*args, **kwargs)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{tag} bit-equal to the parent's kernel (largest difference "
+          f"{max(_ulps(a, b) for a, b in zip(got, want))} ulp)")
+
+
+def _bwd_parent_equal(tag: str, got, args: tuple, box: float | None = None) -> None:
+    """:func:`_parent_equal` for ``short_range_bwd`` on ``args`` (those of
+    ``p3m.short_range_tiles_bwd``): x̄, m̄ and the summed σ̄."""
+    _parent_equal(f"{tag}: short_range_bwd", got, parent_short_range_bwd, *args, box=box)
+
+
+def _bwd_vs_parent(tag: str, got, args: tuple, box: float | None = None, reps: int = 3) -> dict:
+    """With ``--parent``: :func:`_bwd_parent_equal`, and both kernels timed
+    in turns; {} without."""
+    if not PARENT:
+        return {}
+    _bwd_parent_equal(tag, got, args, box)
+    return vs_parent(f"{tag} short_range_bwd", lambda: p3m.short_range_tiles_bwd(*args, box=box),
+                     lambda: parent_short_range_bwd(*args, box=box), reps=reps)
 
 
 def vs_guarded_rsqrt(tag: str, pm, abar, b: int, reps: int) -> None:
@@ -1655,12 +1780,13 @@ def _sr_agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     return ok, max_abs(got, want) / scale
 
 
-# FP32 FLOP of a short_range pair's distance test, which every live-slot
-# pair takes: the separation (3), r^2 (5) and the predicate's compares; the
-# periodic minimum image adds its 6 selected adds.  A pair within rcut takes
-# the rest of its FLOP["short_range"] (47) or FLOP["short_range_periodic"]
-# (60) and its MUFU results.
-SR_TEST_FLOP = {"short_range": 12, "short_range_periodic": 18}
+# FP32 FLOP of a short_range (or short_range_bwd) pair's distance test,
+# which every live-slot pair takes: the separation (3), r^2 (5) and the
+# predicate's compares; the periodic minimum image adds its 6 selected adds.
+# A pair within rcut takes the rest of its FLOP["short_range"] (47),
+# FLOP["short_range_periodic"] (60), FLOP["short_range_bwd"] (100) or
+# FLOP["short_range_bwd_periodic"] (180) and its MUFU results.
+SR_TEST_FLOP = {"short_range": 12, "short_range_periodic": 18, "short_range_bwd": 12, "short_range_bwd_periodic": 18}
 
 
 def rcut_shares(ps, nbr_idx, mask, rcut, block: int, box: float | None = None, tiles: int = 32) -> dict:
@@ -1692,8 +1818,9 @@ def rcut_shares(ps, nbr_idx, mask, rcut, block: int, box: float | None = None, t
 
 
 def sr_bound(name: str, shares: dict, nbytes: float, mufu: int) -> dict:
-    """``bound_ms`` and ``bound_by`` of ``short_range``, counted from what
-    this run's data needs: every live-slot pair's distance test, and the
+    """``bound_ms`` and ``bound_by`` of ``short_range`` (or
+    ``short_range_bwd``, by ``name``), counted from what this run's data
+    needs: every live-slot pair's distance test, and the
     rest of the pair's FLOP and its ``mufu`` MUFU results for the pairs
     within rcut alone, against the FP32, MUFU and HBM rates.  Beside it,
     ``bound_all_pairs_ms``: the full arithmetic on every live-slot pair
@@ -1750,6 +1877,23 @@ def planted_short_range_checks(dev, periodic: bool) -> None:
         if PARENT:
             par = parent_short_range(*args, box=sc["box"])
             check(torch.equal(got, par), f"{tag}: short_range bit-equal to the parent's kernel")
+
+
+def planted_short_range_bwd_checks(dev, periodic: bool) -> None:
+    """``short_range_bwd`` on ``pair_checks``' planted scenes (their mutual
+    masks; periodic also a warp astride the k' switch at u = 0.2) against
+    its twin (``_bwd_agrees``) and, with ``--parent``, the parent's kernel
+    bit for bit."""
+    for name, sc in pair_checks.short_range_bwd_scenes(periodic).items():
+        args = (torch.from_numpy(sc["ps"]).to(dev), torch.from_numpy(sc["g"]).to(dev),
+                torch.from_numpy(sc["nbr_idx"]).to(dev), sc["eps2"], torch.tensor(sc["sigma"], device=dev),
+                torch.tensor(sc["rcut"], device=dev), sc["block"], torch.from_numpy(sc["mask"]).to(dev))
+        got = p3m.short_range_tiles_bwd(*args, box=sc["box"])
+        want = p3m.short_range_tiles_bwd(*args, backend="jnp", box=sc["box"])
+        torch.cuda.synchronize()
+        tag = f"planted ({name})"
+        _bwd_agrees(tag, got, want)
+        _bwd_parent_equal(tag, got, args, sc["box"])
 
 
 def _iroot(v: torch.Tensor, p: int) -> torch.Tensor:
@@ -2169,8 +2313,13 @@ def _two_level_grad(sim: Simulation) -> None:
     plain_ms = host_ms(run_plain)
     _bwd_agrees(tag, got, want)
     ms = cuda_ms(lambda: p3m.short_range_tiles_bwd(*args), reps=3)
+    live = int((x["mask"] != 0).sum())
+    shares = rcut_shares(x["ps"], x["nbr_idx"], x["mask"], x["rcut"], block)
+    b = sr_bound("short_range_bwd", shares, 52 * n + 8 * nb * k, SR_MUFU)
     print(f"  {tag}: short_range_bwd kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (one run, host clock), "
-          f"{int((x['mask'] != 0).sum())} live slots", flush=True)
+          f"{live} live slots, {dense_slots(x['ps'], x['nbr_idx'], x['mask'], x['rcut'], block)} without votes; "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})" + _extras(b), flush=True)
+    _bwd_vs_parent(f"{tag} (8b two-level gradient)", got, args)
     del got, want, args, x
     torch.cuda.reset_peak_memory_stats()
     step = make_step_fn(cfg, n, n_real, dev)
@@ -2409,7 +2558,9 @@ def _bwd_agrees(tag: str, got, want) -> None:
 def phase_mesh_grad_checks(dev) -> None:
     """9a: ``short_range_bwd`` against its plain twin on 8a's scenes, with
     tile 3 massless (its rows still get a mass cotangent) and slots masked
-    in mutual pairs, for a random cotangent."""
+    in mutual pairs, for a random cotangent, then on ``pair_checks``'
+    planted scenes; with ``--parent`` each bit-equal to the parent's
+    kernel."""
     print("[9a mesh grad] short_range_bwd vs plain twin, small shapes", flush=True)
     for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
         pos_mass, _, n_real = _clustered(4096, n_pad, dev)
@@ -2424,6 +2575,8 @@ def phase_mesh_grad_checks(dev) -> None:
         _bwd_agrees(tag, got, want)
         check(float(got[0][3 * block : 4 * block, 3].abs().max()) > 0,
               f"{tag}: the massless tile's rows get a mass cotangent")
+        _bwd_parent_equal(tag, got, args)
+    planted_short_range_bwd_checks(dev, periodic=False)
 
 
 def _grad_path(dev, method: str, tag: str, preset: str = "uniform-sphere", **cfg):
@@ -2485,20 +2638,21 @@ def phase_mesh_grad_times(dev) -> dict[str, dict]:
     plain_ms = host_ms(run_plain)
     _bwd_agrees(f"2M uniform-sphere (N={n})", got, want)
     live = int((x["mask"] != 0).sum())
-    pairs = live * block * block
     nb, k = x["nbr_idx"].shape
+    shares = rcut_shares(x["ps"], x["nbr_idx"], x["mask"], x["rcut"], block)
     r = {
         "max_abs_err": max_abs(got[0], want[0]), "ms": cuda_ms(lambda: p3m.short_range_tiles_bwd(*args), reps=3),
         "plain_ms": plain_ms, "shape": f"({n}, 4) x 2, {nb} tiles of {block}, k {k}, {live} live slots",
-        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
-        **bound("short_range_bwd", pairs, 52 * n + 8 * nb * k, rsqrts=SR_MUFU * pairs),
+        "note": f"{shares['pairs']:.4e} slot pairs (mask-0 slots skipped), "
+                f"{dense_slots(x['ps'], x['nbr_idx'], x['mask'], x['rcut'], block)} of {live} live slots without "
+                "votes; plain: one run, host clock",
+        **sr_bound("short_range_bwd", shares, 52 * n + 8 * nb * k, SR_MUFU),
+        **_bwd_vs_parent("2M uniform-sphere (9b)", got, args),
     }
     print(f"  short_range_bwd {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
-          flush=True)
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}" + _extras(r)
+          + f"  [{r['note']}]", flush=True)
     fwd = (x["ps"], x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block, x["mask"])
-    print(f"  short_range at this shape: {dense_slots(x['ps'], x['nbr_idx'], x['mask'], x['rcut'], block)} of "
-          f"{live} live slots without votes", flush=True)
     _sr_vs_parent("2M uniform-sphere (9b)", p3m.short_range_tiles(*fwd), fwd)
     return {"short_range_bwd": r}
 
@@ -2758,6 +2912,10 @@ FAST_TWIN_TOL = 2e-4
 # Against f64: the bf16 weight noise (tests/test_pallas.py:50-68), and a
 # heavy body's own row (tests/test_sym.py:149-172).
 FAST_F64_TOL, FAST_CENTRAL_TOL = 5e-3, 6e-3
+# The softenings 11a's twin checks run at: the default, whose cube is a
+# normal float (the kernels' ftz rsqrt), and 1e-14, whose cube is
+# subnormal (their instance with rsqrtf and its guard).
+FAST_EPS2 = (EPS2, 1e-14)
 
 
 def _accel_f64(pm: np.ndarray, rows: np.ndarray, chunk: int = 128) -> np.ndarray:
@@ -2779,6 +2937,7 @@ def _fast_vs_f64(tag: str, pm: torch.Tensor, rows: np.ndarray, heavy: np.ndarray
     scale, the ``heavy`` bodies' own rows, and the momentum rate (net force
     over the summed |m a|, which bf16 weights need not keep at 0)."""
     a = cf.force_fast(pm, pm, G, EPS2)
+    _parent_equal(f"[11a fast vs f64] {tag} force_fast", a, parent_force_fast, pm, pm, G, EPS2)
     pm_np, a_np = pm.cpu().numpy(), a.cpu().numpy()[:, :3].astype(np.float64)
     want = _accel_f64(pm_np, rows)
     err = float(np.abs(a_np[rows] - want).max() / np.abs(want).max())
@@ -2791,52 +2950,66 @@ def _fast_vs_f64(tag: str, pm: torch.Tensor, rows: np.ndarray, heavy: np.ndarray
           f"{[f'{c:.3e}' for c in central]} <= {FAST_CENTRAL_TOL}; momentum rate |sum m a| / sum |m a| {mom:.3e}")
 
 
+def _fast_twin_checks(tag: str, pm, vel, aold, n_real: int, eps2: float) -> None:
+    """11a on one scene and softening: ``force_fast`` against its twin,
+    ``fused_step_fast`` bit-equal to ``force_fast`` + the torch Verlet and
+    against its twin, padded rows frozen; with ``--parent`` both bit-equal
+    to the parent's kernels."""
+    ff, ff_p = cf.force_fast(pm, pm, G, eps2), cf.force_fast_plain(pm, pm, G, eps2)
+    torch.cuda.synchronize()
+    check(rel_err(ff, ff_p) < FAST_TWIN_TOL and bool((ff[:, 3] == 0).all()),
+          f"{tag}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}, w lane 0")
+    _parent_equal(f"{tag} force_fast", ff, parent_force_fast, pm, pm, G, eps2)
+    got = cf.fused_step_fast(pm, vel, aold, DT, G, eps2=eps2, n_real=n_real)
+    want = _verlet_on_card(pm, vel, aold, ff, n_real)
+    twin = cf.fused_step_fast_plain(pm, vel, aold, DT, G, eps2, n_real)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, w) for x, w in zip(got, want)),
+          f"{tag}: fused_step_fast bit-equal to force_fast + torch Verlet")
+    _parent_equal(f"{tag} fused_step_fast", got, parent_fused_step_fast, pm, vel, aold, DT, G, eps2, n_real)
+    # What the accel bound moves in one step: dt/2 of it in v, dt^2 in x.
+    da = FAST_TWIN_TOL * float(twin[2].abs().max())
+    ea, ep, ev = rel_err(got[2], twin[2]), max_abs(got[0], twin[0]), max_abs(got[1], twin[1])
+    check(ea < FAST_TWIN_TOL and ep <= 1e-6 + da * DT * DT and ev <= 1e-6 + da * DT / 2,
+          f"{tag}: fused_step_fast vs plain accel {ea:.3e} < {FAST_TWIN_TOL}, |dp| {ep:.3e} <= "
+          f"{1e-6 + da * DT * DT:.3e}, |dv| {ev:.3e} <= {1e-6 + da * DT / 2:.3e}")
+    frozen = (torch.equal(got[0][n_real:], pm[n_real:]) and torch.equal(got[1][n_real:], vel[n_real:])
+              and bool((got[2][n_real:] == 0).all()))
+    check(frozen, f"{tag}: fused_step_fast padded rows frozen, stored accel zero")
+
+
 def phase_fast_checks(dev) -> None:
     """11a: ``force_fast`` and ``fused_step_fast`` against their twins at N =
     8,192, 7,936, 512 and 256 (a heavy body, padded rows); ``force_fast``
     on a disjoint source set (and a ragged one) and with the diagonal at
     unaligned offsets, negative and restricted too; ``fused_step_fast`` bit-equal to ``force_fast`` +
-    the torch Verlet; then against f64 on the two-galaxy scene and on a
-    planted near-coincident pair."""
+    the torch Verlet; each at both of FAST_EPS2 (both kernel instances);
+    then against f64 on the two-galaxy scene and on a planted
+    near-coincident pair."""
     print("[11a fast mode] kernel vs plain twin, small shapes", flush=True)
     rng = np.random.default_rng(11)
     for n_pad, n_real in [(8192, 8000), (7936, 7900), (512, 500), (256, 250)]:
-        tag = f"N={n_pad}"
         pm, vel, aold = _inputs(rng, n_pad, n_real, dev)
         pm[0, 3] = 1e7
-        ff, ff_p = cf.force_fast(pm, pm, G, EPS2), cf.force_fast_plain(pm, pm, G, EPS2)
-        torch.cuda.synchronize()
-        check(rel_err(ff, ff_p) < FAST_TWIN_TOL and bool((ff[:, 3] == 0).all()),
-              f"{tag}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}, w lane 0")
-        got = cf.fused_step_fast(pm, vel, aold, DT, G, eps2=EPS2, n_real=n_real)
-        want = _verlet_on_card(pm, vel, aold, ff, n_real)
-        twin = cf.fused_step_fast_plain(pm, vel, aold, DT, G, EPS2, n_real)
-        torch.cuda.synchronize()
-        check(all(torch.equal(x, w) for x, w in zip(got, want)),
-              f"{tag}: fused_step_fast bit-equal to force_fast + torch Verlet")
-        # What the accel bound moves in one step: dt/2 of it in v, dt^2 in x.
-        da = FAST_TWIN_TOL * float(twin[2].abs().max())
-        ea, ep, ev = rel_err(got[2], twin[2]), max_abs(got[0], twin[0]), max_abs(got[1], twin[1])
-        check(ea < FAST_TWIN_TOL and ep <= 1e-6 + da * DT * DT and ev <= 1e-6 + da * DT / 2,
-              f"{tag}: fused_step_fast vs plain accel {ea:.3e} < {FAST_TWIN_TOL}, |dp| {ep:.3e} <= "
-              f"{1e-6 + da * DT * DT:.3e}, |dv| {ev:.3e} <= {1e-6 + da * DT / 2:.3e}")
-        frozen = (torch.equal(got[0][n_real:], pm[n_real:]) and torch.equal(got[1][n_real:], vel[n_real:])
-                  and bool((got[2][n_real:] == 0).all()))
-        check(frozen, f"{tag}: fused_step_fast padded rows frozen, stored accel zero")
+        for eps2 in FAST_EPS2:
+            _fast_twin_checks(f"N={n_pad}" + ("" if eps2 == EPS2 else f" eps2 {eps2:g}"), pm, vel, aold, n_real,
+                              eps2)
     # pm is the N = 256 scene; the diagonal forms at N = 8,192.
     pm, _, _ = _inputs(rng, 8192, 8192, dev)
     pm[4000, 3] = 1e7
-    for what, tgt, src, diag, rows in (
+    for (what, tgt, src, diag, rows), eps2 in itertools.product((
         ("disjoint sets (NO_DIAG)", pm[:4096], pm[4096:], (cf.NO_DIAG, 0, cf.NO_DIAG), slice(None)),
         ("diagonal at offset 1,000", pm[1000:5000], pm, (1000, 0, 4000), slice(None)),
         ("diagonal at offset 1,000, rows [500, 3,100)", pm[1000:5000], pm, (1000, 500, 3100), slice(500, 3100)),
         ("diagonal at offset -1,000, rows [1,000, 4,000)", pm[:4000], pm[1000:], (-1000, 1000, 4000), slice(None)),
         ("1,000 targets x 1,999 sources (ragged)", pm[:1000], pm[1000:2999], (cf.NO_DIAG, 0, cf.NO_DIAG), slice(None)),
-    ):
-        k, p = cf.force_fast(tgt, src, G, EPS2, diag), cf.force_fast_plain(tgt, src, G, EPS2, diag)
+    ), FAST_EPS2):
+        what += "" if eps2 == EPS2 else f", eps2 {eps2:g}"
+        k, p = cf.force_fast(tgt, src, G, eps2, diag), cf.force_fast_plain(tgt, src, G, eps2, diag)
         torch.cuda.synchronize()
         e = rel_err(k[rows], p[rows])
         check(e < FAST_TWIN_TOL, f"N=8192 force_fast {what} vs plain {e:.3e} < {FAST_TWIN_TOL}")
+        _parent_equal(f"N=8192 force_fast {what}", k, parent_force_fast, tgt, src, G, eps2, diag)
     st, n_real = _two_galaxy(dev)
     heavy = np.argsort(-st.pos_mass[:, 3].cpu().numpy())[:2]
     rows = np.unique(np.concatenate([heavy, np.random.default_rng(12).choice(n_real, 2046, replace=False)]))
@@ -2923,7 +3096,13 @@ def phase_fast_times(dev) -> dict[str, dict]:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(rel_err(ff, ff_p) < FAST_TWIN_TOL, f"uniform-sphere N={n}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}")
+    _parent_equal(f"uniform-sphere N={n} (11b) force_fast", ff, parent_force_fast, pm, pm, G, EPS2)
     t = _fast_times(dev, pm, reps=5)
+    if PARENT:
+        guarded = [cuda_ms(lambda e=e: cf.force_fast(pm, pm, G, e), reps=5) for e in (1e-14, EPS2, EPS2, 1e-14)]
+        print(f"    uniform-sphere N={n} force_fast, rsqrtf with its guard (eps2 = 1e-14, eps2^3 subnormal) beside "
+              f"the ftz rsqrt (eps2 = {EPS2:g}), wrapper, in turns: guarded {guarded[0]:.4f} / {guarded[3]:.4f} ms, "
+              f"ftz {guarded[1]:.4f} / {guarded[2]:.4f} ms", flush=True)
     out["force_fast"] = {
         "max_abs_err": max_abs(ff, ff_p),
         "ms": t["kernel"],
@@ -2933,6 +3112,7 @@ def phase_fast_times(dev) -> dict[str, dict]:
                 f"{t['exact']:.4f} ms; plain one run, host clock",
         # pm, the (N, 16) bf16 limbs and the output: 64 B a row.
         **bound("force_fast", n * n, 64 * n, rsqrts=n * n),
+        **_fast_vs_parent(f"uniform-sphere N={n} (11b)", dev, pm, reps=5),
     }
     del ff_p
     st, n_real = _two_galaxy(dev)
@@ -2941,12 +3121,16 @@ def phase_fast_times(dev) -> dict[str, dict]:
     ff, ff_p = cf.force_fast(pm, pm, G, EPS2), cf.force_fast_plain(pm, pm, G, EPS2)
     torch.cuda.synchronize()
     check(rel_err(ff, ff_p) < FAST_TWIN_TOL, f"two-galaxy N={n}: force_fast vs plain {rel_err(ff, ff_p):.3e} < {FAST_TWIN_TOL}")
+    _parent_equal(f"two-galaxy N={n} (11c) force_fast", ff, parent_force_fast, pm, pm, G, EPS2)
     t = _fast_times(dev, pm, reps=20)
+    tg_parent = _fast_vs_parent(f"two-galaxy N={n} (11c)", dev, pm, reps=20)
     out["force_fast"]["note"] += (
         f"; two-galaxy n_pad {n}: kernel {t['kernel']:.4f} ms (with prep {t['wrapper']:.4f}), plain "
         f"{cuda_ms(lambda: cf.force_fast_plain(pm, pm, G, EPS2), reps=3):.4f} ms, bound "
         f"{bound('force_fast', n * n, 64 * n, rsqrts=n * n)['bound_ms']:.4f} ms, force_exact {t['exact']:.4f} ms, "
-        f"max-abs err {max_abs(ff, ff_p):.3e} (scale {float(ff_p.abs().max()):.4e})")
+        f"max-abs err {max_abs(ff, ff_p):.3e} (scale {float(ff_p.abs().max()):.4e})"
+        + (f"; parent {tg_parent['parent_ms']:.4f} ms, this {tg_parent['this_ms']:.4f} ms (in turns)" if tg_parent
+           else ""))
     aold = ff
     got = cf.fused_step_fast(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n_real)
     twin = cf.fused_step_fast_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real)
@@ -2956,6 +3140,8 @@ def phase_fast_times(dev) -> dict[str, dict]:
     check(all(torch.equal(x, w) for x, w in zip(got, want)),
           f"two-galaxy N={n}: fused_step_fast bit-equal to force_fast + torch Verlet")
     check(rel_err(got[2], twin[2]) < FAST_TWIN_TOL, f"two-galaxy N={n}: fused_step_fast vs plain {rel_err(got[2], twin[2]):.3e} < {FAST_TWIN_TOL}")
+    _parent_equal(f"two-galaxy N={n} (11c) fused_step_fast", got, parent_fused_step_fast, pm, vel, aold, DT_MAIN,
+                       G, EPS2, n_real)
     frag = cf.fragment_order(cf.limbs_bf16(pm, G))
     outs = tuple(torch.empty_like(pm) for _ in range(3))
     lib = _build.load_library()
@@ -2972,8 +3158,28 @@ def phase_fast_times(dev) -> dict[str, dict]:
         # 3 rows in, the limbs, 3 rows out: 128 B a row; pairs only.
         **bound("fused_step_fast", n * n, 128 * n, rsqrts=n * n),
     }
+    if PARENT:
+        p_outs = tuple(torch.empty_like(pm) for _ in range(3))
+        out["fused_step_fast"].update(vs_parent(
+            f"two-galaxy N={n} (11c) fused_step_fast, the launch alone", fused,
+            lambda: _parent_call(PARENT["lib"].nb_fused_step_fast, pm, frag, vel, aold, *p_outs, n, n_real, DT_MAIN,
+                                 EPS2), reps=20))
     _print_times(out)
     return out
+
+
+def _fast_vs_parent(tag: str, dev, pm: torch.Tensor, reps: int) -> dict:
+    """With ``--parent``: ``force_fast(pm, pm)``'s launch alone beside the
+    parent's on the same operands, in turns; {} without."""
+    if not PARENT:
+        return {}
+    frag = cf.fragment_order(cf.limbs_bf16(pm, G))
+    o, o_p = torch.empty_like(pm), torch.empty_like(pm)
+    fn, n = _build.load_library().nb_force_fast, pm.shape[0]
+    return vs_parent(f"{tag} force_fast, the launch alone",
+                     lambda: launch("force_fast", dev, fn, pm, pm, frag, o, n, n, EPS2, *cf.SELF_DIAG),
+                     lambda: _parent_call(PARENT["lib"].nb_force_fast, pm, pm, frag, o_p, n, n, EPS2, *cf.SELF_DIAG),
+                     reps=reps)
 
 
 def _fast_times(dev, pm: torch.Tensor, reps: int) -> dict[str, float]:
@@ -3431,7 +3637,9 @@ def phase_periodic_grad_checks(dev) -> None:
     tile 3 massless and slots killed in mutual pairs, for a random
     cotangent (``_bwd_agrees``), and on the planted pairs against the twin
     in f64; the periodic mesh VJPs against autograd through the twins at
-    TSC and CIC, grids 32 and 128."""
+    TSC and CIC, grids 32 and 128; then ``short_range_bwd`` on
+    ``pair_checks``' periodic planted scenes (a warp astride the k' switch
+    among them); with ``--parent`` each bit-equal to the parent's kernel."""
     print("[13a periodic grad] short_range_bwd periodic form, periodic mesh VJPs vs plain twins", flush=True)
     for n_pad, block in ((8192, 128), (8192, 256), (7936, 256)):
         n_real = n_pad - 192
@@ -3449,6 +3657,7 @@ def phase_periodic_grad_checks(dev) -> None:
             torch.cuda.synchronize()
             sub = f"{tag} ({int((mask == 0).sum())} slots off, tile 3 massless)"
             _bwd_agrees(sub, got, want)
+            _bwd_parent_equal(sub, got, args, 1.0)
             check(float(got[0][3 * block : 4 * block, 3].abs().max()) > 0,
                   f"{sub}: the massless tile's rows get a mass cotangent")
             # The planted pairs under the mutual mask alone (the kills above may drop their slots).
@@ -3460,9 +3669,11 @@ def phase_periodic_grad_checks(dev) -> None:
                                                         & (x["mask"][i // block] > 0)).any()) for _, i, j in pairs]
             check(all(live), f"{tag}: every planted pair's tiles list each other under the mutual mask")
             _planted_agree(tag, ps, g, got[0], want64[0], pairs, float(x["sigma"]))
+            _bwd_parent_equal(f"{tag} (planted pairs)", got, args, 1.0)
             for order in (3, 2):
                 c4, fm = _periodic_cells(ps0, x["h"], grid, order)
                 _mesh_vjps_agree(f"{tag} order {order}", c4, fm, grid, order)
+    planted_short_range_bwd_checks(dev, periodic=True)
 
 
 def phase_periodic_grad_p3m(dev):
@@ -3507,19 +3718,20 @@ def phase_periodic_grad_times(dev) -> dict[str, dict]:
     plain_ms = host_ms(run_plain)
     _bwd_agrees(f"2M periodic uniform box (N={n})", got, want)
     live = int((x["mask"] != 0).sum())
-    pairs = live * block * block
     nb, k = x["nbr_idx"].shape
+    shares = rcut_shares(ps, x["nbr_idx"], x["mask"], x["rcut"], block, box=BOX_L)
     r = {
         "max_abs_err": max_abs(got[0], want[0]),
         "ms": cuda_ms(lambda: p3m.short_range_tiles_bwd(*args, box=BOX_L), reps=3),
         "plain_ms": plain_ms, "library_ms": None,
         "shape": f"({n}, 4) x 2 torus, {nb} tiles of {block}, k {k}, {live} live slots",
-        "note": f"{pairs:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
-        **bound("short_range_bwd_periodic", pairs, 52 * n + 8 * nb * k, rsqrts=SR_BWD_MUFU_PERIODIC * pairs),
+        "note": f"{shares['pairs']:.4e} slot pairs (mask-0 slots skipped); plain: one run, host clock",
+        **sr_bound("short_range_bwd_periodic", shares, 52 * n + 8 * nb * k, SR_BWD_MUFU_PERIODIC),
+        **_bwd_vs_parent("2M periodic uniform box (13b)", got, args, box=BOX_L),
     }
     print(f"  short_range_bwd periodic {r['shape']:48s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
-          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}  [{r['note']}]",
-          flush=True)
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  max-abs err {r['max_abs_err']:.3e}" + _extras(r)
+          + f"  [{r['note']}]", flush=True)
     return {"short_range_bwd": r}
 
 
@@ -3884,9 +4096,11 @@ def main() -> int:
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops, "
-                         "pair_sym, vjp_sym_hops and short_range beside this tree's, in turns, at 7c's, the "
-                         "deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), 14c's "
-                         "(524,288 x 524,288) and 8b's and 12b's shapes, short_range also bit for bit")
+                         "pair_sym, vjp_sym_hops, short_range, short_range_bwd, force_fast and "
+                         "fused_step_fast beside this tree's, in turns, at 7c's, the deposit's, phase 3's "
+                         "(N = 262,144; vjp_sym_hops also at nt = 157), 14c's (524,288 x 524,288), 8b's, 9b's, "
+                         "12b's, 13b's, 11b's and 11c's shapes; short_range, short_range_bwd and the fast "
+                         "kernels also bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)

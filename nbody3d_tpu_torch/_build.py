@@ -49,7 +49,7 @@ SIGNATURES = {
     "nb_vjp_combine": [P, P, P, P, I, F, P],
     "nb_splat_resolve": [P, P, P, P, P, P, P, I, I, I, P],
     "nb_short_range": [P, P, P, P, P, P, I, I, I, F, F, P],
-    "nb_short_range_bwd": [P, P, P, P, P, P, P, I, I, I, F, F, P],
+    "nb_short_range_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, F, P],
     "nb_mesh_deposit": [P, P, P, I, I, I, I, P, P],
     "nb_mesh_gather": [P, P, P, P, I, I, I, I, P],
 }

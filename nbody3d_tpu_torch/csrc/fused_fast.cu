@@ -21,10 +21,12 @@
 // read again after the loop (__ldcv), as fused_step_exact does, rather than
 // kept live through it.
 #include "mma.cuh"
+#include "sym_pairs.cuh"
 #include "verlet.cuh"
 
 namespace {
 
+template <bool kNormal>
 __global__ void __launch_bounds__(fast::kThreads)
 fused_step_fast_kernel(const float4* __restrict__ pm, const uint4* __restrict__ frag,
                        const float4* __restrict__ vel, const float4* __restrict__ acc_old,
@@ -36,7 +38,7 @@ fused_step_fast_kernel(const float4* __restrict__ pm, const uint4* __restrict__ 
     const float4 tg = fast::row_or_zero(pm, r0 + (lane >> 2), n);
     const float4 tg8 = fast::row_or_zero(pm, r0 + (lane >> 2) + 8, n);
     float tot[2][4];
-    fast::limb_sums(pm, frag, n, eps2, fast::Diag{0, 0, n}, r0, tg, tg8, sm, tot);
+    fast::limb_sums<kNormal>(pm, frag, n, eps2, fast::Diag{0, 0, n}, r0, tg, tg8, sm, tot);
     const int row = r0 + (lane & 15);
     const float4 p = row < n ? __ldcv(pm + row) : make_float4(0.f, 0.f, 0.f, 0.f);
     const float3 f = fast::epilogue_row(tot, sm, p);
@@ -63,7 +65,9 @@ extern "C" int nb_fused_step_fast(const void* pm, const void* frag, const void* 
                                   void* stream) {
     if (n > 0) {
         const dim3 grid((n + fast::kRows - 1) / fast::kRows);
-        fused_step_fast_kernel<<<grid, fast::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        const auto kernel =
+            sym_pairs::normal_cubes(eps2) ? fused_step_fast_kernel<true> : fused_step_fast_kernel<false>;
+        kernel<<<grid, fast::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const float4*>(pm), static_cast<const uint4*>(frag),
             static_cast<const float4*>(vel), static_cast<const float4*>(acc_old),
             static_cast<float4*>(pm_out), static_cast<float4*>(vel_out),

@@ -22,9 +22,9 @@
 // body's gm that term fills the f32 accumulator of its row and absorbs
 // every real term there.  A pair is a self pair iff col == row + off and
 // lo <= row < hi (global indices; Diag).  The single-device path passes
-// (0, 0, n), a disjoint source set off = kNoDiag.  Whether a 16 x 16 chunk
-// can hold a self pair is decided per warp and chunk, so the mask costs
-// nothing off the diagonal.
+// (0, 0, n), a disjoint source set off = kNoDiag.  Whether a staged tile,
+// and then a 16 x 16 chunk of it, can hold a self pair is decided per warp,
+// so the mask costs nothing off the diagonal.
 //
 // Layout: each warp owns 16 target rows and runs
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 twice a chunk of 16
@@ -44,6 +44,15 @@
 // rounding error kept in a second register.  Chaining the MMAs instead, as
 // the TPU kernel chains a block's dot, loses far more of a near-coincident
 // pair's acceleration on an H100 (PERF.md, section 6).
+//
+// What the loop issues a pair: the separation (3 FADD), d2 (3 FFMA), d2^3
+// (2 FMUL), the rsqrt (one MUFU; the ftz form where eps2^3 is normal,
+// pair.cuh, so without rsqrtf's subnormal guard), half a bf16x2 pack, one
+// f32 add of the chunk sums, five eighths of an LDS.128 (four positions
+// and a B fragment serve a lane's 8 pairs) and a quarter of an HMMA.  The
+// self-pair test runs only in the staged tiles that the diagonal crosses
+// (a warp-uniform branch a tile), so the loop off the diagonal carries no
+// test.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,7 +66,7 @@ namespace fast {
 constexpr int kWarps = 4;           // warps a block, 16 target rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // target rows a block
-constexpr int kTileS = 128;         // sources a shared-memory tile
+constexpr int kTileS = 128;         // sources a shared-memory tile (the TwoSum group)
 constexpr int kChunks = kTileS / 16;
 
 struct Diag {
@@ -92,20 +101,68 @@ __device__ __forceinline__ void two_sum_into(float& s, float& e, float a) {
     s = t;
 }
 
+// kNormal: eps2^3 is a normal float (sym_pairs::normal_cubes), so the ftz
+// rsqrt gives rsqrtf's bits.
+template <bool kNormal>
 __device__ __forceinline__ float weight(float4 s, float4 t, float eps2) {
-    return pair_inv3(s.x - t.x, s.y - t.y, s.z - t.z, eps2);
+    return kNormal ? pair_inv3_normal(s.x - t.x, s.y - t.y, s.z - t.z, eps2)
+                   : pair_inv3(s.x - t.x, s.y - t.y, s.z - t.z, eps2);
+}
+
+// One staged tile's first nk chunks into tile (sums from zero) for the
+// lane's target rows tg (r0 + g) and tg8 (r0 + g + 8).  kDiag: the diagonal
+// crosses this tile, so each chunk it crosses tests its self pairs: column
+// col of row rg is one iff col - rg == dg.off and dg.lo <= rg < dg.hi.
+template <bool kNormal, bool kDiag>
+__device__ __forceinline__ void tile_chunks(const Smem& sm, float4 tg, float4 tg8, float eps2, Diag dg, int r0,
+                                            int base, int nk, int cdlo, int cdhi, float (&tile)[2][4]) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int rg = r0 + g, rg8 = r0 + g + 8;
+    const bool in_g = rg >= dg.lo && rg < dg.hi, in_g8 = rg8 >= dg.lo && rg8 < dg.hi;
+#pragma unroll 2
+    for (int k = 0; k < nk; ++k) {
+        const int j = 16 * k + 2 * t;  // the lane's first source column in the tile
+        float w[2][4];                  // [row g, g+8][column 2t, 2t+1, 2t+8, 2t+9]
+        const int cols[4] = {j, j + 1, j + 8, j + 9};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const float4 s = sm.pos[cols[q]];
+            w[0][q] = weight<kNormal>(s, tg, eps2);
+            w[1][q] = weight<kNormal>(s, tg8, eps2);
+        }
+        const int c0 = base + 16 * k;
+        if (kDiag && c0 < cdhi && c0 + 16 > cdlo) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const int col = base + cols[q];
+                if (in_g && col - rg == dg.off) w[0][q] = 0.f;
+                if (in_g8 && col - rg8 == dg.off) w[1][q] = 0.f;
+            }
+        }
+        const uint32_t a0 = pack_bf16(w[0][0], w[0][1]);
+        const uint32_t a1 = pack_bf16(w[1][0], w[1][1]);
+        const uint32_t a2 = pack_bf16(w[0][2], w[0][3]);
+        const uint32_t a3 = pack_bf16(w[1][2], w[1][3]);
+        const uint4 b = sm.frag[k][lane];
+        float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // each chunk's MMAs from zero
+        mma_bf16(d[0], a0, a1, a2, a3, b.x, b.y);
+        mma_bf16(d[1], a0, a1, a2, a3, b.z, b.w);
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tile[nb][i] = __fadd_rn(tile[nb][i], d[nb][i]);
+    }
 }
 
 // The limb sums of rows [r0, r0 + 16) of the calling warp against sources
 // [0, n_s), into tot[n-block][C fragment].  Every thread of the block calls
 // it (it stages tiles and synchronises); tg and tg8 are the lane's target
 // rows r0 + g and r0 + g + 8 (zeros past the end).
-__device__ __forceinline__ void limb_sums(const float4* __restrict__ src,
-                                          const uint4* __restrict__ frag, int n_s, float eps2,
-                                          Diag dg, int r0, float4 tg, float4 tg8, Smem& sm,
+template <bool kNormal>
+__device__ __forceinline__ void limb_sums(const float4* __restrict__ src, const uint4* __restrict__ frag, int n_s,
+                                          float eps2, Diag dg, int r0, float4 tg, float4 tg8, Smem& sm,
                                           float (&tot)[2][4]) {
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
     const int n_chunks = (n_s + 15) / 16;
     // The source columns the diagonal takes in this warp's rows.
     long long dlo = static_cast<long long>(max(r0, dg.lo)) + dg.off;
@@ -115,8 +172,6 @@ __device__ __forceinline__ void limb_sums(const float4* __restrict__ src,
     const bool has_diag = dlo < dhi;
     const int cdlo = has_diag ? static_cast<int>(dlo) : 0;
     const int cdhi = has_diag ? static_cast<int>(dhi) : 0;
-    const int rg = r0 + g, rg8 = r0 + g + 8;
-    const bool in_g = rg >= dg.lo && rg < dg.hi, in_g8 = rg8 >= dg.lo && rg8 < dg.hi;
     float err[2][4];
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb)
@@ -135,39 +190,10 @@ __device__ __forceinline__ void limb_sums(const float4* __restrict__ src,
         __syncthreads();
         float tile[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
         const int nk = min(kChunks, (n_s - base + 15) / 16);
-#pragma unroll 2
-        for (int k = 0; k < nk; ++k) {
-            const int j = 16 * k + 2 * t;  // the lane's first source column in the tile
-            float w[2][4];                  // [row g, g+8][column 2t, 2t+1, 2t+8, 2t+9]
-            const int cols[4] = {j, j + 1, j + 8, j + 9};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                const float4 s = sm.pos[cols[q]];
-                w[0][q] = weight(s, tg, eps2);
-                w[1][q] = weight(s, tg8, eps2);
-            }
-            const int c0 = base + 16 * k;
-            if (has_diag && c0 < cdhi && c0 + 16 > cdlo) {
-#pragma unroll
-                for (int q = 0; q < 4; ++q) {
-                    const int col = base + cols[q];
-                    if (in_g && col - rg == dg.off) w[0][q] = 0.f;
-                    if (in_g8 && col - rg8 == dg.off) w[1][q] = 0.f;
-                }
-            }
-            const uint32_t a0 = pack_bf16(w[0][0], w[0][1]);
-            const uint32_t a1 = pack_bf16(w[1][0], w[1][1]);
-            const uint32_t a2 = pack_bf16(w[0][2], w[0][3]);
-            const uint32_t a3 = pack_bf16(w[1][2], w[1][3]);
-            const uint4 b = sm.frag[k][lane];
-            float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-            mma_bf16(d[0], a0, a1, a2, a3, b.x, b.y);
-            mma_bf16(d[1], a0, a1, a2, a3, b.z, b.w);
-#pragma unroll
-            for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-                for (int i = 0; i < 4; ++i) tile[nb][i] = __fadd_rn(tile[nb][i], d[nb][i]);
-        }
+        if (has_diag && base < cdhi && base + kTileS > cdlo)  // warp-uniform
+            tile_chunks<kNormal, true>(sm, tg, tg8, eps2, dg, r0, base, nk, cdlo, cdhi, tile);
+        else
+            tile_chunks<kNormal, false>(sm, tg, tg8, eps2, dg, r0, base, nk, cdlo, cdhi, tile);
 #pragma unroll
         for (int nb = 0; nb < 2; ++nb)
 #pragma unroll

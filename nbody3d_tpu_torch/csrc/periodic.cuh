@@ -12,8 +12,8 @@ __device__ __forceinline__ float min_image(float d, float box, float half) {
 
 // The long-range pair scalar of the Gaussian split, k_long = erf(u)/r^3 -
 // c2 e/r^2 (ops/ewald.py::k_long_terms), from inv_r = 1/r, u = r a, e =
-// exp(-u^2), c2 = (2/sqrt(pi)) a, a2 = a^2 and u2 = u^2, a = 1/(sqrt2
-// sigma).  The two terms agree to O(u^2) and cancel: in f32 their
+// exp(-u^2), c2 = (2/sqrt(pi)) a, c2a2 = c2 a^2 and u2 = u^2, a =
+// 1/(sqrt2 sigma).  The two terms agree to O(u^2) and cancel: in f32 their
 // difference at r << sigma is rounding noise of size 1/(sigma r^2), which
 // swamped k at pairs far closer than sigma.  Below u = 0.5 (u2 < 0.25)
 // k_long is its Maclaurin series in u^2 instead,
@@ -29,25 +29,37 @@ __device__ __forceinline__ float min_image(float d, float box, float half) {
 // rcut (tests/test_torch_ewald.py).  A branch, not a select: the pairs
 // within u = 0.5 are a small share of those within rcut = 4.5 sigma
 // (about (0.5/3.18)^3), so a warp mostly takes one side and skips the
-// other's work, erff included.
-__device__ __forceinline__ float k_long_periodic(float inv_r, float u, float e, float c2, float a2, float u2) {
+// other's work, erff included.  Every rounding is written out (__fmul_rn,
+// fmaf): left to it, ptxas fuses a product into a neighbouring difference
+// on one side or the other depending on the loop around it, and a caller's
+// k would then change bits with the caller's loop shape.  1/r^2 is taken
+// before the branch: inside it, ptxas scheduled the forward's loop worse
+// for the same instructions (PERF.md section 6).
+__device__ __forceinline__ float k_long_periodic(float inv_r, float u, float e, float c2, float c2a2, float u2) {
+    const float inv_r2 = __fmul_rn(inv_r, inv_r);
     if (u2 < 0.25f) {
-        return (c2 * a2) *
-               (2.f / 3.f +
-                u2 * (-0.4f +
-                      u2 * (1.f / 7.f +
-                            u2 * (-1.f / 27.f +
-                                  u2 * (1.f / 132.f +
-                                        u2 * (-1.f / 780.f +
-                                              u2 * (1.f / 5400.f + u2 * (-1.f / 42840.f + u2 * (1.f / 383040.f)))))))));
+        return __fmul_rn(
+            c2a2,
+            fmaf(u2,
+                 fmaf(u2,
+                      fmaf(u2,
+                           fmaf(u2,
+                                fmaf(u2,
+                                     fmaf(u2, fmaf(u2, fmaf(u2, 1.f / 383040.f, -1.f / 42840.f), 1.f / 5400.f),
+                                          -1.f / 780.f),
+                                     1.f / 132.f),
+                                -1.f / 27.f),
+                           1.f / 7.f),
+                      -0.4f),
+                 2.f / 3.f));
     }
-    return erff(u) * (inv_r * inv_r * inv_r) - (c2 * e) * (inv_r * inv_r);
+    return fmaf(__fmul_rn(inv_r, inv_r2), erff(u), -__fmul_rn(inv_r2, __fmul_rn(c2, e)));
 }
 
 // The periodic split's pair scalar k = 1/s^3 - k_long
 // (ops/ewald.py::k_short_periodic), inv_s = 1/s, the rest as above.  It
 // keeps a few ulp of 1/s^3 + k_long at any r.
-__device__ __forceinline__ float k_short_periodic(float inv_r, float inv_s, float u, float e, float c2, float a2,
+__device__ __forceinline__ float k_short_periodic(float inv_r, float inv_s, float u, float e, float c2, float c2a2,
                                                   float u2) {
-    return inv_s * inv_s * inv_s - k_long_periodic(inv_r, u, e, c2, a2, u2);
+    return fmaf(inv_s, __fmul_rn(inv_s, inv_s), -k_long_periodic(inv_r, u, e, c2, c2a2, u2));
 }

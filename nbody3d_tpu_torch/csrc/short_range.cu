@@ -127,6 +127,7 @@ short_range_kernel(const float4* __restrict__ ps, const int* __restrict__ nbr, c
     const float a = scal[1];
     const float c2 = scal[2];
     const float a2 = scal[3];
+    const float c2a2 = __fmul_rn(c2, a2);
     const float half = 0.5f * box;
     float4 me[kRows];
     bool in_tile[kRows];
@@ -183,7 +184,7 @@ short_range_kernel(const float4* __restrict__ ps, const int* __restrict__ nbr, c
                     const float e = expf(-(u * u));
                     float ks;
                     if (PERIODIC) {
-                        ks = k_short_periodic(inv_r, inv_s, u, e, c2, a2, r2s * a2);
+                        ks = k_short_periodic(inv_r, inv_s, u, e, c2, c2a2, r2s * a2);
                     } else {
                         const float tt = 1.f / (1.f + kAsP * u);
                         const float erfc_u =

@@ -435,19 +435,32 @@ def _kernel_operands(name, dev, nbr_idx, nbr_mask, sigma, rcut):
 
 
 def _dense_slots(ps: torch.Tensor, nbr_idx: torch.Tensor, block: int, rcut: torch.Tensor) -> torch.Tensor:
-    """``(nb, k)`` uint8 for the isolated ``short_range`` kernel: 1 where
-    the farthest corners of a slot's two tile boxes (every row of each
-    tile) lie within rcut, so every pair of the slot but a coincident one
-    is within rcut and the kernel sweeps it without its warp votes.  The
-    flag only picks one of two loops that give the same bits: a wrong one
-    costs time, not results.  ``|fl(x_s - x_t)| <= max(fl(hi_s - lo_t),
-    fl(hi_t - lo_s))`` as rounding is monotone; the 0.9999 covers the
-    rounding of the sums of squares."""
+    """``(nb, k)`` uint8 for the isolated ``short_range`` and
+    ``short_range_bwd`` kernels: 1 where the farthest corners of a slot's
+    two tile boxes (every row of each tile) lie within rcut, so every pair
+    of the slot but a coincident one is within rcut and the kernels sweep it
+    without their warp votes.  The flag only picks one of two loops that
+    give the same bits: a wrong one costs time, not results.  ``|fl(x_s -
+    x_t)| <= max(fl(hi_s - lo_t), fl(hi_t - lo_s))`` as rounding is
+    monotone; the 0.9999 covers the rounding of the sums of squares."""
     xyz = ps[:, :3].reshape(-1, block, 3)
     lo, hi = torch.amin(xyz, dim=1), torch.amax(xyz, dim=1)
     ids = nbr_idx.long()
     far = torch.maximum(hi[ids] - lo[:, None], hi[:, None] - lo[ids])
     return ((far * far).sum(-1) < 0.9999 * (rcut * rcut)).to(torch.uint8)
+
+
+def _slot_flags(name, ps, ids, block, rcut, box, dense):
+    """The isolated kernels' ``dense`` operand: ``None`` on the periodic box
+    (the kernel reads none), the caller's flags if given, else
+    :func:`_dense_slots`."""
+    if box is not None:
+        return None
+    if dense is None:
+        return _dense_slots(ps, ids, block, rcut)
+    if dense.dtype != torch.uint8 or dense.shape != ids.shape or dense.device != ids.device:
+        raise ValueError(f"{name}: dense must be (nb, k) uint8 on the device of ps")
+    return dense.contiguous()
 
 
 def short_range_tiles(
@@ -460,6 +473,7 @@ def short_range_tiles(
     nbr_mask: torch.Tensor | None = None,
     backend: str = "auto",
     box: float | None = None,
+    dense: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Masked block-sparse short-range accelerations per unit G of the
     sorted ``ps (N, 4)``: ``(N, 4)``, w lane 0.  ``nbr_idx (nb, k)`` are
@@ -467,7 +481,8 @@ def short_range_tiles(
     periodic box size ``L`` (positions in ``[0, L)``): minimum-image pairs
     with the periodic split's scalar.  ``backend="jnp"`` runs the twin on
     any device; otherwise the ``short_range`` kernel runs on a CUDA tensor,
-    the twin on a CPU one."""
+    the twin on a CPU one.  ``dense``: the isolated kernel's slot flags
+    (:func:`_dense_slots`) where the caller has them, else made here."""
     nb, k = nbr_idx.shape
     if nbr_mask is None:
         nbr_mask = torch.ones((nb, k), dtype=torch.float32, device=ps.device)
@@ -477,7 +492,7 @@ def short_range_tiles(
     if backend == "jnp" or dev.type == "cpu":
         return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
     ids, msk, scal = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
-    dense = None if box is not None else _dense_slots(ps, ids, block, rcut)
+    dense = _slot_flags("short_range", ps, ids, block, rcut, box, dense)
     out = torch.empty_like(ps)
     launch("short_range", dev, lib().nb_short_range, ps, ids, msk, dense, scal, out, nb, k, block, float(eps2),
            float(box or 0.0))
@@ -610,6 +625,7 @@ def short_range_tiles_bwd(
     nbr_mask: torch.Tensor,
     backend: str = "auto",
     box: float | None = None,
+    dense: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The VJP of :func:`short_range_tiles` for its output's cotangent ``g
     (N, 4)`` (w lane not read): ``(dps (N, 4) = [x̄, m̄], σ̄ ())``; rcut's
@@ -617,18 +633,19 @@ def short_range_tiles_bwd(
     takes it.  ``backend="jnp"`` runs the twin on any device; otherwise the
     ``short_range_bwd`` kernel runs on a CUDA tensor, the twin on a CPU
     one.  The kernel writes σ̄ per row, summed here with ``torch.sum``
-    (deterministic)."""
+    (deterministic).  ``dense``: as :func:`short_range_tiles` takes it."""
     nb, k = nbr_idx.shape
     if box is not None and not box > 0:
         raise ValueError(f"short_range_bwd: box must be > 0, got {box}")
     dev = _check_tiles("short_range_bwd", block, nbr_idx, ps, g)
     if backend == "jnp" or dev.type == "cpu":
         return _short_range_tiles_bwd(ps, g, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
-    ops = _kernel_operands("short_range_bwd", dev, nbr_idx, nbr_mask, sigma, rcut)
+    ids, msk, scal = _kernel_operands("short_range_bwd", dev, nbr_idx, nbr_mask, sigma, rcut)
+    dense = _slot_flags("short_range_bwd", ps, ids, block, rcut, box, dense)
     dps = torch.empty_like(ps)
     dsig = torch.empty(ps.shape[0], dtype=torch.float32, device=dev)
-    launch("short_range_bwd", dev, lib().nb_short_range_bwd, ps, g, *ops, dps, dsig, nb, k, block, float(eps2),
-           float(box or 0.0))
+    launch("short_range_bwd", dev, lib().nb_short_range_bwd, ps, g, ids, msk, dense, scal, dps, dsig, nb, k, block,
+           float(eps2), float(box or 0.0))
     return dps, torch.sum(dsig)
 
 
@@ -639,22 +656,28 @@ class _ShortRange(torch.autograd.Function):
     ``ps`` and ``sigma``; ``rcut`` only gates (its cotangent is 0), the
     lists and the mask have none.  Both passes hand their wrappers detached
     tensors.  ``box`` (the periodic box) reaches both wrappers: the
-    JAX function's ``periodic=True`` form."""
+    JAX function's ``periodic=True`` form.  The isolated kernels' slot
+    flags (:func:`_dense_slots`) are made once, in the forward, and kept
+    for the backward."""
 
     @staticmethod
     def forward(ctx, ps, sigma, rcut, nbr_idx, nbr_mask, eps2, block, backend, box=None):
-        ctx.save_for_backward(ps, sigma, rcut, nbr_idx, nbr_mask)
+        dense = None
+        if box is None and backend != "jnp" and ps.is_cuda:
+            dense = _dense_slots(ps.detach(), nbr_idx, block, rcut.detach())
+        ctx.save_for_backward(ps, sigma, rcut, nbr_idx, nbr_mask, dense)
         ctx.opts = (eps2, block, backend)
         ctx.box = box
         return short_range_tiles(ps.detach(), nbr_idx, eps2, sigma.detach(), rcut.detach(), block, nbr_mask,
-                                 backend=backend, box=box)
+                                 backend=backend, box=box, dense=dense)
 
     @staticmethod
     def backward(ctx, g):
-        ps, sigma, rcut, nbr_idx, nbr_mask = ctx.saved_tensors
+        ps, sigma, rcut, nbr_idx, nbr_mask, dense = ctx.saved_tensors
         eps2, block, backend = ctx.opts
         dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
-                                          rcut.detach(), block, nbr_mask, backend=backend, box=ctx.box)
+                                          rcut.detach(), block, nbr_mask, backend=backend, box=ctx.box,
+                                          dense=dense)
         return dps, dsig, None, None, None, None, None, None, None
 
 

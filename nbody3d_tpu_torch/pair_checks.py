@@ -1,20 +1,22 @@
 """Planted-pair scenes for the pair kernels whose work depends on the data:
-``short_range`` (which skips the pair arithmetic of a warp's row slot when
-no lane of it is within rcut) and ``vjp_sym_hops`` (a heavy body among
-light ones).
+``short_range`` and ``short_range_bwd`` (which skip the pair arithmetic of
+a warp's row slot when no lane of it is within rcut) and ``vjp_sym_hops``
+(a heavy body among light ones).
 
 ``chip_smoke.py`` holds the kernels to their plain twins (and, with
-``--parent``, ``short_range`` bit for bit to the parent commit's kernel) on
-these scenes on the card; ``tests/test_torch_p3m.py``,
-``tests/test_torch_periodic.py`` and ``tests/test_torch_grad.py`` hold the
-twins on the same scenes against the JAX package.  Every input is made with
-numpy from a seed.
+``--parent``, ``short_range`` and ``short_range_bwd`` bit for bit to the
+parent commit's kernels) on these scenes on the card;
+``tests/test_torch_p3m.py``, ``tests/test_torch_periodic.py``,
+``tests/test_torch_sr_bwd_planted.py`` and ``tests/test_torch_grad.py`` hold
+the twins on the same scenes against the JAX package.  Every input is made
+with numpy from a seed.
 
 A short-range scene is a dict of ``ps (N, 4)`` f32 rows [x, y, z, m],
-``nbr_idx (nb, k)`` int32 tile ids, ``mask (nb, k)`` f32, the f32 scalars
-``sigma`` and ``rcut``, ``eps2``, ``block`` and ``box`` (``None`` for the
-isolated boundary); the lists are given, not selected, so a scene can plant
-any pair in any slot.
+``g (N, 4)`` f32 the cotangent of the short range's output (N(0, 1), w
+lane 0), ``nbr_idx (nb, k)`` int32 tile ids, ``mask (nb, k)`` f32, the f32
+scalars ``sigma`` and ``rcut``, ``eps2``, ``block`` and ``box`` (``None``
+for the isolated boundary); the lists are given, not selected, so a scene
+can plant any pair in any slot.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ def rcut_with_ulp_neighbours(start: float = 0.36) -> np.float32:
             return r
 
 
-def _scene(ps, nbr_idx, mask, rcut, box, eps2) -> dict:
+def _scene(ps, nbr_idx, mask, rcut, box, eps2, seed: int = 0) -> dict:
     rcut = np.float32(rcut)
-    return dict(ps=np.ascontiguousarray(ps, np.float32), nbr_idx=np.asarray(nbr_idx, np.int32),
+    g = np.random.default_rng(seed + 100).standard_normal((len(ps), 4)).astype(np.float32)
+    g[:, 3] = 0.0
+    return dict(ps=np.ascontiguousarray(ps, np.float32), g=g, nbr_idx=np.asarray(nbr_idx, np.int32),
                 mask=np.asarray(mask, np.float32), sigma=np.float32(rcut / np.float32(4.5)), rcut=rcut,
                 eps2=eps2, block=BLOCK, box=box)
 
@@ -121,6 +125,62 @@ def short_range_scenes(periodic: bool) -> dict[str, dict]:
         return {"rcut² ± 1 ulp, one live lane, masked slots, coincident rows": planted_rcut()}
     return {"rcut² ± 1 ulp, one live lane, masked slots, coincident rows (box)": planted_rcut(BOX),
             "pairs across the seams": planted_seam()}
+
+
+def planted_kp_switch(seed: int = 0) -> dict:
+    """The periodic backward's switch of k' from its series to its closed
+    form at u = r a = 0.2 (``csrc/short_range_bwd.cu``), within one row
+    slot: tile 0's targets at x = 0 on a 0.45 grid in y and z (farther
+    apart than rcut), tile 1's partners along x.  Rows 0-31 (one warp)
+    straddle the switch: row i's partner at u = 0.1 + 0.2 i / 31, row 16's
+    at the last f32 separation below the switch (r^2 a^2 < 0.04 in f32) and
+    row 17's at the first one above; rows 32-63 all below it, u in [0.02,
+    0.19].  Tiles 2 and 3: random bodies in the box (the closed form
+    alone, and pairs past rcut).  Every slot live."""
+    rng = np.random.default_rng(seed)
+    rcut = rcut_with_ulp_neighbours()
+    sigma = np.float32(rcut / np.float32(4.5))
+    a2 = np.float32(0.5) / (sigma * sigma)  # the kernel's scal[3]; it switches where r^2 a^2 < 0.04
+    r_switch = np.float32(0.2 * np.sqrt(2.0) * float(sigma))
+    while (r_switch * r_switch) * a2 >= np.float32(0.04):
+        r_switch = np.nextafter(r_switch, np.float32(0))
+    while (r_switch * r_switch) * a2 < np.float32(0.04):
+        r_switch = np.nextafter(r_switch, np.float32(1))
+    ps = np.zeros((4 * BLOCK, 4), np.float32)
+    i = np.arange(BLOCK)
+    grid = np.stack([0.45 * (i % 8), 0.45 * (i // 8)], 1).astype(np.float32)
+    ps[:BLOCK, 1:3] = grid
+    u = np.concatenate([0.1 + 0.2 * np.arange(32) / 31, rng.uniform(0.02, 0.19, BLOCK - 32)])
+    dx = (u / 0.2 * r_switch).astype(np.float32)
+    dx[16], dx[17] = np.nextafter(r_switch, np.float32(0)), r_switch  # the last below, the first at or above
+    ps[BLOCK : 2 * BLOCK, 0] = dx
+    ps[BLOCK : 2 * BLOCK, 1:3] = grid
+    ps[2 * BLOCK :, :3] = rng.uniform(0.0, BOX, (2 * BLOCK, 3))
+    ps[:, 3] = rng.uniform(1.0, 3.0, 4 * BLOCK)
+    nbr_idx = [[1, 0, 2, 3], [0, 1, 3, 2], [3, 2, 0, 1], [2, 3, 1, 0]]
+    return _scene(ps, nbr_idx, np.ones((4, 4), np.float32), rcut, BOX, 1e-6, seed)
+
+
+def mutual(mask: np.ndarray, nbr_idx: np.ndarray) -> np.ndarray:
+    """``mask`` with every slot (t, j) killed whose tile j does not list t
+    under its own mask: the mutual mask that the port's selection makes
+    (``ops/p3m.py::mutual_neighbor_mask``), under which the backward's
+    gather over each row's own list is the exact VJP."""
+    out = mask.copy()
+    for t, j in zip(*np.nonzero(mask)):
+        if not ((nbr_idx[nbr_idx[t, j]] == t) & (mask[nbr_idx[t, j]] != 0)).any():
+            out[t, j] = 0.0
+    return out
+
+
+def short_range_bwd_scenes(periodic: bool) -> dict[str, dict]:
+    """name: scene, for the isolated or the periodic ``short_range_bwd``:
+    the forward's scenes under :func:`mutual` masks and, periodic,
+    :func:`planted_kp_switch`."""
+    scenes = {name: dict(sc, mask=mutual(sc["mask"], sc["nbr_idx"])) for name, sc in short_range_scenes(periodic).items()}
+    if periodic:
+        scenes["k' series / closed form switch in one warp (box)"] = planted_kp_switch()
+    return scenes
 
 
 def vjp_heavy(n: int = 1024, b: int = 256, n_real: int = 1000, seed: int = 0):

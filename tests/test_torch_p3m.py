@@ -256,6 +256,25 @@ def test_dense_slots_hold_every_pair_within_rcut(scene, block):
         assert (r2 < rcut2).all() and ((d64 * d64).sum(-1) < rcut2).all()
 
 
+def test_slot_flags_take_the_callers_flags():
+    """The kernels' ``dense`` operand (``p3m._slot_flags``): none on the
+    periodic box, the caller's flags as given (the autograd function hands
+    the forward's to the backward), ``_dense_slots`` where there are none,
+    and a malformed one refused."""
+    rng = np.random.default_rng(5)
+    ps = torch.from_numpy(rng.uniform(0, 1, (4 * 64, 4)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 4, (4, 3)).astype(np.int32))
+    rcut = torch.tensor(0.9)
+    made = p3m._dense_slots(ps, ids, 64, rcut)
+    assert p3m._slot_flags("short_range", ps, ids, 64, rcut, 1.0, made) is None
+    assert torch.equal(p3m._slot_flags("short_range", ps, ids, 64, rcut, None, None), made)
+    given = 1 - made
+    assert torch.equal(p3m._slot_flags("short_range_bwd", ps, ids, 64, rcut, None, given), given)
+    for bad in (made.to(torch.int32), made[:2]):
+        with pytest.raises(ValueError, match="dense must be"):
+            p3m._slot_flags("short_range_bwd", ps, ids, 64, rcut, None, bad)
+
+
 def test_sym_jitter_matches_jax():
     """The hash's factors give JAX's jitter; ``u(i, j) == u(j, i)``."""
     ids = np.random.default_rng(3).integers(0, 70000, (2, 500)).astype(np.int32)
