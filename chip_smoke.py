@@ -11,7 +11,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build: nvcc builds the nineteen kernels from ``nbody3d_tpu_torch/csrc``,
    one nvcc process per source, all started together; the registers and
-   spill bytes (ptxas) of ``sym_hops``, ``pair_sym``, ``vjp_sym_hops``,
+   spill bytes (ptxas) of ``force_exact``, ``fused_step_exact``,
+   ``sym_hops``, ``pair_sym``, ``vjp_sym_hops``,
    ``short_range``, ``short_range_bwd``, ``force_fast`` and
    ``fused_step_fast`` and, where ``cuobjdump`` is on the machine, the
    count of their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
@@ -22,7 +23,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
 3. kernels: each kernel against its plain PyTorch twin on the card at
    N = 8,192 (nt even), 7,936 (nt odd) and 512 (nt = 2), padded rows
    included (forward: accelerations and the step; VJP: x̄, m̄ and Ḡ);
-   ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
+   ``force_exact`` and ``fused_step_exact`` at N = 8,192 with a 1e7 body
+   at every S (source split) from 1 to 8 and at eps2 = 1e-4 and 1e-14 (the
+   ftz and the guarded rsqrt), < 1e-5 of scale, the fused step bit-equal to
+   ``force_exact`` + the torch Verlet, and ``force_exact`` on the ragged
+   rectangular calls 1,999 x 8,192 and 8,192 x 1,999 (with ``--parent`` each
+   bit-equal to the parent's kernel where S = 1); ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
    and padded rows, at tile counts that cut a block's run of hops short
    (nt = 2, 8, 19, 35 and 36), at eps2 = 1e-14 (a subnormal eps2^3) and at
    tiles of 512 and 1024 rows: < 2e-5 of scale; ``vjp_sym_hops`` (summed
@@ -40,7 +46,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    nt = 157) against their twins, the full grid and f64; with
    ``--parent`` the parent's ``sym_hops`` and ``vjp_sym_hops`` beside this
    tree's in turns (N = 262,144; ``vjp_sym_hops`` also at nt = 157), and
-   ``vjp_sym_hops`` with its guarded rsqrt beside its ftz one.
+   ``vjp_sym_hops`` with its guarded rsqrt beside its ftz one; after
+   phase 10's times, ``force_exact`` and ``fused_step_exact``, the launch
+   alone, at two-galaxy n_pad 40,192 and N = 262,144: S, the guarded
+   instance beside the ftz one in turns, ``force_exact`` at every S at
+   40,192, and with ``--parent`` the parent's kernels in turns (bit-equal
+   where S = 1).
 4. exact main path: ``Simulation.from_preset("two-galaxy", SimConfig())``,
    200 steps in chunks of 50, energy drift <= 1e-3 and momentum error
    <= 1e-5 of sum |m v|.
@@ -295,7 +306,8 @@ from nbody3d_tpu_torch.ops import mesh_cuda as mc
 from nbody3d_tpu_torch.ops import p3m, pm
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, valid_mask
 from nbody3d_tpu_torch.ops.launch import (
-    KERNELS, hop_blocks, launch, launch_counts, reset_launch_counts, split_hops, sym_runs,
+    EXACT_MAX_SPLIT, KERNELS, exact_split, hop_blocks, launch, launch_counts, reset_launch_counts, sm_count,
+    split_hops, sym_runs,
 )
 from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import (
@@ -489,8 +501,9 @@ def phase_build() -> None:
 
 
 # The pair kernels whose inner loop PERF.md describes from these counts.
-SYM_PAIR_KERNELS = ("sym_hops_kernel", "pair_sym_kernel", "vjp_sym_hops_kernel", "short_range_kernel",
-                    "short_range_bwd_kernel", "force_fast_kernel", "fused_step_fast_kernel")
+SYM_PAIR_KERNELS = ("force_exact_kernel", "fused_step_exact_kernel", "sym_hops_kernel", "pair_sym_kernel",
+                    "vjp_sym_hops_kernel", "short_range_kernel", "short_range_bwd_kernel", "force_fast_kernel",
+                    "fused_step_fast_kernel")
 SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "VOTE", "BSSY", "MUFU", "FFMA", "FMUL", "FADD", "FSEL",
             "BAR", "F2FP", "HMMA", "BRA")
 # The FP32 pipe's opcodes, summed as one class in the pair loops' counts.
@@ -654,7 +667,92 @@ def phase_kernel_checks(dev) -> None:
         es = rel_err(a1[:n_real], ex[:n_real])
         check(es < 2e-5, f"N={n_pad} nt={nt}: sym accel vs exact accel {es:.3e} < 2e-5")
         torch.cuda.synchronize()
+    phase_exact_checks(dev)
     phase_sym_run_checks(dev)
+
+
+# force_exact's ragged rectangular calls (n_t, n_s): neither count a multiple
+# of the 128-source tile or of S tiles (exact_split gives S = 8 for both).
+EXACT_RAGGED = ((1999, 8192), (8192, 1999))
+# The softenings of the exact kernels' checks: the default, whose cube is a
+# normal float (the ftz rsqrt), and 1e-14, whose cube is subnormal (rsqrtf
+# with its guard).
+EXACT_EPS2 = (EPS2, 1e-14)
+
+
+def force_exact_split(tgt, src, g: float, eps2: float, split: int, out=None) -> torch.Tensor:
+    """``force_exact``'s launch alone with ``split`` CTAs a block of rows
+    (the wrapper passes ``exact_split``'s)."""
+    out = torch.empty_like(tgt) if out is None else out
+    launch("force_exact", tgt.device, _build.load_library().nb_force_exact, tgt, src, out, tgt.shape[0],
+           src.shape[0], float(g), float(eps2), split)
+    return out
+
+
+def fused_exact_split(pm, vel, aold, dt: float, g: float, eps2: float, n_real: int, split: int, out=None):
+    """``fused_step_exact``'s launch alone with ``split`` CTAs a block of rows."""
+    n = pm.shape[0]
+    out = tuple(torch.empty_like(pm) for _ in range(3)) if out is None else out
+    launch("fused_step_exact", pm.device, _build.load_library().nb_fused_step_exact, pm, vel, aold, *out, n,
+           min(int(n_real), n), float(dt), float(g), float(eps2), split)
+    return out
+
+
+def _exact_vs_parent(tag: str, split: int, got, parent_fn, *args) -> None:
+    """With ``--parent``: ``got`` bit-equal to the parent's kernel where
+    ``split`` is 1; where it is more, the largest difference over the
+    largest value of each output, printed."""
+    if not PARENT:
+        return
+    if split == 1:
+        _parent_equal(f"{tag} (S = 1)", got, parent_fn, *args)
+        return
+    want = parent_fn(*args)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    errs = ", ".join(f"{rel_err(a, b):.3e}" for a, b in zip(got, want))
+    print(f"    {tag} (S = {split}) against the parent's kernel: max-abs/scale {errs}", flush=True)
+
+
+def phase_exact_checks(dev) -> None:
+    """``force_exact`` and ``fused_step_exact`` (csrc/exact.cuh) against
+    the twin, < 1e-5 of scale, with a 1e7 body and padded rows at N =
+    8,192: at every S from 1 to 8, both rsqrt instances (EXACT_EPS2); the
+    fused step bit-equal to ``force_exact`` at the same S + the torch
+    Verlet; the wrapper's S; the ragged rectangular calls of EXACT_RAGGED.
+    With ``--parent`` each bit-equal to the parent's kernel where S = 1."""
+    rng = np.random.default_rng(16)
+    n, n_real = 8192, 8000
+    pm, vel, aold = _inputs(rng, n, n_real, dev)
+    pm[n // 3, 3] = 1e7
+    for eps2 in EXACT_EPS2:
+        want = cf.force_exact_plain(pm, pm, G, eps2)
+        errs = {}
+        for split in range(1, EXACT_MAX_SPLIT + 1):
+            got = force_exact_split(pm, pm, G, eps2, split)
+            fused = fused_exact_split(pm, vel, aold, DT, G, eps2, n_real, split)
+            verlet = _verlet_on_card(pm, vel, aold, got, n_real)
+            torch.cuda.synchronize()
+            errs[split] = rel_err(got, want)
+            check(errs[split] < 1e-5 and not got[:, 3].any() and bool(torch.isfinite(got).all())
+                  and all(torch.equal(x, w) for x, w in zip(fused, verlet)),
+                  f"N={n} eps2 {eps2:g} S={split}: force_exact vs plain with a 1e7 body {errs[split]:.3e} < 1e-5, "
+                  "w lane 0; fused_step_exact bit-equal to force_exact + torch Verlet")
+            _exact_vs_parent(f"N={n} eps2 {eps2:g} force_exact", split, got, parent_force_exact, pm, pm, G, eps2)
+            _exact_vs_parent(f"N={n} eps2 {eps2:g} fused_step_exact", split, fused, parent_fused_step_exact, pm,
+                             vel, aold, DT, G, eps2, n_real)
+        split = exact_split(n, n, sm_count(dev.index))
+        check(torch.equal(cf.force_exact(pm, pm, G, eps2), force_exact_split(pm, pm, G, eps2, split)),
+              f"N={n} eps2 {eps2:g}: the wrapper launches S = exact_split = {split}")
+        for n_t, n_s in EXACT_RAGGED:
+            tgt, src = pm[-n_t:].contiguous(), pm[:n_s].contiguous()
+            got, want = cf.force_exact(tgt, src, G, eps2), cf.force_exact_plain(tgt, src, G, eps2)
+            one = force_exact_split(tgt, src, G, eps2, 1)
+            torch.cuda.synchronize()
+            e1 = rel_err(one, want)
+            check(rel_err(got, want) < 1e-5 and e1 < 1e-5,
+                  f"{n_t} x {n_s} eps2 {eps2:g}: force_exact vs plain, S = {exact_split(n_t, n_s, sm_count(dev.index))} "
+                  f"{rel_err(got, want):.3e}, S = 1 {e1:.3e} < 1e-5")
+            _exact_vs_parent(f"{n_t} x {n_s} eps2 {eps2:g} force_exact", 1, one, parent_force_exact, tgt, src, G, eps2)
 
 
 # (N, tile, eps2): tile counts whose runs of hops are cut short (SYM_RUN =
@@ -1452,14 +1550,30 @@ def parent_fused_step_fast(pm, vel, aold, dt: float, g: float, eps2: float, n_re
     return out
 
 
+def parent_force_exact(tgt, src, g: float, eps2: float) -> torch.Tensor:
+    """The parent's ``force_exact`` (its C signature: no split)."""
+    out = torch.empty_like(tgt)
+    _parent_call(PARENT["lib"].nb_force_exact, tgt, src, out, tgt.shape[0], src.shape[0], float(g), float(eps2))
+    return out
+
+
+def parent_fused_step_exact(pm, vel, aold, dt: float, g: float, eps2: float, n_real: int):
+    """The parent's ``fused_step_exact`` (its C signature: no split)."""
+    n = pm.shape[0]
+    out = tuple(torch.empty_like(pm) for _ in range(3))
+    _parent_call(PARENT["lib"].nb_fused_step_exact, pm, vel, aold, *out, n, min(int(n_real), n), float(dt),
+                 float(g), float(eps2))
+    return out
+
+
 def parent_short_range_bwd(ps, g, nbr_idx, eps2: float, sigma, rcut, block: int, mask, box: float | None = None):
-    """The parent's ``short_range_bwd`` (its C signature: no dense flags; a
-    thread a target row, every pair's arithmetic), as
-    ``p3m.short_range_tiles_bwd`` returns it."""
+    """The parent's ``short_range_bwd`` (this tree's C signature and dense
+    flags), as ``p3m.short_range_tiles_bwd`` returns it."""
     ids, msk, scal = p3m._kernel_operands("short_range_bwd", ps.device, nbr_idx, mask, sigma, rcut)
+    dense = p3m._slot_flags("short_range_bwd", ps, ids, block, rcut, box, None)
     dps = torch.empty_like(ps)
     dsig = torch.empty(ps.shape[0], dtype=torch.float32, device=ps.device)
-    _parent_call(PARENT["lib"].nb_short_range_bwd, ps, g, ids, msk, scal, dps, dsig, nbr_idx.shape[0],
+    _parent_call(PARENT["lib"].nb_short_range_bwd, ps, g, ids, msk, dense, scal, dps, dsig, nbr_idx.shape[0],
                  nbr_idx.shape[1], block, float(eps2), float(box or 0.0))
     return dps, torch.sum(dsig)
 
@@ -2903,6 +3017,62 @@ def phase_unfused_times(dev) -> dict[str, dict]:
     return out
 
 
+def phase_exact_times(dev, times: dict[str, dict]) -> None:
+    """``force_exact`` and ``fused_step_exact``, the launch alone, at the
+    exact paths' two-galaxy n_pad 40,192 and at uniform-sphere N = 262,144
+    (Morton order): S, the cluster and the time at each; the guarded
+    ``rsqrtf`` instance (eps2 = 1e-14) beside the ftz one in turns; at
+    40,192 ``force_exact`` at every S from 1 to 8; with ``--parent`` the
+    parent's kernels in turns (their mean at 40,192 goes into the kernels
+    line), bit-equal where S = 1 and their max-abs/scale apart where not.
+    Adds a line a shape to each kernel's note."""
+    print("[3, 10 exact kernels] times at 40,192 and 262,144, the launch alone (CUDA events)", flush=True)
+    lib = _build.load_library()
+    st, n_real = _two_galaxy(dev)
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=262144)
+    sphere = init_state(pm_np, vel_np, n_pad=262144, device=dev)
+    shapes = (("two-galaxy", st.pos_mass, st.vel, n_real, 20),
+              ("uniform-sphere", *morton_reorder(sphere.pos_mass, sphere.vel, sphere.accel, n_real=262144)[:2],
+               262144, 3))
+    for name, pm, vel, n_real, reps in shapes:
+        n = pm.shape[0]
+        split = exact_split(n, n, sm_count(dev.index))
+        aold = cf.force_exact(pm, pm, G, EPS2)
+        outs = tuple(torch.empty_like(pm) for _ in range(3))
+        runs = {
+            "force_exact": (lambda e=EPS2, s=split: force_exact_split(pm, pm, G, e, s, outs[2]),
+                            lambda: _parent_call(PARENT["lib"].nb_force_exact, pm, pm, outs[2], n, n, G, EPS2),
+                            (parent_force_exact, pm, pm, G, EPS2)),
+            "fused_step_exact": (
+                lambda e=EPS2, s=split: fused_exact_split(pm, vel, aold, DT_MAIN, G, e, n_real, s, outs),
+                lambda: _parent_call(PARENT["lib"].nb_fused_step_exact, pm, vel, aold, *outs, n, n_real, DT_MAIN, G,
+                                     EPS2),
+                (parent_fused_step_exact, pm, vel, aold, DT_MAIN, G, EPS2, n_real)),
+        }
+        for kernel, (fn, parent_fn, parent_args) in runs.items():
+            got = fn()
+            got = tuple(t.clone() for t in got) if isinstance(got, tuple) else got.clone()
+            ms = cuda_ms(fn, reps=reps)
+            t = [cuda_ms(lambda e=e: fn(e), reps=reps) for e in (1e-14, EPS2, EPS2, 1e-14)]
+            line = (f"{name} n {n}: S {split} ({f'a cluster of {split}' if split > 1 else 'no cluster'}), "
+                    f"{ms:.4f} ms; in turns guarded rsqrtf (eps2 1e-14) {t[0]:.4f} / {t[3]:.4f}, "
+                    f"ftz {t[1]:.4f} / {t[2]:.4f}")
+            if PARENT:
+                _exact_vs_parent(f"{name} n {n} {kernel}", split, got, *parent_args)
+                turns = vs_parent(f"{name} n {n} {kernel}, the launch alone", fn, parent_fn, reps=reps)
+                line += f"; parent {turns['parent_ms']:.4f}, this {turns['this_ms']:.4f} (in turns)"
+                if name == "two-galaxy":
+                    times[kernel].update(turns)
+            print(f"  {kernel}: {line}", flush=True)
+            note = times[kernel].get("note")
+            times[kernel]["note"] = f"{note}; {line}" if note else line
+        if n < 100000:
+            sweep = {s: cuda_ms(lambda s=s: force_exact_split(pm, pm, G, EPS2, s, outs[2]), reps=reps)
+                     for s in range(1, EXACT_MAX_SPLIT + 1)}
+            print(f"  force_exact at {name} n {n} by S (exact_split gives {split}): "
+                  + ", ".join(f"{s} {v:.4f}" for s, v in sweep.items()) + " ms", flush=True)
+
+
 # --------------------------------------------------------------- fast mode
 # Kernel vs twin: the kernel's sums are f32 (csrc/mma.cuh: each 16-source
 # chunk on the tensor cores, round-to-nearest adds within a 128-source tile,
@@ -4096,11 +4266,12 @@ def main() -> int:
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops, "
-                         "pair_sym, vjp_sym_hops, short_range, short_range_bwd, force_fast and "
-                         "fused_step_fast beside this tree's, in turns, at 7c's, the deposit's, phase 3's "
-                         "(N = 262,144; vjp_sym_hops also at nt = 157), 14c's (524,288 x 524,288), 8b's, 9b's, "
-                         "12b's, 13b's, 11b's and 11c's shapes; short_range, short_range_bwd and the fast "
-                         "kernels also bit for bit")
+                         "pair_sym, vjp_sym_hops, short_range, short_range_bwd, force_fast, "
+                         "fused_step_fast, force_exact and fused_step_exact beside this tree's, in turns, at "
+                         "7c's, the deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), 14c's "
+                         "(524,288 x 524,288), 8b's, 9b's, 12b's, 13b's, 11b's and 11c's shapes (the exact "
+                         "kernels at 40,192 and 262,144); short_range, short_range_bwd and the fast kernels "
+                         "also bit for bit, the exact kernels where S = 1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)
@@ -4133,6 +4304,7 @@ def main() -> int:
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))
+    phase_exact_times(dev, times)
     times.update(phase_fast_times(dev))
     periodic = phase_periodic_times(dev)
     periodic.update(phase_periodic_grad_times(dev))

@@ -8,48 +8,51 @@
 // d2 = |x_j - x_i|^2 + eps2, w lane 0.  No self mask: the self pair's
 // separation is exactly zero.  Padded sources carry m = 0 and add nothing.
 //
-// What bounds it on an H100: per pair, ~10 FP32 FMA/FMUL/FADD issue slots
-// plus one MUFU rsqrt; the MUFU unit runs at a quarter of the FMA rate, so
-// the pair loop is bound by instruction issue and MUFU throughput, never
-// by memory (each source is read from shared memory by a whole block).
+// What bounds it on an H100: per pair 12 FP32 issue slots and one MUFU
+// rsqrt (exact.cuh); instruction issue binds, never memory (each source is
+// staged once in shared memory for a block's 256 targets).
 //
-// Design (the classic shared-memory tile kernel, arXiv 0706.3060): one
-// thread per target holding its sum in registers; each block stages a
-// tile of kTile sources through shared memory (G folded into the mass on
-// the way in, so G is a runtime argument and needs no rebuild) and every
-// thread sweeps the tile as a broadcast read.  The TPU version streamed
-// (4, BS) source tiles through VMEM and reduced over lanes; here the
-// reduction is a register accumulator and needs no cross-thread step.
-// The loop is pair.cuh's all_pairs_pull, which sums each source tile into
-// its own partial first (its note says why) and which fused_step_exact
-// shares, so the two kernels' forces are the same bits.
+// Design (exact.cuh; the classic shared-memory tile kernel of arXiv
+// 0706.3060 with two target rows a thread): each block takes 256 target
+// rows, 2 a thread in registers, and sweeps staged tiles of 128 sources
+// (G folded into the mass on the way in, so G is a runtime argument) as
+// broadcast reads, each tile summed into its own partial first.  The TPU
+// version streamed (4, BS) source tiles through VMEM and reduced over
+// lanes; here the reduction is a register accumulator.  Where the row
+// blocks cannot fill the card the wrapper asks for S > 1 (ops/launch.py
+// exact_split): a cluster of S CTAs splits the source tiles and combines its
+// partials through distributed shared memory in rank order.  The ftz rsqrt
+// where eps2^3 is normal.  fused_step_exact runs the same loop and combine,
+// so the two kernels' forces are the same bits.
 #include <cuda_runtime.h>
 
-#include "pair.cuh"
+#include "exact.cuh"
+#include "sym_pairs.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-
-__global__ void __launch_bounds__(kTile)
+template <bool kNormal>
+__global__ void __launch_bounds__(exact::kThreads)
 force_exact_kernel(const float4* __restrict__ tgt, const float4* __restrict__ src,
-                   float4* __restrict__ out, int n_t, int n_s, float G, float eps2) {
-    __shared__ float4 tile[kTile];
-    const int row = blockIdx.x * kTile + threadIdx.x;
-    const float4 me = row < n_t ? tgt[row] : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float3 a = all_pairs_pull<kTile>(src, n_s, G, eps2, me, tile);
-    if (row < n_t) out[row] = make_float4(a.x, a.y, a.z, 0.f);
+                   float4* __restrict__ out, int n_t, int n_s, float G, float eps2, int split) {
+    __shared__ float4 tile[exact::kTile];
+    __shared__ float4 part[exact::kBlockRows];
+    const int rank = blockIdx.x % split;
+    const int row0 = blockIdx.x / split * exact::kBlockRows;
+    float3 a[exact::kRows];
+    exact::pull_share<kNormal>(tgt, row0, n_t, src, n_s, rank, split, G, eps2, a, tile);
+    exact::finish(a, row0, n_t, rank, split, part,
+                  [&](int row, float3 f) { out[row] = make_float4(f.x, f.y, f.z, 0.f); });
 }
 
 }  // namespace
 
-extern "C" int nb_force_exact(const void* tgt, const void* src, void* out, int n_t,
-                              int n_s, float G, float eps2, void* stream) {
-    if (n_t > 0) {
-        const dim3 grid((n_t + kTile - 1) / kTile);
-        force_exact_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(tgt), static_cast<const float4*>(src),
-            static_cast<float4*>(out), n_t, n_s, G, eps2);
-    }
-    return static_cast<int>(cudaGetLastError());
+extern "C" int nb_force_exact(const void* tgt, const void* src, void* out, int n_t, int n_s,
+                              float G, float eps2, int split, void* stream) {
+    if (n_t <= 0) return static_cast<int>(cudaGetLastError());
+    const auto kernel = sym_pairs::normal_cubes(eps2) ? force_exact_kernel<true> : force_exact_kernel<false>;
+    const cudaError_t rc = exact::launch(kernel, n_t, split, static_cast<cudaStream_t>(stream),
+                                         static_cast<const float4*>(tgt), static_cast<const float4*>(src),
+                                         static_cast<float4*>(out), n_t, n_s, G, eps2, split);
+    return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }

@@ -12,70 +12,69 @@
 // guard).  Outputs are fresh (N, 4) arrays: the state cannot be updated in
 // place, because every block reads every position while others write.
 //
-// What bounds it on an H100: the N^2 pairs, ~10 FP32 issue slots and one
+// What bounds it on an H100: the N^2 pairs, 12 FP32 issue slots and one
 // MUFU rsqrt each, as force_exact; the Verlet epilogue adds 96 bytes a row
 // (three rows read, three written), nothing at these sizes.
 //
-// Design: force_exact's kernel, one thread per target and the sources
-// staged through shared memory by pair.cuh's all_pairs_pull, then
-// verlet.cuh's verlet_row on the thread's row.  Both are shared code with
-// explicit rounding, so the step equals force_exact followed by PyTorch's
-// Verlet (ops/integrate.py) bit for bit.  What fusing saves is the torch
-// Verlet's launches and their passes over the state.  The epilogue reads
-// the row's position again after the loop (__ldcv) instead of keeping the
-// mass lane of the target in a register through it: at two-galaxy
-// (314 blocks of 4 warps, 2-3 blocks an SM) the loop is latency-bound, and
-// that one register more reordered its rsqrts and cost 13% (chip_smoke.py
-// on an H100 at 700 W: 1.649 against force_exact's 1.458 ms, both at 32
-// registers); with the reload the two take the same time.
+// Design: force_exact's kernel (exact.cuh: 2 target rows a thread, staged
+// source tiles, the cluster split of the sources where the wrapper asks
+// for S > 1 and its combine in rank order), then verlet.cuh's verlet_row on
+// each row, by the thread that holds the row's total.  Both are shared code
+// with explicit rounding, so the step equals force_exact followed by
+// PyTorch's Verlet (ops/integrate.py) bit for bit.  What fusing saves is
+// the torch Verlet's launches and their passes over the state.  The
+// epilogue reads the row's position again by __ldcv, a load nvcc may not
+// merge with the loop's.  With a plain load the same bits took 10% longer
+// on an H100 (PERF.md section 6: ptxas gave the loop 40 registers
+// and a slower schedule than the reload's 48).
 #include <cuda_runtime.h>
 
-#include "pair.cuh"
+#include "exact.cuh"
+#include "sym_pairs.cuh"
 #include "verlet.cuh"
 
 namespace {
 
-constexpr int kTile = 128;
-
-__global__ void __launch_bounds__(kTile)
+template <bool kNormal>
+__global__ void __launch_bounds__(exact::kThreads)
 fused_step_exact_kernel(const float4* __restrict__ pm, const float4* __restrict__ vel,
                         const float4* __restrict__ acc_old, float4* __restrict__ pm_out,
                         float4* __restrict__ vel_out, float4* __restrict__ acc_out, int n,
-                        int n_real, float dt, float G, float eps2) {
-    __shared__ float4 tile[kTile];
-    const int row = blockIdx.x * kTile + threadIdx.x;
-    const float4 me = row < n ? pm[row] : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float3 f = all_pairs_pull<kTile>(pm, n, G, eps2, me, tile);
-    if (row >= n) return;
-    // The row again, by a load nvcc may not merge with the first one: the
-    // loop then keeps force_exact's live registers (me.w would be one more).
-    const float4 p = __ldcv(pm + row);
-    if (row >= n_real) {
-        pm_out[row] = p;
-        vel_out[row] = vel[row];
-        acc_out[row] = make_float4(0.f, 0.f, 0.f, 0.f);
-        return;
-    }
-    const float4 a = make_float4(f.x, f.y, f.z, 0.f);
-    float4 pn, vn;
-    verlet_row(p, vel[row], acc_old[row], a, dt, pn, vn);
-    pm_out[row] = pn;
-    vel_out[row] = vn;
-    acc_out[row] = a;
+                        int n_real, float dt, float G, float eps2, int split) {
+    __shared__ float4 tile[exact::kTile];
+    __shared__ float4 part[exact::kBlockRows];
+    const int rank = blockIdx.x % split;
+    const int row0 = blockIdx.x / split * exact::kBlockRows;
+    float3 f[exact::kRows];
+    exact::pull_share<kNormal>(pm, row0, n, pm, n, rank, split, G, eps2, f, tile);
+    exact::finish(f, row0, n, rank, split, part, [&](int row, float3 a3) {
+        const float4 p = __ldcv(pm + row);
+        if (row >= n_real) {
+            pm_out[row] = p;
+            vel_out[row] = vel[row];
+            acc_out[row] = make_float4(0.f, 0.f, 0.f, 0.f);
+            return;
+        }
+        const float4 a = make_float4(a3.x, a3.y, a3.z, 0.f);
+        float4 pn, vn;
+        verlet_row(p, vel[row], acc_old[row], a, dt, pn, vn);
+        pm_out[row] = pn;
+        vel_out[row] = vn;
+        acc_out[row] = a;
+    });
 }
 
 }  // namespace
 
 extern "C" int nb_fused_step_exact(const void* pm, const void* vel, const void* acc_old,
                                    void* pm_out, void* vel_out, void* acc_out, int n,
-                                   int n_real, float dt, float G, float eps2, void* stream) {
-    if (n > 0) {
-        const dim3 grid((n + kTile - 1) / kTile);
-        fused_step_exact_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(pm), static_cast<const float4*>(vel),
-            static_cast<const float4*>(acc_old), static_cast<float4*>(pm_out),
-            static_cast<float4*>(vel_out), static_cast<float4*>(acc_out), n, n_real, dt, G,
-            eps2);
-    }
-    return static_cast<int>(cudaGetLastError());
+                                   int n_real, float dt, float G, float eps2, int split, void* stream) {
+    if (n <= 0) return static_cast<int>(cudaGetLastError());
+    const auto kernel =
+        sym_pairs::normal_cubes(eps2) ? fused_step_exact_kernel<true> : fused_step_exact_kernel<false>;
+    const cudaError_t rc = exact::launch(
+        kernel, n, split, static_cast<cudaStream_t>(stream), static_cast<const float4*>(pm),
+        static_cast<const float4*>(vel), static_cast<const float4*>(acc_old), static_cast<float4*>(pm_out),
+        static_cast<float4*>(vel_out), static_cast<float4*>(acc_out), n, n_real, dt, G, eps2, split);
+    return static_cast<int>(rc != cudaSuccess ? rc : cudaGetLastError());
 }

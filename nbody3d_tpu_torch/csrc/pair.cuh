@@ -1,5 +1,6 @@
 // Shared pair arithmetic of the force kernels and the force VJP kernels,
-// and the two source loops the force kernels share.
+// and the in-tile loop of the sym diagonal kernels (exact.cuh holds the
+// exact kernels' source loop).
 //
 // The softened pair weight of the reference shader, with the nesting of
 // nbody3d_tpu/ops/pallas_force.py::_pair_diffs / _accum_exact kept:
@@ -20,8 +21,9 @@ __device__ __forceinline__ float pair_inv3(float dx, float dy, float dz, float e
 }
 
 // rsqrtf of a normal or infinite argument: rsqrtf guards a subnormal
-// argument (a compare and two multiplies, about 3 of a pair's ~20 issue
-// slots); the ftz form has no guard and returns the same bits there.
+// argument (a compare and two multiplies: 3 instructions a pair, 14.12 ->
+// 17.12 in exact.cuh's loop as counted in its SASS on an H100); the ftz
+// form has no guard and returns the same bits there.
 // pair_inv3_normal is pair_inv3 for a caller that knows d2^3 is a normal
 // float for every pair: eps2 * (eps2 * eps2) >= FLT_MIN, since d2 >= eps2
 // and rounding is monotone.
@@ -34,48 +36,6 @@ __device__ __forceinline__ float rsqrt_normal(float x) {
 __device__ __forceinline__ float pair_inv3_normal(float dx, float dy, float dz, float eps2) {
     const float d2 = fmaf(dx, dx, fmaf(dy, dy, fmaf(dz, dz, eps2)));
     return rsqrt_normal(d2 * (d2 * d2));
-}
-
-// The pull on `me` from every row of src[0, n_s), for a block of kTile
-// threads that all call it (force_exact and fused_step_exact).  The block
-// stages each tile of kTile sources through shared memory `tile` (G folded
-// into the mass on the way in) and every thread sweeps it as a broadcast
-// read.  Each tile's terms are summed into their own partial before the
-// running total takes it, as the TPU kernel summed each source tile: one
-// sequential f32 sum over all 40k sources of the two-galaxy run measured
-// 3.0e-5 max-abs/scale against the plain twin on an H100, above the 1e-5
-// bound, because a central body's term dwarfs the rest of its row.  Every
-// operation is an explicit fmaf, add, multiply or rsqrt with nothing for
-// nvcc to contract, so two kernels that call this get the same bits.
-template <int kTile>
-__device__ __forceinline__ float3 all_pairs_pull(const float4* __restrict__ src, int n_s,
-                                                 float G, float eps2, float4 me,
-                                                 float4* tile) {
-    float ax = 0.f, ay = 0.f, az = 0.f;
-    for (int base = 0; base < n_s; base += kTile) {
-        const int s = base + threadIdx.x;
-        float4 q = s < n_s ? src[s] : make_float4(0.f, 0.f, 0.f, 0.f);
-        q.w = G * q.w;
-        tile[threadIdx.x] = q;
-        __syncthreads();
-        float tx = 0.f, ty = 0.f, tz = 0.f;
-#pragma unroll 8
-        for (int r = 0; r < kTile; ++r) {
-            const float4 p = tile[r];
-            const float dx = p.x - me.x;
-            const float dy = p.y - me.y;
-            const float dz = p.z - me.z;
-            const float w = p.w * pair_inv3(dx, dy, dz, eps2);
-            tx = fmaf(w, dx, tx);
-            ty = fmaf(w, dy, ty);
-            tz = fmaf(w, dz, tz);
-        }
-        ax += tx;
-        ay += ty;
-        az += tz;
-        __syncthreads();
-    }
-    return make_float3(ax, ay, az);
 }
 
 // The in-tile pull on body t of a tile of b bodies held in shared memory as

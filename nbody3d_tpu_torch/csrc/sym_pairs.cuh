@@ -21,8 +21,8 @@
 // of kGroup = 8 sources:
 //   * the forward sum of each target row stays in registers: each source
 //     tile's terms are summed into their own partial first, then added to
-//     the row's running total (the summation that pair.cuh::all_pairs_pull
-//     needs for a 1e7 body), and the total goes to global memory once a run;
+//     the row's running total (the summation that exact.cuh's loop needs
+//     for a 1e7 body), and the total goes to global memory once a run;
 //   * the reverse terms of the group stay in registers, 3 x 8 a lane, the
 //     4 rows of a lane already summed (one float4 load serves 4 pairs);
 //   * at the end of the group a reduce-scatter butterfly (reduce8) sums the

@@ -50,7 +50,9 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, valid_mask
-from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, hop_blocks, launch, lib, split_hops, sym_runs
+from nbody3d_tpu_torch.ops.launch import (
+    check_rows, check_tile, exact_split, hop_blocks, launch, lib, sm_count, split_hops, sym_runs,
+)
 
 
 # ------------------------------------------------------------ force_exact
@@ -87,9 +89,10 @@ def force_exact(tgt: torch.Tensor, src: torch.Tensor, G: float, eps2: float) -> 
     if dev.type == "cpu":
         return force_exact_plain(tgt, src, G, eps2)
     out = torch.empty_like(tgt)
+    n_t, n_s = tgt.shape[0], src.shape[0]
     launch(
         "force_exact", dev, lib().nb_force_exact,
-        tgt, src, out, tgt.shape[0], src.shape[0], float(G), float(eps2),
+        tgt, src, out, n_t, n_s, float(G), float(eps2), exact_split(n_t, n_s, sm_count(dev.index)),
     )
     return out
 
@@ -146,6 +149,7 @@ def fused_step_exact(
     launch(
         "fused_step_exact", dev, lib().nb_fused_step_exact,
         pos_mass, vel, accel, *out, n, min(int(n_real), n), float(dt), float(G), float(eps2),
+        exact_split(n, n, sm_count(dev.index)),
     )
     return out
 

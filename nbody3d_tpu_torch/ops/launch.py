@@ -38,6 +38,8 @@ one to the kernel's count.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 KERNELS = (
@@ -153,6 +155,43 @@ def pair_schedule(nt: int, ns: int, run: int = SYM_RUN):
         for r in range(runs):
             first = (r + i) % runs * run
             yield i, list(range(first, min(ns, first + run)))
+
+
+# force_exact and fused_step_exact (csrc/exact.cuh): target rows a block (2 a
+# thread, 128 threads), sources a staged tile, the most CTAs a cluster.
+EXACT_ROWS = 256
+EXACT_TILE = 128
+EXACT_MAX_SPLIT = 8
+# CTAs an SM at which the row blocks alone fill the card: chosen on an H100
+# (PERF.md section 6), where two-galaxy's 157 row blocks ran fastest
+# at S = 6 of 1-8 (942 CTAs, 7.1 an SM) and the sphere's 1,024 (7.8 an SM)
+# leave S = 1, bit for bit the first design.
+EXACT_FILL = 7
+H100_SMS = 132
+
+
+def exact_split(n_t: int, n_s: int, sms: int = H100_SMS) -> int:
+    """CTAs S that take each block of ``EXACT_ROWS`` target rows of a
+    ``force_exact`` or ``fused_step_exact`` launch, each over a contiguous
+    range of the ``EXACT_TILE``-source tiles (:func:`source_ranges`): 1
+    where the row blocks alone give ``EXACT_FILL`` CTAs an SM of ``sms``,
+    else the least S that does, at most ``EXACT_MAX_SPLIT`` and the tile
+    count."""
+    blocks = -(-n_t // EXACT_ROWS)
+    cap = max(1, min(EXACT_MAX_SPLIT, -(-n_s // EXACT_TILE)))
+    return min(cap, -(-EXACT_FILL * sms // blocks))
+
+
+def source_ranges(n_tiles: int, split: int) -> list[tuple[int, int]]:
+    """``[lo, hi)`` source tiles of each rank of ``split``, in rank order
+    (csrc/exact.cuh range_start): contiguous, each tile in one range."""
+    return [(r * n_tiles // split, (r + 1) * n_tiles // split) for r in range(split)]
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lib():
