@@ -13,8 +13,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    one nvcc process per source, all started together; the registers and
    spill bytes (ptxas) of ``force_exact``, ``fused_step_exact``,
    ``sym_hops``, ``pair_sym``, ``vjp_sym_hops``,
-   ``short_range``, ``short_range_bwd``, ``force_fast`` and
-   ``fused_step_fast`` and, where ``cuobjdump`` is on the machine, the
+   ``short_range``, ``short_range_bwd``, ``force_fast``,
+   ``fused_step_fast``, ``sym_diag_prep`` and ``sym_diag`` and, where
+   ``cuobjdump`` is on the machine, the
    count of their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
    ``MUFU``, ``SHFL``, ``VOTE``, ``BSSY``, ``F2FP``, ``HMMA``, ...), in all
    and in the pair loop, a pair's by class (FP32, MUFU, LDS, F2FP, HMMA,
@@ -28,7 +29,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ftz and the guarded rsqrt), < 1e-5 of scale, the fused step bit-equal to
    ``force_exact`` + the torch Verlet, and ``force_exact`` on the ragged
    rectangular calls 1,999 x 8,192 and 8,192 x 1,999 (with ``--parent`` each
-   bit-equal to the parent's kernel where S = 1); ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
+   bit-equal to the parent's kernel at the same S); ``sym_diag_prep``
+   against its twin at tiles 256 (the template instance) and 128, 512,
+   1,024, 40 and 96 (the runtime one; a partial last warp), a 1e7 body,
+   eps2 = 1e-4 and 1e-14, with ``sym_diag`` on its source rows bit-equal to
+   it (with ``--parent`` both outputs bit-equal to the parent's kernel);
+   ``sym_hops`` (summed with the diagonal) against its twin, a 1e7 body
    and padded rows, at tile counts that cut a block's run of hops short
    (nt = 2, 8, 19, 35 and 36), at eps2 = 1e-14 (a subnormal eps2^3) and at
    tiles of 512 and 1024 rows: < 2e-5 of scale; ``vjp_sym_hops`` (summed
@@ -44,14 +50,16 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    sym VJP against the full-grid VJP and both against f64 on 256 rows, and
    the VJP stages at the exact gradient path's shape and data (two-galaxy,
    nt = 157) against their twins, the full grid and f64; with
-   ``--parent`` the parent's ``sym_hops`` and ``vjp_sym_hops`` beside this
-   tree's in turns (N = 262,144; ``vjp_sym_hops`` also at nt = 157), and
+   ``--parent`` the parent's ``sym_diag_prep`` (bit for bit), ``sym_hops``
+   and ``vjp_sym_hops`` beside this tree's in turns (N = 262,144;
+   ``vjp_sym_hops`` also at nt = 157), ``sym_diag_prep``'s guarded rsqrt
+   beside its ftz one, and
    ``vjp_sym_hops`` with its guarded rsqrt beside its ftz one; after
    phase 10's times, ``force_exact`` and ``fused_step_exact``, the launch
    alone, at two-galaxy n_pad 40,192 and N = 262,144: S, the guarded
    instance beside the ftz one in turns, ``force_exact`` at every S at
    40,192, and with ``--parent`` the parent's kernels in turns (bit-equal
-   where S = 1).
+   at the same S).
 4. exact main path: ``Simulation.from_preset("two-galaxy", SimConfig())``,
    200 steps in chunks of 50, energy drift <= 1e-3 and momentum error
    <= 1e-5 of sum |m v|.
@@ -91,7 +99,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    unsorted, Morton runs across octant boundaries), each against its twin
    as 8b's and its blocks a path equal to :func:`deposit_block_paths`'
    (the kernel's decisions emulated in torch), some blocks on each of the
-   three paths; (b) the P3M path at full width,
+   three paths; every ``mesh_gather`` check runs both its kernels (the
+   runs' boxes for rows in Morton order, the loop alone for other rows),
+   bit-equal to each other, their runs a path equal to
+   ``gather_checks.block_paths``' mirror, and with ``--parent`` bit-equal
+   to the parent's kernel, also on the isolated adversarial scenes at
+   grids 16, 32 and 128; (b) the P3M path at full width,
    benchmarks/p3m_bench.py's configuration: two-galaxy N = 2,097,152,
    grid 128, k = 32, tile 256 (8,193 tiles: the two-level neighbour
    selection), 30 warm steps with the momentum error (<= 1e-5 of
@@ -110,7 +123,9 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    the card, and with ``--parent`` bit-equal to the parent's kernel and
    timed beside it in turns;
    the deposit per cell within the f32 summation bound, the total mass,
-   and bit for bit on exact terms; its blocks a path), and a force
+   and bit for bit on exact terms; its blocks a path; the gather's runs a
+   path, and with ``--parent`` bit-equal to the parent's kernel and timed
+   beside it in turns), and a force
    evaluation's device time stage by stage; (c) p3m_bench's accuracy probe (two-galaxy
    n = 16,384, grid 128) against ``force_exact``, median < 2e-3 and
    p99 < 1e-2, and ``cli run --method p3m`` on two-galaxy for 200 steps
@@ -118,7 +133,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    two-galaxy N = 2,097,152, grid 128, 30 warm steps (momentum as 8b) and
    5 timed chunks of 50, then its CIC deposit and gather against their
    twins at that shape and data, as 8b's (the deposit beside
-   ``index_add_``), and the gather beside
+   ``index_add_``; the gather's loop alone, PM's rows being unsorted, with
+   its runs and the parent's kernel as 8b's), and the gather beside
    ``grid_sample`` (its library call); (e) at N = 8,192 the kernel route
    of ``pm`` and ``p3m`` against ``backend="jnp"`` (accelerations and a
    5-step rollout, rtol 1e-4, atol 1e-5 of the scale).
@@ -197,7 +213,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    pairs across the seams); the periodic ``mesh_deposit`` on
    ``scatter_checks.deposit_adversarial``'s periodic scenes (one cell by the far
    corner, Morton runs across the seams and across octant boundaries), as
-   8a's; (b) p3m_bench's periodic configuration
+   8a's; the periodic ``mesh_gather`` as 8a's, also on
+   ``gather_checks.seam_scenes()`` (a run across all three seams, the far
+   corner with the padding rows, unsorted and uniform rows, a tight cluster
+   about the corner) at grids 16, 32 and 128, and the tight and far corners
+   at grid 1,290, the wrapper's largest (the second and third grids past
+   2^31 floats), periodic and isolated; (b) p3m_bench's periodic configuration
    (uniform-box N = 2,097,152, box 10, grid 128, k = 32), plain and
    ``--interlace``, 30 warm steps with the momentum error (<= 1e-5 of
    sum |m v| after them) and 2 timed chunks of 10; after the windows the
@@ -205,7 +226,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    against the f64 Ewald oracle, the tile overflow, the quantiles of the
    tiles within rcut) and the three kernels at that shape beside their
    twins, bounds and (deposit) ``index_add_`` (``short_range`` as 8b's:
-   both bounds, the shares and the parent's kernel); (c) the
+   both bounds, the shares and the parent's kernel; the gather as 8b's);
+   (c) the
    accuracy gate:
    uniform-box N = 32,768, box 1, grid 32, k = 128 (overflow 0), interlace
    off and on, 2,048 sampled bodies against the f64 Ewald oracle, median <
@@ -214,7 +236,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    N = 8,192 the kernel route of periodic P3M and PM against
    ``backend="jnp"`` (8e's bounds); (d) periodic PM (CIC) at 12b's box, 30
    warm steps and 5 timed chunks of 50, then the net force < 3e-5 of
-   sum |f| and its CIC kernels against their twins (the deposit as 8d's).
+   sum |f| and its CIC kernels against their twins (the deposit and the
+   gather as 8d's).
 13. the periodic box's gradient: (a, after 12a) the periodic
    ``short_range_bwd`` against its twin (``_bwd_agrees``) on 12a's unit box
    with pairs planted across the seams at r = 1e-3, 1e-4 and 1e-5, N =
@@ -297,7 +320,7 @@ import time
 import numpy as np
 import torch
 
-from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli, pair_checks
+from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli, gather_checks, pair_checks
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import ewald
@@ -503,7 +526,7 @@ def phase_build() -> None:
 # The pair kernels whose inner loop PERF.md describes from these counts.
 SYM_PAIR_KERNELS = ("force_exact_kernel", "fused_step_exact_kernel", "sym_hops_kernel", "pair_sym_kernel",
                     "vjp_sym_hops_kernel", "short_range_kernel", "short_range_bwd_kernel", "force_fast_kernel",
-                    "fused_step_fast_kernel")
+                    "fused_step_fast_kernel", "sym_diag_prep_kernel", "sym_diag_kernel")
 SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "VOTE", "BSSY", "MUFU", "FFMA", "FMUL", "FADD", "FSEL",
             "BAR", "F2FP", "HMMA", "BRA")
 # The FP32 pipe's opcodes, summed as one class in the pair loops' counts.
@@ -669,6 +692,36 @@ def phase_kernel_checks(dev) -> None:
         torch.cuda.synchronize()
     phase_exact_checks(dev)
     phase_sym_run_checks(dev)
+    phase_sym_diag_checks(dev)
+
+
+# (N, tile) of sym_diag_prep's checks: the template width 256, the runtime
+# instance at 128, 512 and 1024, and at 40 and 96 (a partial last warp).
+SYM_DIAG_SHAPES = ((8192, 256), (7936, 256), (512, 256), (4096, 128), (4608, 512), (8192, 1024), (4000, 40),
+                   (960, 96))
+
+
+def phase_sym_diag_checks(dev) -> None:
+    """``sym_diag_prep`` (``csrc/pair.cuh``'s in-tile loop) against its twin
+    at SYM_DIAG_SHAPES with a 1e7 body and padded rows, at eps2 1e-4 (the
+    ftz rsqrt) and 1e-14 (``rsqrtf`` with its guard): < 1e-5 of scale, the
+    source rows equal, w lane 0; ``sym_diag`` on its source rows bit-equal
+    to it; with ``--parent`` both outputs bit-equal to the parent's
+    kernel."""
+    rng = np.random.default_rng(17)
+    for n, b in SYM_DIAG_SHAPES:
+        pm = _inputs(rng, n, n - 24, dev)[0]
+        pm[n // 3, 3] = 1e7
+        for eps2 in (EPS2, 1e-14):
+            tag = f"N={n} tile {b} eps2 {eps2:g}"
+            src, acc = cf.sym_diag_prep(pm, G, eps2, b)
+            src_p, acc_p = cf.sym_diag_prep_plain(pm, G, eps2, b)
+            same = torch.equal(cf.sym_diag(src, eps2, b), acc)
+            e = rel_err(acc, acc_p)
+            check(torch.equal(src, src_p) and e < 1e-5 and not acc[:, 3].any() and same,
+                  f"{tag}: sym_diag_prep vs plain with a 1e7 body {e:.3e} < 1e-5, the source rows equal, w lane 0; "
+                  f"sym_diag on its source rows bit-equal to it")
+            _parent_equal(f"{tag}: sym_diag_prep", (src, acc), parent_sym_diag_prep, pm, G, eps2, b)
 
 
 # force_exact's ragged rectangular calls (n_t, n_s): neither count a multiple
@@ -699,18 +752,9 @@ def fused_exact_split(pm, vel, aold, dt: float, g: float, eps2: float, n_real: i
 
 
 def _exact_vs_parent(tag: str, split: int, got, parent_fn, *args) -> None:
-    """With ``--parent``: ``got`` bit-equal to the parent's kernel where
-    ``split`` is 1; where it is more, the largest difference over the
-    largest value of each output, printed."""
-    if not PARENT:
-        return
-    if split == 1:
-        _parent_equal(f"{tag} (S = 1)", got, parent_fn, *args)
-        return
-    want = parent_fn(*args)
-    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-    errs = ", ".join(f"{rel_err(a, b):.3e}" for a, b in zip(got, want))
-    print(f"    {tag} (S = {split}) against the parent's kernel: max-abs/scale {errs}", flush=True)
+    """With ``--parent``: ``got`` bit-equal to the parent's kernel at the
+    same ``split``."""
+    _parent_equal(f"{tag} (S = {split})", got, parent_fn, *args, split=split)
 
 
 def phase_exact_checks(dev) -> None:
@@ -719,7 +763,7 @@ def phase_exact_checks(dev) -> None:
     8,192: at every S from 1 to 8, both rsqrt instances (EXACT_EPS2); the
     fused step bit-equal to ``force_exact`` at the same S + the torch
     Verlet; the wrapper's S; the ragged rectangular calls of EXACT_RAGGED.
-    With ``--parent`` each bit-equal to the parent's kernel where S = 1."""
+    With ``--parent`` each bit-equal to the parent's kernel at the same S."""
     rng = np.random.default_rng(16)
     n, n_real = 8192, 8000
     pm, vel, aold = _inputs(rng, n, n_real, dev)
@@ -814,12 +858,21 @@ def phase_kernel_times(dev) -> dict[str, dict]:
     torch.cuda.synchronize()
     check(torch.equal(src, src_p) and rel_err(acc_d, acc_d_p) < 1e-5,
           f"uniform-sphere N={n}: sym_diag_prep src equal, acc {rel_err(acc_d, acc_d_p):.3e} < 1e-5")
+    t = [cuda_ms(lambda e=e: cf.sym_diag_prep(pm, G, e, b), reps=20) for e in (1e-14, EPS2, EPS2, 1e-14)]
+    print(f"  sym_diag_prep N={n}: in turns guarded rsqrtf (eps2 1e-14) {t[0]:.4f} / {t[3]:.4f} ms, ftz "
+          f"{t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+    parent = {}
+    if PARENT:
+        _parent_equal(f"uniform-sphere N={n}: sym_diag_prep", (src, acc_d), parent_sym_diag_prep, pm, G, EPS2, b)
+        parent = vs_parent(f"sym_diag_prep N={n}", lambda: cf.sym_diag_prep(pm, G, EPS2, b),
+                           lambda: parent_sym_diag_prep(pm, G, EPS2, b))
     out["sym_diag_prep"] = {
         "max_abs_err": max_abs(acc_d, acc_d_p),
         "ms": cuda_ms(lambda: cf.sym_diag_prep(pm, G, EPS2, b), reps=20),
         "plain_ms": cuda_ms(lambda: cf.sym_diag_prep_plain(pm, G, EPS2, b), reps=2),
         "shape": f"({n}, 4), tile {b}",
         **bound("sym_diag_prep", n * (b - 1), 48 * n, rsqrts=n * (b - 1)),
+        **parent,
     }
     del src_p, acc_d_p
 
@@ -1212,11 +1265,16 @@ def _profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    launched = {f"{k}_kernel": c - before[k] for k, c in launch_counts().items() if c > before[k]}
+    launched = {k: c - before[k] for k, c in launch_counts().items() if c > before[k]}
     events = [(_kernel_label(e.name), e.time_range.start, e.time_range.end)
               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    seen = {k: sum(1 for name, _, _ in events if name == k) for k in launched}
+    seen = {k: sum(1 for name, _, _ in events if name in TRACE_NAMES.get(k, (f"{k}_kernel",))) for k in launched}
     return wall_us, events, seen == launched
+
+
+# The device functions of a counted kernel where they are not "<name>_kernel"
+# (mesh_gather: the loop alone and the box kernel, csrc/mesh_gather.cu).
+TRACE_NAMES = {"mesh_gather": ("mesh_gather_kernel", "mesh_gather_box_kernel")}
 
 
 # Stages of a mesh step by kernel name (lower case; the first key found wins).
@@ -1550,19 +1608,36 @@ def parent_fused_step_fast(pm, vel, aold, dt: float, g: float, eps2: float, n_re
     return out
 
 
-def parent_force_exact(tgt, src, g: float, eps2: float) -> torch.Tensor:
-    """The parent's ``force_exact`` (its C signature: no split)."""
+def parent_force_exact(tgt, src, g: float, eps2: float, split: int = 1) -> torch.Tensor:
+    """The parent's ``force_exact`` (this tree's C signature) with ``split``
+    CTAs a block of rows."""
     out = torch.empty_like(tgt)
-    _parent_call(PARENT["lib"].nb_force_exact, tgt, src, out, tgt.shape[0], src.shape[0], float(g), float(eps2))
+    _parent_call(PARENT["lib"].nb_force_exact, tgt, src, out, tgt.shape[0], src.shape[0], float(g), float(eps2),
+                 split)
     return out
 
 
-def parent_fused_step_exact(pm, vel, aold, dt: float, g: float, eps2: float, n_real: int):
-    """The parent's ``fused_step_exact`` (its C signature: no split)."""
+def parent_fused_step_exact(pm, vel, aold, dt: float, g: float, eps2: float, n_real: int, split: int = 1):
+    """The parent's ``fused_step_exact`` (this tree's C signature) with
+    ``split`` CTAs a block of rows."""
     n = pm.shape[0]
     out = tuple(torch.empty_like(pm) for _ in range(3))
     _parent_call(PARENT["lib"].nb_fused_step_exact, pm, vel, aold, *out, n, min(int(n_real), n), float(dt),
-                 float(g), float(eps2))
+                 float(g), float(eps2), split)
+    return out
+
+
+def parent_sym_diag_prep(pm, g: float, eps2: float, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The parent's ``sym_diag_prep`` (this tree's C signature): ``(src, acc_diag)``."""
+    src, acc = torch.empty_like(pm), torch.empty_like(pm)
+    _parent_call(PARENT["lib"].nb_sym_diag_prep, pm, src, acc, pm.shape[0] // b, b, float(g), float(eps2))
+    return src, acc
+
+
+def parent_gather(grids, c4, fm, grid: int, order: int, periodic: bool) -> torch.Tensor:
+    """The parent's ``mesh_gather`` (its C signature: no block-path counter)."""
+    out = torch.empty_like(fm)
+    _parent_call(PARENT["lib"].nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic))
     return out
 
 
@@ -2087,15 +2162,11 @@ def phase_mesh_checks(dev) -> None:
                 c4, fm = mc.mesh_operands(c, f, x["ps"][:, 3])
                 rho, rho_p = mc.deposit(c4, fm, grid, order), mc.deposit_plain(c4, fm, grid, order)
                 grids = p3m.solve_accel_long(rho_p, x["h"], EPS2, x["sigma"], order=order)
-                acc, acc_p = mc.gather(grids, c4, fm, grid, order), mc.gather_plain(grids, c4, fm, grid, order)
-                torch.cuda.synchronize()
                 e_rho, e_mass = rel_err(rho, rho_p), abs(float(rho.sum() / rho_p.sum()) - 1.0)
                 check(e_rho < 1e-5 and e_mass < 1e-6,
                       f"{tag} order {order}: mesh_deposit vs plain max-abs/max {e_rho:.3e} < 1e-5, "
                       f"total mass {e_mass:.3e} < 1e-6")
-                e_acc = rel_err(acc, acc_p)
-                check(e_acc < 1e-5 and not acc[:, 3].any(),
-                      f"{tag} order {order}: mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+                _gather_agrees(tag, grids, c4, fm, grid, order, False)
             mask = x["mask"].clone()
             mask[::3, 1] = 0.0
             args = (x["ps"], x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block)
@@ -2112,6 +2183,7 @@ def phase_mesh_checks(dev) -> None:
                           f"{tag}: short_range ({what}) bit-equal to the parent's kernel")
     planted_short_range_checks(dev, periodic=False)
     _deposit_adversarial_checks(dev, periodic=False)
+    _gather_box_checks(dev, periodic=False)
 
 
 def _momentum(sim: Simulation) -> torch.Tensor:
@@ -2329,6 +2401,97 @@ def _deposit_adversarial_checks(dev, periodic: bool) -> None:
           f"window, global over both grids and orders: {tally})")
 
 
+def _gather_agrees(tag: str, grids, c4, fm, grid: int, order: int, periodic: bool) -> list[int]:
+    """``mesh_gather``'s two kernels (``sorted_rows`` True: the runs' boxes;
+    False: the loop alone) against the twin (1e-5 of the max, w lane 0) and
+    bit-equal to each other, their runs a path (box, global) equal to
+    :func:`gather_checks.block_paths`' mirror of the decisions, and with
+    ``--parent`` bit-equal to the parent's kernel.  Returns the box
+    kernel's runs a path."""
+    acc_p = mc.gather_plain(grids, c4, fm, grid, order, periodic)
+    outs, got = [], {}
+    for sorted_rows in (True, False):
+        paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+        outs.append(mc.gather(grids, c4, fm, grid, order, periodic, sorted_rows, block_paths=paths))
+        got[sorted_rows] = paths.tolist()
+    e_acc = rel_err(outs[0], acc_p)
+    want = {k: gather_checks.block_paths(c4, grid, order, periodic, k) for k in (True, False)}
+    check(e_acc < 1e-5 and not outs[0][:, 3].any() and torch.equal(outs[0], outs[1]) and got == want,
+          f"{tag} order {order}: {'periodic ' if periodic else ''}mesh_gather vs plain max-abs/max {e_acc:.3e} < "
+          f"1e-5, its two kernels bit-equal; runs on the box / global {got[True]} (sorted rows), {got[False]} "
+          f"(unsorted), as the mirror's")
+    _parent_equal(f"{tag} order {order}: mesh_gather", outs[0], parent_gather, grids, c4, fm, grid, order, periodic)
+    return got[True]
+
+
+def _gather_box_checks(dev, periodic: bool) -> None:
+    """8a's (isolated: :func:`deposit_adversarial`'s isolated scenes) or 12a's
+    (periodic: :func:`gather_checks.seam_scenes`) gathers at grids 16, 32 and
+    128, TSC and CIC, through :func:`_gather_agrees` on random grids.  Some
+    runs of the box kernel must take each path."""
+    if periodic:
+        scenes = {k: (pm_np, n_real, sort) for k, (pm_np, n_real, sort) in gather_checks.seam_scenes().items()}
+    else:
+        scenes = {k: (pm_np, n_real, k != "shuffled") for k, (pm_np, n_real, per) in deposit_adversarial().items()
+                  if not per}
+    tally = [0, 0]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for name, (pm_np, n_real, sort) in scenes.items():
+        for grid in (16, 32, 128):
+            grids = torch.randn(3, grid**3, device=dev, generator=gen)
+            for order in (3, 2):
+                c4, fm = deposit_operands(pm_np, n_real, periodic, grid, order, dev, sort=sort)
+                got = _gather_agrees(f"{name} ({'Morton' if sort else 'unsorted'}) grid {grid}", grids, c4, fm,
+                                     grid, order, periodic)
+                tally = [a + b for a, b in zip(tally, got)]
+    check(min(tally) > 0, f"{'periodic seam' if periodic else 'isolated adversarial'} gathers: blocks took each "
+                          f"path (box, global: {tally})")
+
+
+def _gather_large_grid_checks(dev, grid: int = 1290) -> None:
+    """The gather at the largest grid the wrapper takes, where the second
+    and third grids start past 2^31 floats: :func:`gather_checks.seam_scenes`'
+    tight corner and far corner scenes, periodic and isolated, TSC and CIC,
+    through :func:`_gather_agrees` on random grids (3 x 1,290^3 floats,
+    25.8 GB).  Some runs must take the box."""
+    scenes = {k: v for k, v in gather_checks.seam_scenes().items() if k in ("tight corner", "far corner and padding")}
+    grids = torch.randn(3, grid**3, device=dev, generator=torch.Generator(device=dev).manual_seed(18))
+    for periodic in (True, False):
+        tally = [0, 0]
+        for name, (pm_np, n_real, sort) in scenes.items():
+            for order in (3, 2):
+                c4, fm = deposit_operands(pm_np, n_real, periodic, grid, order, dev, sort=sort)
+                got = _gather_agrees(f"{name} grid {grid} ({'periodic' if periodic else 'isolated'})", grids, c4, fm,
+                                     grid, order, periodic)
+                tally = [a + b for a, b in zip(tally, got)]
+        check(tally[0] > 0, f"{'periodic' if periodic else 'isolated'} gathers at grid {grid}: runs took the box "
+                            f"(box, global: {tally})")
+    del grids
+    torch.cuda.empty_cache()
+
+
+def _gather_row(tag: str, grids, c4, fm, grid: int, order: int, periodic: bool, sorted_rows: bool) -> dict:
+    """At a full-size shape, the kernel its path takes (``sorted_rows``): its
+    runs a path (the mirror's too, as :func:`_gather_agrees`), and with
+    ``--parent`` bit-equal to the parent's kernel and both timed in turns;
+    the other kernel's time beside it."""
+    paths = torch.zeros(2, dtype=torch.int32, device=fm.device)
+    got = mc.gather(grids, c4, fm, grid, order, periodic, sorted_rows, block_paths=paths)
+    want = gather_checks.block_paths(c4, grid, order, periodic, sorted_rows)
+    check(paths.tolist() == want, f"{tag}: mesh_gather's runs on the box / global {paths.tolist()}, as the "
+                                  f"mirror's {want}")
+    out = {"block_paths": paths.tolist()}
+    other = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, order, periodic, not sorted_rows), reps=20)
+    if PARENT:
+        _parent_equal(f"{tag}: mesh_gather", got, parent_gather, grids, c4, fm, grid, order, periodic)
+        out.update(vs_parent(f"{tag} mesh_gather", lambda: mc.gather(grids, c4, fm, grid, order, periodic,
+                                                                     sorted_rows),
+                             lambda: parent_gather(grids, c4, fm, grid, order, periodic)))
+    print(f"  mesh_gather {tag}: runs on the box / global {out['block_paths']}; the "
+          f"{'loop alone' if sorted_rows else 'box'} kernel here {other:.4f} ms", flush=True)
+    return out
+
+
 def _p3m_checks_2m(sim: Simulation, samples: int = 4096, chunk: int = 32) -> None:
     """8b's selection and force on the state it leaves, at full width.
 
@@ -2521,16 +2684,18 @@ def _pm_kernels_2m(sim: Simulation) -> dict:
     c4, fm = mc.mesh_operands(*pm._cic_cells(pos_mass[:, :3], lo, h, grid), pos_mass[:, 3])
     dep = _deposit_row(f"2M PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2)
     grids = pm.force_grids(pm.solve_potential(mc.deposit_plain(c4, fm, grid, 2), h, sim.config.eps2), h)
-    acc = mc.gather(grids, c4, fm, grid, 2)
+    acc = mc.gather(grids, c4, fm, grid, 2, sorted_rows=False)
     e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2))
     check(e_acc < 1e-5, f"2M PM (CIC, N={fm.shape[0]}): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
     lib_call = _grid_sample_call(grids, c4, fm, grid)
     e_lib = rel_err(lib_call()[0, :, 0, 0, :].T, acc[:, :3])
     check(e_lib < 1e-4, f"2M PM (CIC): grid_sample vs mesh_gather max-abs/max {e_lib:.3e} < 1e-4 (the same function)")
-    kernel_ms, lib_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2), reps=20), cuda_ms(lib_call, reps=20)
+    kernel_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, sorted_rows=False), reps=20)
+    lib_ms = cuda_ms(lib_call, reps=20)
     print(f"  mesh_gather CIC at 8d's shape ({fm.shape[0]} particles, {grid}^3): kernel {kernel_ms:.4f} ms, "
           f"grid_sample {lib_ms:.4f} ms", flush=True)
-    return dep, {"library_ms": lib_ms,
+    cic = {"ms": kernel_ms, **_gather_row(f"2M PM (CIC, N={fm.shape[0]})", grids, c4, fm, grid, 2, False, False)}
+    return dep, {"library_ms": lib_ms, "cic_8d": cic,
                  "library_note": f"torch.nn.functional.grid_sample (trilinear, align_corners=True) at 8d's CIC "
                                  f"shape, {fm.shape[0]} particles, {grid}^3; mesh_gather there {kernel_ms:.4f} ms"}
 
@@ -2570,6 +2735,7 @@ def phase_mesh_times(dev) -> dict[str, dict]:
         "plain_ms": gat_plain_ms, "shape": f"3 x {grid}^3 + ({n}, 4) x 2 -> ({n}, 4), TSC",
         "note": "plain: one run, host clock",
         **bound("mesh_gather", n, 48 * n + 12 * grid**3),
+        **_gather_row(f"2M P3M (TSC, N={n})", grids, c4, fm, grid, 3, False, True),
     }
     del acc_p
 
@@ -3024,7 +3190,7 @@ def phase_exact_times(dev, times: dict[str, dict]) -> None:
     ``rsqrtf`` instance (eps2 = 1e-14) beside the ftz one in turns; at
     40,192 ``force_exact`` at every S from 1 to 8; with ``--parent`` the
     parent's kernels in turns (their mean at 40,192 goes into the kernels
-    line), bit-equal where S = 1 and their max-abs/scale apart where not.
+    line), bit-equal at the same S.
     Adds a line a shape to each kernel's note."""
     print("[3, 10 exact kernels] times at 40,192 and 262,144, the launch alone (CUDA events)", flush=True)
     lib = _build.load_library()
@@ -3041,12 +3207,13 @@ def phase_exact_times(dev, times: dict[str, dict]) -> None:
         outs = tuple(torch.empty_like(pm) for _ in range(3))
         runs = {
             "force_exact": (lambda e=EPS2, s=split: force_exact_split(pm, pm, G, e, s, outs[2]),
-                            lambda: _parent_call(PARENT["lib"].nb_force_exact, pm, pm, outs[2], n, n, G, EPS2),
+                            lambda: _parent_call(PARENT["lib"].nb_force_exact, pm, pm, outs[2], n, n, G, EPS2,
+                                                 split),
                             (parent_force_exact, pm, pm, G, EPS2)),
             "fused_step_exact": (
                 lambda e=EPS2, s=split: fused_exact_split(pm, vel, aold, DT_MAIN, G, e, n_real, s, outs),
                 lambda: _parent_call(PARENT["lib"].nb_fused_step_exact, pm, vel, aold, *outs, n, n_real, DT_MAIN, G,
-                                     EPS2),
+                                     EPS2, split),
                 (parent_fused_step_exact, pm, vel, aold, DT_MAIN, G, EPS2, n_real)),
         }
         for kernel, (fn, parent_fn, parent_args) in runs.items():
@@ -3456,11 +3623,7 @@ def phase_periodic_checks(dev) -> None:
                 rho, rho_p = mc.deposit(c4, fm, grid, order, True), mc.deposit_plain(c4, fm, grid, order, True)
                 _deposit_agrees(f"{tag} order {order}", c4, fm, grid, order, rho, rho_p, periodic=True, seam=True)
                 grids = ewald.spectral_accel_grids(rho_p, x["L"], x["sigma"], order=order)
-                acc = mc.gather(grids, c4, fm, grid, order, True)
-                acc_p = mc.gather_plain(grids, c4, fm, grid, order, True)
-                e_acc = rel_err(acc, acc_p)
-                check(e_acc < 1e-5 and not acc[:, 3].any(),
-                      f"{tag} order {order}: periodic mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
+                _gather_agrees(tag, grids, c4, fm, grid, order, True)
             mask = x["mask"].clone()
             mask[::3, 1] = 0.0
             args = (ps, x["nbr_idx"], EPS2, x["sigma"], x["rcut"], block)
@@ -3480,6 +3643,8 @@ def phase_periodic_checks(dev) -> None:
                           f"{tag}: periodic short_range ({what}) bit-equal to the parent's kernel")
     planted_short_range_checks(dev, periodic=True)
     _deposit_adversarial_checks(dev, periodic=True)
+    _gather_box_checks(dev, periodic=True)
+    _gather_large_grid_checks(dev)
 
 
 def _box_run(dev, tag: str, method: str, chunks: int, chunk: int, **cfg):
@@ -3587,6 +3752,7 @@ def phase_periodic_times(dev) -> dict[str, dict]:
         "note": "library: none (grid_sample pads with zeros, the border or a reflection, and has no wrap mode; "
                 "nor does it take TSC weights); plain: one run, host clock",
         **bound("mesh_gather", n, 48 * n + 12 * grid**3),
+        **_gather_row(f"2M periodic P3M (TSC, N={n})", grids, c4, fm, grid, 3, True, True),
     }
     del acc_p
 
@@ -3636,13 +3802,14 @@ def _periodic_pm_checks(sim: Simulation) -> dict:
     c4, fm = _periodic_cells(torch.cat([ewald.wrap_box(pos_mass[:, :3], L), pos_mass[:, 3:]], 1), h, grid, 2)
     dep = _deposit_row(f"2M periodic PM (CIC, N={fm.shape[0]})", c4, fm, grid, 2, periodic=True)
     grids = ewald.spectral_accel_grids(mc.deposit_plain(c4, fm, grid, 2, True), L, 1.5 * h, order=2)
-    acc = mc.gather(grids, c4, fm, grid, 2, True)
+    acc = mc.gather(grids, c4, fm, grid, 2, True, sorted_rows=False)
     e_acc = rel_err(acc, mc.gather_plain(grids, c4, fm, grid, 2, True))
     check(e_acc < 1e-5, f"2M periodic PM (CIC): mesh_gather vs plain max-abs/max {e_acc:.3e} < 1e-5")
-    gather_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, True), reps=20)
+    gather_ms = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, 2, True, sorted_rows=False), reps=20)
     print(f"  periodic CIC at 12d's shape ({fm.shape[0]} particles, {grid}^3 torus): mesh_gather "
           f"{gather_ms:.4f} ms", flush=True)
-    return dep, {"ms": gather_ms}
+    return dep, {"ms": gather_ms, **_gather_row(f"2M periodic PM (CIC, N={fm.shape[0]})", grids, c4, fm, grid, 2,
+                                                True, False)}
 
 
 def phase_periodic_accuracy(dev) -> None:
@@ -4265,13 +4432,13 @@ def main() -> int:
     ap.add_argument("--outdir", default=None,
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, sym_hops, "
-                         "pair_sym, vjp_sym_hops, short_range, short_range_bwd, force_fast, "
-                         "fused_step_fast, force_exact and fused_step_exact beside this tree's, in turns, at "
-                         "7c's, the deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), 14c's "
-                         "(524,288 x 524,288), 8b's, 9b's, 12b's, 13b's, 11b's and 11c's shapes (the exact "
-                         "kernels at 40,192 and 262,144); short_range, short_range_bwd and the fast kernels "
-                         "also bit for bit, the exact kernels where S = 1")
+                    help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, mesh_gather, "
+                         "sym_diag_prep, sym_hops, pair_sym, vjp_sym_hops, short_range, short_range_bwd, "
+                         "force_fast, fused_step_fast, force_exact and fused_step_exact beside this tree's, in "
+                         "turns, at 7c's, the deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), "
+                         "14c's (524,288 x 524,288), 8b's, 8d's, 9b's, 12b's, 12d's, 13b's, 11b's and 11c's "
+                         "shapes (the exact kernels at 40,192 and 262,144); mesh_gather, sym_diag_prep, "
+                         "short_range, short_range_bwd, the fast and the exact kernels also bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)

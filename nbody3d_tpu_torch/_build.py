@@ -51,7 +51,7 @@ SIGNATURES = {
     "nb_short_range": [P, P, P, P, P, P, I, I, I, F, F, P],
     "nb_short_range_bwd": [P, P, P, P, P, P, P, P, I, I, I, F, F, P],
     "nb_mesh_deposit": [P, P, P, I, I, I, I, P, P],
-    "nb_mesh_gather": [P, P, P, P, I, I, I, I, P],
+    "nb_mesh_gather": [P, P, P, P, I, I, I, I, I, P, P],
 }
 
 

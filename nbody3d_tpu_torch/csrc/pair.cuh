@@ -38,23 +38,28 @@ __device__ __forceinline__ float pair_inv3_normal(float dx, float dy, float dz, 
     return rsqrt_normal(d2 * (d2 * d2));
 }
 
-// The in-tile pull on body t of a tile of b bodies held in shared memory as
-// four SoA arrays (sg: the G-folded masses), every ordered pair of the tile
-// with the self pair skipped (sym_diag_prep and sym_diag).  Thread t visits
-// sources in the staggered order (t + r) mod b, r = 1..b-1, which skips the
-// self pair without a branch and keeps the 32 lanes of a warp on 32
-// consecutive banks.
-__device__ __forceinline__ float3 in_tile_pull(const float* sx, const float* sy, const float* sz,
-                                               const float* sg, int b, int t, float4 me,
-                                               float eps2) {
+// The in-tile pull on body t (position me) of a tile of b bodies staged in
+// shared memory twice over, tile[s] = tile[b + s] = [x, y, z, G*m] of row s
+// (sym_diag_prep and sym_diag): every ordered pair of the tile with the self
+// pair skipped, the sources in the staggered order (t + r) mod b,
+// r = 1..b-1, read as tile[t + r].  The second copy takes the wrap, so the
+// loop tests nothing, and the 32 lanes of a warp read 32 consecutive rows,
+// one 16-byte read a pair; unrolled by 8 (by 4 it ran 2% slower on an
+// H100, not unrolled 21%: PERF.md).  kNormal: eps2^3 is a normal float, so
+// pair_inv3_normal gives pair_inv3's bits.  B > 0: b is B, known at compile
+// time.
+template <bool kNormal, int B>
+__device__ __forceinline__ float3 in_tile_pull(const float4* tile, int b_rt, int t, float4 me, float eps2) {
+    const int b = B > 0 ? B : b_rt;
+    const float4* from = tile + t;
     float ax = 0.f, ay = 0.f, az = 0.f;
+#pragma unroll 8
     for (int r = 1; r < b; ++r) {
-        int s = t + r;
-        if (s >= b) s -= b;
-        const float dx = sx[s] - me.x;
-        const float dy = sy[s] - me.y;
-        const float dz = sz[s] - me.z;
-        const float w = sg[s] * pair_inv3(dx, dy, dz, eps2);
+        const float4 p = from[r];
+        const float dx = p.x - me.x;
+        const float dy = p.y - me.y;
+        const float dz = p.z - me.z;
+        const float w = p.w * (kNormal ? pair_inv3_normal(dx, dy, dz, eps2) : pair_inv3(dx, dy, dz, eps2));
         ax = fmaf(w, dx, ax);
         ay = fmaf(w, dy, ay);
         az = fmaf(w, dz, az);

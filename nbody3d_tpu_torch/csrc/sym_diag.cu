@@ -27,31 +27,41 @@
 // a pair: FP32 issue and MUFU throughput.  The O(N) reads and writes are
 // coalesced float4 accesses, 32 bytes a row.
 //
-// Design: sym_diag_prep's: the tile is staged once in shared memory as four
-// SoA arrays and each thread sums its row with pair.cuh's in_tile_pull.
+// Design: sym_diag_prep's: the tile staged twice over in shared memory as
+// float4 rows and pair.cuh's in_tile_pull (the staggered order with no wrap
+// test, the ftz rsqrt where eps2^3 is normal), the tile width 256 a
+// template instance; on the same source rows the two kernels run the same
+// instructions in the same order.
 #include <cuda_runtime.h>
 
 #include "pair.cuh"
+#include "sym_pairs.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(1024)
+constexpr int kTile = 256;  // the template instance's tile (ops/step.py GPU_TILE)
+
+// Threads a block of the instance for tile B (0: the runtime width, up to 1,024).
+constexpr int threads_for(int B) { return B > 0 ? B : 1024; }
+
+template <int B, bool kNormal>
+__global__ void __launch_bounds__(threads_for(B), 2048 / threads_for(B))
 sym_diag_kernel(const float4* __restrict__ src, float4* __restrict__ acc, int b, float eps2) {
-    extern __shared__ float sh[];
-    float* sx = sh;
-    float* sy = sx + b;
-    float* sz = sy + b;
-    float* sg = sz + b;
+    extern __shared__ float4 tile[];
     const int t = threadIdx.x;
-    const long long row = static_cast<long long>(blockIdx.x) * b + t;
+    const long long row = static_cast<long long>(blockIdx.x) * (B > 0 ? B : b) + t;
     const float4 q = src[row];
-    sx[t] = q.x;
-    sy[t] = q.y;
-    sz[t] = q.z;
-    sg[t] = q.w;
+    tile[t] = q;
+    tile[(B > 0 ? B : b) + t] = q;
     __syncthreads();
-    const float3 a = in_tile_pull(sx, sy, sz, sg, b, t, q, eps2);
+    const float3 a = in_tile_pull<kNormal, B>(tile, b, t, q, eps2);
     acc[row] = make_float4(a.x, a.y, a.z, 0.f);
+}
+
+template <int B>
+void launch(int nt, int b, bool normal, cudaStream_t s, const float4* src, float4* acc, float eps2) {
+    const auto kernel = normal ? sym_diag_kernel<B, true> : sym_diag_kernel<B, false>;
+    kernel<<<nt, b, 2 * static_cast<size_t>(b) * sizeof(float4), s>>>(src, acc, b, eps2);
 }
 
 }  // namespace
@@ -59,9 +69,15 @@ sym_diag_kernel(const float4* __restrict__ src, float4* __restrict__ acc, int b,
 extern "C" int nb_sym_diag(const void* src, void* acc_diag, int nt, int b, float eps2,
                            void* stream) {
     if (nt > 0) {
-        const size_t smem = 4 * static_cast<size_t>(b) * sizeof(float);
-        sym_diag_kernel<<<nt, b, smem, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float4*>(src), static_cast<float4*>(acc_diag), b, eps2);
+        const cudaStream_t s = static_cast<cudaStream_t>(stream);
+        const bool normal = sym_pairs::normal_cubes(eps2);
+        const auto* q = static_cast<const float4*>(src);
+        auto* a = static_cast<float4*>(acc_diag);
+        if (b == kTile) {
+            launch<kTile>(nt, b, normal, s, q, a, eps2);
+        } else {
+            launch<0>(nt, b, normal, s, q, a, eps2);
+        }
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,10 @@ that of ``pallas_force``.  Two kernels (sources in
                   ``atomicAdd`` a cell, the rest with global atomics of
                   four cells each
 ``mesh_gather``   interpolation of the 3 force grids at the particles with
-                  the same assignment function: one thread a particle
+                  the same assignment function: for rows in Morton order
+                  a block's 256 particles read their stencils from a box
+                  of the grids staged in shared memory (or, a box too
+                  large, from the grids); other rows a thread a particle
 ================  ==========================================================
 
 Both take the per-particle operands ``c4 (N, 4) int32`` (the stencil's
@@ -125,6 +128,12 @@ def _check(name: str, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int)
     return dev
 
 
+def _check_paths(name: str, block_paths: torch.Tensor | None, n: int, dev: torch.device) -> None:
+    if block_paths is not None and (block_paths.dtype != torch.int32 or tuple(block_paths.shape) != (n,)
+                                    or block_paths.device != dev):
+        raise ValueError(f"{name}: block_paths must be an int32 ({n},) tensor on the card")
+
+
 # ----------------------------------------------------------- mesh_deposit
 def deposit_plain(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
     """Plain twin of ``mesh_deposit``: every stencil point's ``m·wx·wy·wz``
@@ -146,9 +155,7 @@ def deposit(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic:
     dev = _check("mesh_deposit", c4, fm, grid, order)
     if dev.type == "cpu":
         return deposit_plain(c4, fm, grid, order, periodic)
-    if block_paths is not None and (block_paths.dtype != torch.int32 or tuple(block_paths.shape) != (3,)
-                                    or block_paths.device != dev):
-        raise ValueError("mesh_deposit: block_paths must be an int32 (3,) tensor on the card")
+    _check_paths("mesh_deposit", block_paths, 3, dev)
     rho = torch.zeros((grid, grid, grid), dtype=torch.float32, device=dev)
     launch("mesh_deposit", dev, lib().nb_mesh_deposit, c4, fm, rho, c4.shape[0], grid, order, int(periodic),
            block_paths)
@@ -166,10 +173,18 @@ def gather_plain(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: 
 
 
 def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
-           periodic: bool = False) -> torch.Tensor:
+           periodic: bool = False, sorted_rows: bool = True, *,
+           block_paths: torch.Tensor | None = None) -> torch.Tensor:
     """Interpolation of ``grids (3, G³)`` at the particles → ``(N, 4)``,
     w lane 0 (the mass lane of ``fm`` is not read), on the torus when
-    ``periodic``."""
+    ``periodic``.  ``sorted_rows``: the rows come in Morton order (P3M's),
+    so the kernel stages each run's box of the grids in shared memory;
+    ``False`` (PM's unsorted rows) takes its loop alone, which needs the
+    L1 the boxes would hold.  Any rows give the same bits either way.
+    ``block_paths``: an int32 ``(2,)`` tensor on the card to which the
+    kernel adds its blocks (runs of 256 rows) that read a box in shared
+    memory and those that read the grids in global memory
+    (``csrc/mesh_gather.cu``); the twin leaves it alone."""
     dev = _check("mesh_gather", c4, fm, grid, order)
     if grids.dtype != fm.dtype or tuple(grids.shape) != (3, grid**3) or not grids.is_contiguous():
         raise ValueError(f"mesh_gather: grids must be contiguous {fm.dtype} (3, {grid**3}), got "
@@ -178,8 +193,10 @@ def gather(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, o
         raise ValueError("mesh_gather: grids on another device or requiring grad")
     if dev.type == "cpu":
         return gather_plain(grids, c4, fm, grid, order, periodic)
+    _check_paths("mesh_gather", block_paths, 2, dev)
     out = torch.empty_like(fm)
-    launch("mesh_gather", dev, lib().nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic))
+    launch("mesh_gather", dev, lib().nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic),
+           int(sorted_rows), block_paths)
     return out
 
 
@@ -267,16 +284,16 @@ class _Gather(torch.autograd.Function):
     grids."""
 
     @staticmethod
-    def forward(ctx, grids, c4, fm, grid, order, periodic):
+    def forward(ctx, grids, c4, fm, grid, order, periodic, sorted_rows):
         ctx.save_for_backward(grids, c4, fm)
         ctx.opts = (grid, order, periodic)
-        return gather(grids.detach(), c4, fm.detach(), grid, order, periodic)
+        return gather(grids.detach(), c4, fm.detach(), grid, order, periodic, sorted_rows)
 
     @staticmethod
     def backward(ctx, out_bar):
         grids, c4, fm = ctx.saved_tensors
         grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
-        return grids_bar, None, fm_bar, None, None, None
+        return grids_bar, None, fm_bar, None, None, None, None
 
 
 def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, periodic: bool = False) -> torch.Tensor:
@@ -286,7 +303,7 @@ def deposit_diff(c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int, peri
 
 
 def gather_diff(grids: torch.Tensor, c4: torch.Tensor, fm: torch.Tensor, grid: int, order: int,
-                periodic: bool = False) -> torch.Tensor:
+                periodic: bool = False, sorted_rows: bool = True) -> torch.Tensor:
     """:func:`gather`, differentiable in ``grids`` and ``fm``, on the
     isolated or (``periodic``) the periodic box."""
-    return _Gather.apply(grids, c4, fm, grid, order, periodic)
+    return _Gather.apply(grids, c4, fm, grid, order, periodic, sorted_rows)

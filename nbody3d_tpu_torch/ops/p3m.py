@@ -49,6 +49,7 @@ permutation, the spectral solve and the net-force projection.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -780,20 +781,22 @@ def periodic_scales(grid: int, box_size: float, sigma_cells: float, rcut_sigmas:
 
 
 def periodic_mesh_leg(pos: torch.Tensor, mass: torch.Tensor, L: torch.Tensor, sigma: torch.Tensor, grid: int,
-                      order: int, plain: bool) -> torch.Tensor:
+                      order: int, plain: bool, sorted_rows: bool = True) -> torch.Tensor:
     """One mesh leg on the torus: ``(N, 4)`` long-range accelerations per
     unit G of wrapped positions ``pos`` (TSC at order 3, CIC at 2): the
     periodic deposit, ``ewald.spectral_accel_grids`` and the periodic
     gather, through ``mesh_cuda``'s autograd Functions (their backwards
     wrap the stencil as the forwards do; the grids' cotangent is the
     periodic ``mesh_deposit`` of the gather's).  ``plain``: the twins, with
-    autograd through them, as the isolated ``backend="jnp"``."""
+    autograd through them, as the isolated ``backend="jnp"``.
+    ``sorted_rows``: the rows are in Morton order (P3M's; PM's are not),
+    which picks the gather kernel's path."""
     h = L / grid
     lo = torch.zeros(3, dtype=pos.dtype, device=pos.device)
     cells = _tsc_cells if order == 3 else _cic_cells
     c4, fm = mesh_cuda.mesh_operands(*cells(pos, lo, h, grid, periodic=True), mass)
     dep, gat = ((mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain
-                else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
+                else (mesh_cuda.deposit_diff, functools.partial(mesh_cuda.gather_diff, sorted_rows=sorted_rows)))
     grids = spectral_accel_grids(dep(c4, fm, grid, order, periodic=True), L, sigma, order=order)
     return gat(grids, c4, fm, grid, order, periodic=True)
 

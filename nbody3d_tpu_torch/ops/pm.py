@@ -28,6 +28,8 @@ solve).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from nbody3d_tpu_torch.ops import mesh_cuda
@@ -160,7 +162,7 @@ def accel_pm(
     c4, fm = mesh_cuda.mesh_operands(i0, f, pos_mass[:, 3])
     plain = mesh_backend == "jnp"
     dep, gat = ((mesh_cuda.deposit_plain, mesh_cuda.gather_plain) if plain
-                else (mesh_cuda.deposit_diff, mesh_cuda.gather_diff))
+                else (mesh_cuda.deposit_diff, functools.partial(mesh_cuda.gather_diff, sorted_rows=False)))
     phi = solve_potential(dep(c4, fm, grid, 2), h, eps2)
     return gat(force_grids(phi, h), c4, fm, grid, 2) * G
 
@@ -175,7 +177,8 @@ def _accel_pm_periodic(pos_mass, G, grid, plain, box_size, interlace):
     h = L / grid
     sigma = PERIODIC_SIGMA_CELLS * h
     pos, mass = wrap_box(pos_mass[:, :3], L), pos_mass[:, 3]
-    acc = periodic_mesh_leg(pos, mass, L, sigma, grid, 2, plain)
+    acc = periodic_mesh_leg(pos, mass, L, sigma, grid, 2, plain, sorted_rows=False)
     if interlace:
-        acc = 0.5 * (acc + periodic_mesh_leg(wrap_box(pos + 0.5 * h, L), mass, L, sigma, grid, 2, plain))
+        acc = 0.5 * (acc + periodic_mesh_leg(wrap_box(pos + 0.5 * h, L), mass, L, sigma, grid, 2, plain,
+                                             sorted_rows=False))
     return acc * G
