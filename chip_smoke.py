@@ -14,7 +14,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    spill bytes (ptxas) of ``force_exact``, ``fused_step_exact``,
    ``sym_hops``, ``pair_sym``, ``vjp_sym_hops``,
    ``short_range``, ``short_range_bwd``, ``force_fast``,
-   ``fused_step_fast``, ``sym_diag_prep`` and ``sym_diag`` and, where
+   ``fused_step_fast``, ``sym_diag_prep``, ``sym_diag``, ``vjp_sym_diag``
+   (both loops) and ``vjp_full`` and, where
    ``cuobjdump`` is on the machine, the
    count of their SASS instructions by opcode (``ATOMS``, ``RED``, ``LDS``,
    ``MUFU``, ``SHFL``, ``VOTE``, ``BSSY``, ``F2FP``, ``HMMA``, ...), in all
@@ -40,7 +41,12 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    tiles of 512 and 1024 rows: < 2e-5 of scale; ``vjp_sym_hops`` (summed
    with the diagonal) at the same tile counts and tiles, at eps2 = 1e-40
    (subnormal) and on ``pair_checks.vjp_heavy`` (a 1e7 body), < 2e-5 of
-   scale, the parent's kernel too with ``--parent``; the
+   scale, the parent's kernel too with ``--parent``; at those shapes and
+   phase 3's ``vjp_sym_diag`` < 1e-5 of each column's scale and ``vjp_full``
+   at every S from 1 to 8 (x̄, m̄ < 1e-5 of scale, Ḡ < 1e-5 of sum |A.F|;
+   the twins in f64 at eps2 = 1e-40), with ``--parent`` ``vjp_sym_diag``'s
+   ordered loop (tiles other than 256) and ``vjp_full`` at S = 1 bit-equal
+   to the parent's kernels; the
    VJP accuracy gate of ``benchmarks/grad_bench.py`` (median x̄ relative
    error <= 1e-4 against an f64 numpy oracle, uniform-sphere N = 4,096,
    both schedules); then each kernel's time beside its twin's at the
@@ -50,11 +56,11 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    sym VJP against the full-grid VJP and both against f64 on 256 rows, and
    the VJP stages at the exact gradient path's shape and data (two-galaxy,
    nt = 157) against their twins, the full grid and f64; with
-   ``--parent`` the parent's ``sym_diag_prep`` (bit for bit), ``sym_hops``
-   and ``vjp_sym_hops`` beside this tree's in turns (N = 262,144;
-   ``vjp_sym_hops`` also at nt = 157), ``sym_diag_prep``'s guarded rsqrt
-   beside its ftz one, and
-   ``vjp_sym_hops`` with its guarded rsqrt beside its ftz one; after
+   ``--parent`` the parent's ``sym_diag_prep`` (bit for bit), ``sym_hops``,
+   ``vjp_sym_hops``, ``vjp_sym_diag`` and ``vjp_full`` beside this tree's in
+   turns (N = 262,144; the VJP kernels also at nt = 157), ``sym_diag_prep``'s
+   guarded rsqrt beside its ftz one, and the three VJP pair kernels' guarded
+   rsqrt beside their ftz one; ``vjp_full`` at every S at nt = 157; after
    phase 10's times, ``force_exact`` and ``fused_step_exact``, the launch
    alone, at two-galaxy n_pad 40,192 and N = 262,144: S, the guarded
    instance beside the ftz one in turns, ``force_exact`` at every S at
@@ -289,9 +295,11 @@ run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 12b (each), 12d and 14b and one profiled gradient rollout of 9b, 9c, 13b
-(each) and 13c (device busy time, idle share, largest kernels; for the
-gradients the share of each stage) follow their windows.  The line before the last is ``{"kernels":
+step of 8b, 8d, 10b (yoshida4), 12b (each), 12d and 14b and one profiled gradient rollout of 9b, 9c,
+13b (each) and 13c (device busy time, idle share, largest kernels; for the
+gradients the share of each stage; 6a's ``vjp_combine`` and 10b's
+``sym_combine`` device time a launch, their inputs as their paths leave
+them) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
 and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit``,
 ``mesh_gather`` and ``short_range_bwd`` carry a ``periodic`` entry with
@@ -345,6 +353,7 @@ from nbody3d_tpu_torch.state import SimState, init_state, pad_count
 from nbody3d_tpu_torch.utils.camera import Camera
 
 G, EPS2, DT = 1e-4, 1e-4, 1e-3
+FLT_MIN = float(np.finfo(np.float32).tiny)  # the least normal f32: the VJP kernels' ftz rsqrt needs eps2 >= it
 DT_MAIN = SimConfig().dt  # the main path's step, as grad_bench uses
 SRC = "nbody3d_tpu_torch/csrc/"
 PALLAS = "nbody3d_tpu/ops/pallas_force.py:"
@@ -526,7 +535,8 @@ def phase_build() -> None:
 # The pair kernels whose inner loop PERF.md describes from these counts.
 SYM_PAIR_KERNELS = ("force_exact_kernel", "fused_step_exact_kernel", "sym_hops_kernel", "pair_sym_kernel",
                     "vjp_sym_hops_kernel", "short_range_kernel", "short_range_bwd_kernel", "force_fast_kernel",
-                    "fused_step_fast_kernel", "sym_diag_prep_kernel", "sym_diag_kernel")
+                    "fused_step_fast_kernel", "sym_diag_prep_kernel", "sym_diag_kernel", "vjp_sym_diag_kernel",
+                    "vjp_sym_diag_n3_kernel", "vjp_full_kernel")
 SASS_OPS = ("ATOMS", "ATOM", "RED", "LDS", "STS", "SHFL", "VOTE", "BSSY", "MUFU", "FFMA", "FMUL", "FADD", "FSEL",
             "BAR", "F2FP", "HMMA", "BRA")
 # The FP32 pipe's opcodes, summed as one class in the pair loops' counts.
@@ -941,8 +951,88 @@ def _parts_err(got: tuple, want: tuple) -> tuple[float, float, float]:
             abs(float(g) - float(gw)) / abs(float(gw)))
 
 
+def vjp_full_split(pm, g: float, abar, eps2: float, split: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``vjp_full``'s launch with ``split`` CTAs a block of rows (the
+    wrapper passes ``exact_split``'s): ``(pm_bar, gbar)``."""
+    pm_bar = torch.empty_like(pm)
+    gbar = torch.zeros(1, dtype=torch.float64, device=pm.device)
+    launch("vjp_full", pm.device, _build.load_library().nb_vjp_full, pm, abar, pm_bar, gbar, pm.shape[0], float(g),
+           float(eps2), split)
+    return pm_bar, gbar
+
+
+def _twin_inputs(pm, abar, eps2: float):
+    """The twins' inputs: as given, or in f64 where eps2 is subnormal in
+    f32.  The twins mask the self pair by a product, and at such an eps2 its
+    f32 w = eps2^-3/2 overflows (inf * 0); in f64 its terms are 0."""
+    return (pm, abar) if eps2 >= FLT_MIN else (pm.double(), abar.double())
+
+
+def _gbar_scale(pm, abar, eps2: float, chunk: int = 512) -> float:
+    """The scale of Ḡ's terms, sum_k |A_k . F_k| in f64 (F per unit G): Ḡ
+    is a sum of terms of either sign, so its error is held to this, as x̄'s
+    and m̄'s are held to their largest entry."""
+    x, m, a = pm[:, :3].double(), pm[:, 3].double(), abar[:, :3].double()
+    total = 0.0
+    for s in range(0, pm.shape[0], chunk):
+        d = x[None] - x[s : s + chunk, None]
+        w = (torch.sum(d * d, dim=-1) + eps2) ** -1.5
+        total += float(torch.sum(a[s : s + chunk] * torch.einsum("kj,j,kjc->kc", w, m, d), dim=1).abs().sum())
+    return total
+
+
+def _full_checks(tag: str, pm, abar, eps2: float, want=None) -> None:
+    """``vjp_full`` at every S from 1 to 8 against the twin (``want``: its
+    output, else run here, in f64 where eps2 is subnormal, see
+    :func:`_twin_inputs`): x̄ and m̄ < 1e-5 of their scale, Ḡ < 1e-5 of the
+    scale of its terms (:func:`_gbar_scale`); the wrapper's S printed and
+    equal to its launch at that S; with ``--parent`` S = 1 bit-equal to the
+    parent's kernel (pm_bar; Ḡ, summed in double by atomics, to 1e-12)."""
+    if want is None:
+        p, a = _twin_inputs(pm, abar, eps2)
+        want = fv.vjp_full_plain(p, G, a, eps2)
+    scale = _gbar_scale(pm, abar, eps2)
+    split = exact_split(pm.shape[0], pm.shape[0], sm_count(pm.device.index))
+    for s in range(1, EXACT_MAX_SPLIT + 1):
+        got = vjp_full_split(pm, G, abar, eps2, s)
+        torch.cuda.synchronize()
+        ex, em = rel_err(got[0][:, :3], want[0][:, :3].float()), rel_err(got[0][:, 3], want[0][:, 3].float())
+        eg = abs(float(got[1]) - float(want[1]))
+        check(ex < 1e-5 and em < 1e-5 and eg / scale < 1e-5 and bool(torch.isfinite(got[0]).all()),
+              f"{tag}: vjp_full at S = {s} vs plain x̄ {ex:.3e}, m̄ {em:.3e} < 1e-5, Ḡ {eg / scale:.3e} of "
+              f"sum |A.F| < 1e-5 ({eg / abs(float(want[1])):.3e} of |Ḡ|), finite")
+    wrapper = fv.vjp_full(pm, G, abar, eps2)
+    check(torch.equal(wrapper[0], vjp_full_split(pm, G, abar, eps2, split)[0]),
+          f"{tag}: the wrapper launches vjp_full at S = exact_split = {split}")
+    if PARENT:
+        got, par = vjp_full_split(pm, G, abar, eps2, 1), parent_vjp_full(pm, G, abar, eps2)
+        torch.cuda.synchronize()
+        eg = abs(float(got[1]) - float(par[1])) / abs(float(par[1]))
+        check(torch.equal(got[0], par[0]) and eg < 1e-12,
+              f"{tag}: vjp_full at S = 1 bit-equal to the parent's kernel (largest difference "
+              f"{_ulps(got[0], par[0])} ulp), Ḡ {eg:.3e} < 1e-12")
+
+
+def _diag_checks(tag: str, pm, abar, eps2: float, b: int, acc_d, acc_d_p=None) -> float:
+    """``vjp_sym_diag`` against its twin (``acc_d_p``, else run here as
+    :func:`_full_checks` runs its twin), < 1e-5 of each column's scale,
+    finite, columns 5-7 zero; with ``--parent`` bit-equal to the parent's
+    kernel where the runtime width takes the tile (b != 256: the first
+    design's order; b = 256 takes the Newton-3 instance, another order).
+    Returns the worst column's error."""
+    if acc_d_p is None:
+        acc_d_p = fv.vjp_sym_diag_plain(*_twin_inputs(pm, abar, eps2), eps2, b)
+    e_d = max(rel_err(acc_d[:, c], acc_d_p[:, c].float()) for c in range(5))
+    check(e_d < 1e-5 and not acc_d[:, 5:].any() and bool(torch.isfinite(acc_d).all()),
+          f"{tag}: vjp_sym_diag vs plain, worst column {e_d:.3e} < 1e-5, finite, columns 5-7 zero")
+    if b != GPU_TILE:
+        _parent_equal(f"{tag}: vjp_sym_diag", acc_d, parent_vjp_sym_diag, pm, abar, eps2, b)
+    return e_d
+
+
 def phase_vjp_checks(dev) -> None:
-    """The four VJP kernels vs their plain twins, padded rows included."""
+    """The four VJP kernels vs their plain twins, padded rows included
+    (``vjp_full`` at every S, :func:`_full_checks`)."""
     print("[3 kernels] VJP kernel vs plain twin, small shapes (heavy body 1e5)", flush=True)
     rng = np.random.default_rng(1)
     for n_pad, b, n_real in [(8192, 256, 8000), (7936, 256, 7900), (512, 256, 500)]:
@@ -954,8 +1044,7 @@ def phase_vjp_checks(dev) -> None:
         acc_d, acc_d_p = fv.vjp_sym_diag(pm, abar, EPS2, b), fv.vjp_sym_diag_plain(pm, abar, EPS2, b)
         acc_h, acc_h_p = fv.vjp_sym_hops(pm, abar, EPS2, b), fv.vjp_sym_hops_plain(pm, abar, EPS2, b)
         torch.cuda.synchronize()
-        e_d = max(rel_err(acc_d[:, c], acc_d_p[:, c]) for c in range(5))
-        check(e_d < 1e-5 and not acc_d[:, 5:].any(), f"{tag}: vjp_sym_diag vs plain, worst column {e_d:.3e} < 1e-5")
+        _diag_checks(tag, pm, abar, EPS2, b, acc_d, acc_d_p)
         sym_k = fv.vjp_combine(acc_d, acc_h, G)
         sym_p = fv.vjp_combine_plain(acc_d_p, acc_h_p, G)
         ex, em, eg = _parts_err(sym_k, sym_p)
@@ -971,6 +1060,7 @@ def phase_vjp_checks(dev) -> None:
         ex, em, eg = _parts_err(full_k, full_p)
         check(ex < 1e-5 and em < 1e-5 and eg < 1e-5,
               f"{tag}: vjp_full vs plain x̄ {ex:.3e}, m̄ {em:.3e}, Ḡ {eg:.3e} < 1e-5")
+        _full_checks(tag, pm, abar, EPS2, full_p)
         ex, em, eg = _parts_err(sym_k, full_k)
         check(ex < 2e-5 and em < 2e-5 and eg < 1e-5,
               f"{tag}: sym schedule vs full grid x̄ {ex:.3e}, m̄ {em:.3e} < 2e-5, Ḡ {eg:.3e} < 1e-5")
@@ -996,7 +1086,10 @@ def phase_vjp_run_checks(dev) -> None:
     """``vjp_sym_hops`` against its twin where a block's run of hops is cut
     short, at tiles of 512 and 1024 and a subnormal eps2, with a 1e7 body
     and padded rows, and on ``pair_checks.vjp_heavy``; < 2e-5 of scale
-    (summed with the diagonal), the parent's kernel too with ``--parent``."""
+    (summed with the diagonal), the parent's kernel too with ``--parent``.
+    At the same shapes ``vjp_sym_diag`` (:func:`_diag_checks`: the template
+    width and the runtime one, both rsqrt instances) and ``vjp_full``
+    (:func:`_full_checks`)."""
     rng = np.random.default_rng(4)
     cases = [(f"N={n} tile {b} eps2 {eps2:g}", _inputs(rng, n, n - (37 if eps2 >= EPS2 else 0), dev)[0], b, eps2)
              for n, b, eps2 in VJP_RUN_SHAPES]
@@ -1010,6 +1103,8 @@ def phase_vjp_run_checks(dev) -> None:
         acc_d = fv.vjp_sym_diag(pm, abar, eps2, b)
         acc_h, acc_h_p = fv.vjp_sym_hops(pm, abar, eps2, b), fv.vjp_sym_hops_plain(pm, abar, eps2, b)
         torch.cuda.synchronize()
+        _diag_checks(tag, pm, abar, eps2, b, acc_d)
+        _full_checks(tag, pm, abar, eps2)
         e = _hops_err(acc_d, acc_h, acc_h_p)
         check(e < 2e-5 and not acc_h[:, 5:].any() and bool(torch.isfinite(acc_h).all()),
               f"{tag} (launches (k0, nk, grid_i, runs) {hop_blocks(pm.shape[0] // b)}): vjp_sym_hops vs plain "
@@ -1088,8 +1183,7 @@ def phase_vjp_two_galaxy(dev, pm: torch.Tensor, n_real: int) -> None:
     acc_d, acc_d_p = fv.vjp_sym_diag(pm, abar, EPS2, b), fv.vjp_sym_diag_plain(pm, abar, EPS2, b)
     acc_h, acc_h_p = fv.vjp_sym_hops(pm, abar, EPS2, b), fv.vjp_sym_hops_plain(pm, abar, EPS2, b)
     torch.cuda.synchronize()
-    e_d = max(rel_err(acc_d[:, c], acc_d_p[:, c]) for c in range(5))
-    check(e_d < 1e-5, f"{tag}: vjp_sym_diag vs plain, worst column {e_d:.3e} < 1e-5")
+    _diag_checks(tag, pm, abar, EPS2, b, acc_d, acc_d_p)
     e_h = _hops_err(acc_d, acc_h, acc_h_p)
     check(e_h < 2e-5, f"{tag}: vjp_sym_hops vs plain (summed with diag), worst column {e_h:.3e} < 2e-5")
     if PARENT:
@@ -1097,7 +1191,13 @@ def phase_vjp_two_galaxy(dev, pm: torch.Tensor, n_real: int) -> None:
         check(e_par < 2e-5, f"{tag}: the parent's vjp_sym_hops vs plain, worst column {e_par:.3e} < 2e-5")
         vs_parent(f"{tag} vjp_sym_hops", lambda: fv.vjp_sym_hops(pm, abar, EPS2, b),
                   lambda: parent_vjp_sym_hops(pm, abar, EPS2, b), reps=10)
-        vs_guarded_rsqrt(tag, pm, abar, b, reps=10)
+        vs_parent(f"{tag} vjp_sym_diag", lambda: fv.vjp_sym_diag(pm, abar, EPS2, b),
+                  lambda: parent_vjp_sym_diag(pm, abar, EPS2, b), reps=20)
+        vs_parent(f"{tag} vjp_full (S = {exact_split(n, n, sm_count(dev.index))})", lambda: fv.vjp_full(pm, G, abar, EPS2),
+                  lambda: parent_vjp_full(pm, G, abar, EPS2), reps=5)
+        vjp_guarded_rsqrt(tag, pm, abar, b, reps=10, full_reps=5)
+    _full_checks(tag, pm, abar, EPS2)
+    vjp_full_by_split(tag, pm, abar)
     sym = fv.force_vjp_sym(pm, G, abar, eps2=EPS2, b=b)
     full = fv.force_vjp(pm, G, abar, eps2=EPS2)
     for what, want in (("plain stages", fv.vjp_combine_plain(acc_d_p, acc_h_p, G)), ("full-grid VJP", full)):
@@ -1115,6 +1215,15 @@ def phase_vjp_two_galaxy(dev, pm: torch.Tensor, n_real: int) -> None:
               f"(p99 {p99:.3e}), m̄ median {med_m:.3e} <= 1e-4")
 
 
+def vjp_full_by_split(tag: str, pm, abar, reps: int = 5) -> None:
+    """``vjp_full``'s launch at every S from 1 to 8 (CUDA events), beside
+    the S that ``exact_split`` gives it."""
+    split = exact_split(pm.shape[0], pm.shape[0], sm_count(pm.device.index))
+    t = {s: cuda_ms(lambda s=s: vjp_full_split(pm, G, abar, EPS2, s), reps=reps) for s in range(1, EXACT_MAX_SPLIT + 1)}
+    print(f"  {tag} vjp_full by S (exact_split gives {split}): "
+          + ", ".join(f"S={s} {ms:.4f} ms" for s, ms in t.items()), flush=True)
+
+
 def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
     """The VJP kernels at the sym main-path shape (N = 262,144, tile 256)
     on a random cotangent: times beside the twins', and the full-width
@@ -1125,15 +1234,24 @@ def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
     acc_d = fv.vjp_sym_diag(pm, abar, EPS2, b)
     acc_d_p = fv.vjp_sym_diag_plain(pm, abar, EPS2, b)
     torch.cuda.synchronize()
-    e_d = max(rel_err(acc_d[:, c], acc_d_p[:, c]) for c in range(5))
-    check(e_d < 1e-5, f"uniform-sphere N={n}: vjp_sym_diag vs plain, worst column {e_d:.3e} < 1e-5")
+    e_d = _diag_checks(f"uniform-sphere N={n}", pm, abar, EPS2, b, acc_d, acc_d_p)
+    parent = {}
+    if PARENT:
+        parent = vs_parent(f"vjp_sym_diag N={n}", lambda: fv.vjp_sym_diag(pm, abar, EPS2, b),
+                           lambda: parent_vjp_sym_diag(pm, abar, EPS2, b))
+    # The function needs each unordered pair of a tile once (the Newton-3
+    # count, at vjp_sym_hops' FLOP a pair): the bound.  The ordered count,
+    # n(b-1) pairs at the first design's FLOP, beside it in the note.
+    ordered = bound("vjp_sym_diag", n * (b - 1), 64 * n, rsqrts=n * (b - 1))
     out["vjp_sym_diag"] = {
         "max_abs_err": max_abs(acc_d, acc_d_p),
-        "note": f"worst column max-abs/scale {e_d:.3e}",
+        "note": f"worst column max-abs/scale {e_d:.3e}; bound by the ordered count {ordered['bound_ms']:.4f} ms "
+                f"({ordered['bound_by']})",
         "ms": cuda_ms(lambda: fv.vjp_sym_diag(pm, abar, EPS2, b), reps=20),
         "plain_ms": cuda_ms(lambda: fv.vjp_sym_diag_plain(pm, abar, EPS2, b), reps=2),
         "shape": f"2 x ({n}, 4) -> ({n}, 8), tile {b}",
-        **bound("vjp_sym_diag", n * (b - 1), 64 * n, rsqrts=n * (b - 1)),
+        **bound("vjp_sym_hops", n * (b - 1) // 2, 64 * n, rsqrts=n * (b - 1) // 2),
+        **parent,
     }
     del acc_d_p
 
@@ -1154,7 +1272,7 @@ def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
         check(e_par < 2e-5, f"uniform-sphere N={n}: the parent's vjp_sym_hops vs plain, worst column {e_par:.3e} < 2e-5")
         parent = vs_parent(f"vjp_sym_hops N={n}", lambda: fv.vjp_sym_hops(pm, abar, EPS2, b),
                            lambda: parent_vjp_sym_hops(pm, abar, EPS2, b), reps=3)
-        vs_guarded_rsqrt(f"uniform-sphere N={n}", pm, abar, b, reps=3)
+        vjp_guarded_rsqrt(f"uniform-sphere N={n}", pm, abar, b, reps=3, full_reps=2)
     out["vjp_sym_hops"] = {
         "max_abs_err": max_abs(acc_h, acc_h_p),
         "ms": cuda_ms(lambda: fv.vjp_sym_hops(pm, abar, EPS2, b), reps=3),
@@ -1196,15 +1314,28 @@ def phase_vjp_times(dev, pm: torch.Tensor, b: int) -> dict[str, dict]:
 
     plain_full_ms = host_ms(run_plain_full)
     ex, em, eg = _parts_err(full, full_p)
+    split = exact_split(n, n, sm_count(dev.index))
     check(ex < 1e-5 and em < 1e-5 and eg < 1e-5,
-          f"uniform-sphere N={n}: vjp_full vs plain x̄ {ex:.3e}, m̄ {em:.3e}, Ḡ {eg:.3e} < 1e-5")
+          f"uniform-sphere N={n}: vjp_full (S = {split}) vs plain x̄ {ex:.3e}, m̄ {em:.3e}, Ḡ {eg:.3e} < 1e-5")
+    parent = {}
+    if PARENT:
+        one, par = vjp_full_split(pm, G, abar, EPS2, 1), parent_vjp_full(pm, G, abar, EPS2)
+        torch.cuda.synchronize()
+        eg = abs(float(one[1]) - float(par[1])) / abs(float(par[1]))
+        check(torch.equal(one[0], par[0]) and eg < 1e-12,
+              f"uniform-sphere N={n}: vjp_full at S = 1 bit-equal to the parent's kernel (largest difference "
+              f"{_ulps(one[0], par[0])} ulp), Ḡ {eg:.3e} < 1e-12")
+        del one, par
+        parent = vs_parent(f"vjp_full N={n} (S = {split})", lambda: fv.vjp_full(pm, G, abar, EPS2),
+                           lambda: parent_vjp_full(pm, G, abar, EPS2), reps=2)
     out["vjp_full"] = {
         "max_abs_err": max_abs(full[0], full_p[0]),
         "ms": cuda_ms(lambda: fv.vjp_full(pm, G, abar, EPS2), reps=2),
         "plain_ms": plain_full_ms,
-        "shape": f"2 x ({n}, 4) -> ({n}, 4) + Ḡ",
+        "shape": f"2 x ({n}, 4) -> ({n}, 4) + Ḡ, S {split}",
         "note": "plain: one run, host clock",
         **bound("vjp_full", n * (n - 1), 48 * n + 8, rsqrts=n * (n - 1)),
+        **parent,
     }
     del full_p
 
@@ -1273,8 +1404,10 @@ def _profiled(fn):
 
 
 # The device functions of a counted kernel where they are not "<name>_kernel"
-# (mesh_gather: the loop alone and the box kernel, csrc/mesh_gather.cu).
-TRACE_NAMES = {"mesh_gather": ("mesh_gather_kernel", "mesh_gather_box_kernel")}
+# (mesh_gather: the loop alone and the box kernel, csrc/mesh_gather.cu;
+# vjp_sym_diag: the ordered loop and the Newton-3 one at tile 256).
+TRACE_NAMES = {"mesh_gather": ("mesh_gather_kernel", "mesh_gather_box_kernel"),
+               "vjp_sym_diag": ("vjp_sym_diag_kernel", "vjp_sym_diag_n3_kernel")}
 
 
 # Stages of a mesh step by kernel name (lower case; the first key found wins).
@@ -1292,13 +1425,15 @@ def _stage(label: str) -> str:
     return next((stage for key, stage in STAGES if key in low), "elementwise and other torch ops")
 
 
-def profile_window(label: str, fn, tries: int = 3, stages: bool = False) -> None:
+def profile_window(label: str, fn, tries: int = 3, stages: bool = False, per_launch: tuple[str, ...] = ()) -> None:
     """Host wall time, device busy time (the union of the intervals of the
     device's kernels and copies), the idle share 1 - busy / wall and the
     three largest kernels of one call of ``fn()``; with ``stages``, each
-    stage's share of the summed kernel time (:data:`STAGES`).  A trace that
-    misses a launch of the port's kernels (the profiler has dropped device
-    events on the card) is taken again, up to ``tries`` times."""
+    stage's share of the summed kernel time (:data:`STAGES`); for each
+    counted kernel of ``per_launch``, its launches in the trace and their
+    mean device time.  A trace that misses a launch of the port's kernels
+    (the profiler has dropped device events on the card) is taken again, up
+    to ``tries`` times."""
     for attempt in range(1, tries + 1):
         wall_us, events, complete = _profiled(fn)
         if complete and events:
@@ -1322,6 +1457,11 @@ def profile_window(label: str, fn, tries: int = 3, stages: bool = False) -> None
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
           f"idle share {1 - busy / wall_us:.4f} (trace {attempt} of {tries}); top: "
           + ", ".join(f"{n} {t / 1e3:.3f} ms" for n, t in top), flush=True)
+    for k in per_launch:
+        spans_k = [e - s for name, s, e in events if name in TRACE_NAMES.get(k, (f"{k}_kernel",))]
+        if spans_k:
+            print(f"  profile {label}: {k} {len(spans_k)} launches, mean device time a launch "
+                  f"{sum(spans_k) / len(spans_k) / 1e3:.5f} ms (its inputs as its path leaves them)", flush=True)
     if stages:
         by_stage: dict[str, float] = {}
         for name, t in per_kernel.items():
@@ -1364,7 +1504,7 @@ def phase_grad_sym(dev):
     t_f, t_g, g, prof = _rollout_times(step, st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n)
     _print_grad(f"[6a grad sym] uniform-sphere N={n} k={k}", n, t_f, t_g)
     check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, "sym gradient finite and nonzero")
-    return [(f"sym {label}", fn) for label, fn in prof]
+    return [(f"sym {label}", fn, {"per_launch": ("vjp_combine",)}) for label, fn in prof]
 
 
 def phase_grad_exact(dev):
@@ -1382,17 +1522,39 @@ def phase_grad_exact(dev):
 
 def phase_grad_full(dev):
     """Phase 6b's rollout through ``make_diff_accel(sym=False)``, the
-    full-grid VJP route (on no main path), against phase 6b's gradient."""
+    full-grid VJP route (on no main path), against phase 6b's gradient; with
+    ``--parent`` it hands back the same rollout with the parent's
+    ``vjp_full`` as the backward, in turns with this tree's (parent, this,
+    this, parent), to run after the window's counts are read."""
     st, n_real = _two_galaxy(dev)
     k = 3
-    accel = fv.make_diff_accel(lambda p, g: cf.force_exact(p, p, g, EPS2), eps2=EPS2, b=GPU_TILE, sym=False)
+    force = lambda p, g: cf.force_exact(p, p, g, EPS2)  # noqa: E731
+    accel = fv.make_diff_accel(force, eps2=EPS2, b=GPU_TILE, sym=False)
 
-    def step(s, dt, g):
-        return integrate_state("verlet", lambda p: accel(p, g), s, dt, n_real=n_real)
+    def stepper(acc):
+        return lambda s, dt, g: integrate_state("verlet", lambda p: acc(p, g), s, dt, n_real=n_real)
 
-    t_f, t_g, g, _ = _rollout_times(step, st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n_real)
+    def rollout(acc):
+        return _rollout_times(stepper(acc), st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n_real)
+
+    t_f, t_g, g, _ = rollout(accel)
     _print_grad(f"[6c grad full-grid VJP] two-galaxy N={n_real} (n_pad {st.n_pad}) k={k}", st.n_pad, t_f, t_g)
     _grad_agrees(g, GRADS["exact"], "full-grid VJP route vs phase 6b's gradient")
+    if PARENT:
+        def parent_backward(pm, g_, abar):
+            pm_bar, gbar = parent_vjp_full(pm, g_, abar, EPS2)
+            return pm_bar, gbar.to(torch.float32).reshape(())
+
+        parent_accel = lambda p, g_: fv._DiffAccel.apply(p, g_, force, parent_backward)  # noqa: E731
+
+        def in_turns():
+            t = [rollout(a)[1] for a in (parent_accel, accel, accel, parent_accel)]
+            print(f"  6c gradient ms/step with the parent's vjp_full beside this tree's (same card, in turns "
+                  f"parent, this, this, parent): parent {t[0]:.4f} / {t[3]:.4f}, this {t[1]:.4f} / {t[2]:.4f}",
+                  flush=True)
+
+        return [in_turns]
+    return []
 
 
 def phase_grad_crosscheck(dev, n: int = 4096) -> None:
@@ -1468,11 +1630,11 @@ def _exact_run(dev, tag: str, **kw) -> float:
     return med / 50 * 1e3
 
 
-def _sphere_run(dev, tag: str, chunk: int, **kw) -> float:
+def _sphere_run(dev, tag: str, chunk: int, **kw) -> tuple[float, Simulation]:
     """uniform-sphere N = 262,144, ``morton_every=64``, sym unless ``kw``
     names another force_mode: 1 warm and 2 timed chunks, energy drift <=
     1e-4 * max(steps, 140) / 140, momentum error <= 1e-5.  Returns the
-    median ms/step."""
+    median ms/step and the simulation."""
     cfg = SimConfig(**{"force_mode": "sym", "morton_every": 64, **kw})
     sim = Simulation.from_preset("uniform-sphere", cfg, n=262144, device=dev)
     d0 = sim.diagnostics()
@@ -1495,7 +1657,7 @@ def _sphere_run(dev, tag: str, chunk: int, **kw) -> float:
     check(finite and sim.state.pos_mass.shape == (sim.n_pad, 4), f"{tag}: finite state of shape (n_pad, 4)")
     check(drift <= bound, f"{tag}: energy drift {drift:.3e} <= {bound:.3e}")
     check(mom <= 1e-5, f"{tag}: momentum error {mom:.3e} <= 1e-5")
-    return med / chunk * 1e3
+    return med / chunk * 1e3, sim
 
 
 # Phase 4's and 5's ms/step, printed beside phase 10's.
@@ -1507,7 +1669,7 @@ def phase_exact(dev) -> None:
 
 
 def phase_sym(dev) -> None:
-    MAIN["phase 5"] = _sphere_run(dev, "5 sym", chunk=50)
+    MAIN["phase 5"] = _sphere_run(dev, "5 sym", chunk=50)[0]
 
 
 # ------------------------------------------- the parent's kernels (--parent)
@@ -1589,6 +1751,21 @@ def parent_vjp_sym_hops(pm, abar, eps2: float, b: int) -> torch.Tensor:
     return acc
 
 
+def parent_vjp_sym_diag(pm, abar, eps2: float, b: int) -> torch.Tensor:
+    """The parent's ``vjp_sym_diag`` (this tree's C signature)."""
+    acc = torch.empty((pm.shape[0], 8), dtype=torch.float32, device=pm.device)
+    _parent_call(PARENT["lib"].nb_vjp_sym_diag, pm, abar, acc, pm.shape[0] // b, b, float(eps2))
+    return acc
+
+
+def parent_vjp_full(pm, g: float, abar, eps2: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The parent's ``vjp_full`` (its C signature: no split): ``(pm_bar, gbar)``."""
+    pm_bar = torch.empty_like(pm)
+    gbar = torch.zeros(1, dtype=torch.float64, device=pm.device)
+    _parent_call(PARENT["lib"].nb_vjp_full, pm, abar, pm_bar, gbar, pm.shape[0], float(g), float(eps2))
+    return pm_bar, gbar
+
+
 def parent_force_fast(tgt, src, g: float, eps2: float, diag=cf.SELF_DIAG) -> torch.Tensor:
     """The parent's ``force_fast`` (this tree's C signature and operands:
     the wrapper's limb fragments)."""
@@ -1634,10 +1811,12 @@ def parent_sym_diag_prep(pm, g: float, eps2: float, b: int) -> tuple[torch.Tenso
     return src, acc
 
 
-def parent_gather(grids, c4, fm, grid: int, order: int, periodic: bool) -> torch.Tensor:
-    """The parent's ``mesh_gather`` (its C signature: no block-path counter)."""
+def parent_gather(grids, c4, fm, grid: int, order: int, periodic: bool, sorted_rows: bool = True) -> torch.Tensor:
+    """The parent's ``mesh_gather`` (this tree's C signature, no block-path
+    counter): the kernel ``sorted_rows`` picks."""
     out = torch.empty_like(fm)
-    _parent_call(PARENT["lib"].nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic))
+    _parent_call(PARENT["lib"].nb_mesh_gather, grids, c4, fm, out, c4.shape[0], grid, order, int(periodic),
+                 int(sorted_rows), None)
     return out
 
 
@@ -1691,18 +1870,22 @@ def _bwd_vs_parent(tag: str, got, args: tuple, box: float | None = None, reps: i
                      lambda: parent_short_range_bwd(*args, box=box), reps=reps)
 
 
-def vs_guarded_rsqrt(tag: str, pm, abar, b: int, reps: int) -> None:
-    """With ``--parent``: ``vjp_sym_hops``' two instances timed in turns
-    (guarded, ftz, ftz, guarded; CUDA events, ``reps`` launches each): the
-    one eps2 = 1e-40 selects (``rsqrtf`` with its subnormal guard) and the
-    one the main paths' eps2 selects (the ftz rsqrt, eps2 >= FLT_MIN).
-    The same pairs and instructions but the rsqrt's."""
-    def run(eps2):
-        return lambda: fv.vjp_sym_hops(pm, abar, eps2, b)
-
+def vs_guarded_rsqrt(tag: str, name: str, run, reps: int) -> None:
+    """A VJP kernel's two instances timed in turns (guarded, ftz, ftz,
+    guarded; CUDA events, ``reps`` launches each of ``run(eps2)``): the one
+    eps2 = 1e-40 selects (``rsqrtf`` with its subnormal guard) and the one
+    the main paths' eps2 selects (the ftz rsqrt, eps2 >= FLT_MIN).  The
+    same pairs and instructions but the rsqrt's."""
     t = [cuda_ms(run(e), reps=reps) for e in (1e-40, EPS2, EPS2, 1e-40)]
-    print(f"    {tag} vjp_sym_hops, rsqrtf with its guard (eps2 = 1e-40) beside the ftz rsqrt (eps2 = {EPS2:g}), "
+    print(f"    {tag} {name}, rsqrtf with its guard (eps2 = 1e-40) beside the ftz rsqrt (eps2 = {EPS2:g}), "
           f"in turns: guarded {t[0]:.4f} / {t[3]:.4f} ms, ftz {t[1]:.4f} / {t[2]:.4f} ms", flush=True)
+
+
+def vjp_guarded_rsqrt(tag: str, pm, abar, b: int, reps: int, full_reps: int) -> None:
+    """:func:`vs_guarded_rsqrt` for the three pair kernels of the VJP."""
+    vs_guarded_rsqrt(tag, "vjp_sym_hops", lambda e: lambda: fv.vjp_sym_hops(pm, abar, e, b), reps)
+    vs_guarded_rsqrt(tag, "vjp_sym_diag", lambda e: lambda: fv.vjp_sym_diag(pm, abar, e, b), 20)
+    vs_guarded_rsqrt(tag, "vjp_full", lambda e: lambda: fv.vjp_full(pm, G, abar, e), full_reps)
 
 
 def vs_parent(tag: str, fn, parent_fn, reps: int = 20) -> dict:
@@ -2483,10 +2666,10 @@ def _gather_row(tag: str, grids, c4, fm, grid: int, order: int, periodic: bool, 
     out = {"block_paths": paths.tolist()}
     other = cuda_ms(lambda: mc.gather(grids, c4, fm, grid, order, periodic, not sorted_rows), reps=20)
     if PARENT:
-        _parent_equal(f"{tag}: mesh_gather", got, parent_gather, grids, c4, fm, grid, order, periodic)
+        _parent_equal(f"{tag}: mesh_gather", got, parent_gather, grids, c4, fm, grid, order, periodic, sorted_rows)
         out.update(vs_parent(f"{tag} mesh_gather", lambda: mc.gather(grids, c4, fm, grid, order, periodic,
                                                                      sorted_rows),
-                             lambda: parent_gather(grids, c4, fm, grid, order, periodic)))
+                             lambda: parent_gather(grids, c4, fm, grid, order, periodic, sorted_rows)))
     print(f"  mesh_gather {tag}: runs on the box / global {out['block_paths']}; the "
           f"{'loop alone' if sorted_rows else 'box'} kernel here {other:.4f} ms", flush=True)
     return out
@@ -3009,14 +3192,18 @@ def phase_unfused_checks(dev) -> None:
               f"{tag}: fused_step_exact vs plain accel {ea:.3e} < 1e-5, |dp| {ep:.3e}, |dv| {ev:.3e} <= 1e-6")
 
 
-def phase_sym_yoshida4(dev) -> None:
-    """10b: the unfused sym path at full width with ``integrator="yoshida4"``."""
-    _sphere_run(dev, "10b unfused sym, yoshida4", chunk=20, integrator="yoshida4")
+def phase_sym_yoshida4(dev):
+    """10b: the unfused sym path at full width with ``integrator="yoshida4"``;
+    then (after the counts) a profile of one step, with ``sym_combine``'s
+    device time a launch there, where its inputs come straight from the
+    kernels before it."""
+    _, sim = _sphere_run(dev, "10b unfused sym, yoshida4", chunk=20, integrator="yoshida4")
+    return [("10b yoshida4, 1 step", lambda: sim.run(1, chunk=1), {"per_launch": ("sym_combine",)})]
 
 
 def phase_sym_unfused_verlet(dev) -> None:
     """10b: ``fuse_epilogue=False`` with Verlet, beside phase 5's fused step."""
-    ms = _sphere_run(dev, "10b unfused sym, verlet", chunk=20, fuse_epilogue=False)
+    ms = _sphere_run(dev, "10b unfused sym, verlet", chunk=20, fuse_epilogue=False)[0]
     fused = MAIN.get("phase 5", float("nan"))
     print(f"  unfused {ms:.4f} vs fused (phase 5) {fused:.4f} ms/step: not fusing the epilogue costs "
           f"{ms - fused:.4f} ms/step ({ms / fused - 1:.2%})", flush=True)
@@ -3361,7 +3548,7 @@ def phase_fast_sphere(dev) -> None:
     """11b: bench.py's fast configuration, uniform-sphere N = 262,144,
     ``morton_every=64``, 1 warm and 2 timed chunks of 20 steps, phase 5's
     token."""
-    MAIN["phase 11b"] = _sphere_run(dev, "11b fast", chunk=20, force_mode="fast")
+    MAIN["phase 11b"] = _sphere_run(dev, "11b fast", chunk=20, force_mode="fast")[0]
 
 
 def phase_fast_two_galaxy(dev):
@@ -4394,7 +4581,8 @@ LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": "phase 10e (uncentred sym r
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
     """``run(dev)`` with the counts set to 0 just before and read just
     after; it must launch every kernel of ``kernels_of_path`` and no other.
-    Profiles ``run`` hands back are taken after the counts are read."""
+    What ``run`` hands back runs after the counts are read: a profile
+    (label, fn[, options]) or a plain callable (a timing in turns)."""
     reset_launch_counts()
     profiles = run(dev) or ()
     got = launch_counts()
@@ -4405,7 +4593,11 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
             check(got[name] > 0, f"{path} launched {name} {got[name]} times")
         elif got[name]:
             check(False, f"{path} launched {name}, which is not of this path, {got[name]} times")
-    for label, fn, *opts in profiles:
+    for item in profiles:
+        if callable(item):
+            item()
+            continue
+        label, fn, *opts = item
         profile_window(label, fn, **(opts[0] if opts else {}))
     return got
 
@@ -4433,12 +4625,14 @@ def main() -> int:
                     help="keep phase 7b's frames and checkpoints here (default: a temporary directory)")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: time its splat_resolve, mesh_deposit, mesh_gather, "
-                         "sym_diag_prep, sym_hops, pair_sym, vjp_sym_hops, short_range, short_range_bwd, "
-                         "force_fast, fused_step_fast, force_exact and fused_step_exact beside this tree's, in "
-                         "turns, at 7c's, the deposit's, phase 3's (N = 262,144; vjp_sym_hops also at nt = 157), "
-                         "14c's (524,288 x 524,288), 8b's, 8d's, 9b's, 12b's, 12d's, 13b's, 11b's and 11c's "
-                         "shapes (the exact kernels at 40,192 and 262,144); mesh_gather, sym_diag_prep, "
-                         "short_range, short_range_bwd, the fast and the exact kernels also bit for bit")
+                         "sym_diag_prep, sym_hops, pair_sym, vjp_sym_hops, vjp_sym_diag, vjp_full, short_range, "
+                         "short_range_bwd, force_fast, fused_step_fast, force_exact and fused_step_exact beside "
+                         "this tree's, in turns, at 7c's, the deposit's, phase 3's (N = 262,144; the VJP kernels "
+                         "also at nt = 157), 14c's (524,288 x 524,288), 8b's, 8d's, 9b's, 12b's, 12d's, 13b's, "
+                         "11b's and 11c's shapes (the exact kernels at 40,192 and 262,144), and 6c's gradient "
+                         "with either vjp_full; mesh_gather, sym_diag_prep, short_range, short_range_bwd, the "
+                         "fast and the exact kernels, vjp_sym_diag's ordered loop and vjp_full at S = 1 also "
+                         "bit for bit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False: chip_smoke needs a CUDA card", file=sys.stderr)

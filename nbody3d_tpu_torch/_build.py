@@ -43,7 +43,7 @@ SIGNATURES = {
     "nb_fused_step_exact": [P, P, P, P, P, P, I, I, F, F, F, I, P],
     "nb_force_fast": [P, P, P, P, I, I, F, I, I, I, P],
     "nb_fused_step_fast": [P, P, P, P, P, P, P, I, I, F, F, P],
-    "nb_vjp_full": [P, P, P, P, I, F, F, P],
+    "nb_vjp_full": [P, P, P, P, I, F, F, I, P],
     "nb_vjp_sym_diag": [P, P, P, I, I, F, P],
     "nb_vjp_sym_hops": [P, P, P, I, I, I, I, I, I, F, P],
     "nb_vjp_combine": [P, P, P, P, I, F, P],

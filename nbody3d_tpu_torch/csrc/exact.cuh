@@ -1,5 +1,7 @@
 // The source loop and the combine that force_exact.cu and fused_exact.cu
-// share, so the two kernels' forces are the same bits.
+// share, so the two kernels' forces are the same bits.  vjp_full.cu takes
+// the same schedule (rows a thread, tiles, ranges, the cluster combine and
+// launch) with the VJP pair in its own loop.
 //
 // What it computes, for each target row i of a block and the sources j of
 // its range (both [x, y, z, m] f32, G folded into the source mass as the
@@ -142,13 +144,14 @@ __device__ __forceinline__ void pull_share(const float4* __restrict__ rows, int 
                   me, acc, tile);
 }
 
-// Hands each row of the block at row0 below n, with its total force, to
-// emit(row, a) once.  split == 1: each thread its own rows from `acc`.
+// Hands each row of the block at row0 below n, with its total, to
+// emit(row, total) once.  split == 1: each thread its own rows from `acc`.
 // Otherwise the block is rank `rank` of a cluster of `split`: every CTA
 // writes its partials to `part` (kBlockRows float4 of shared memory), and
-// CTA r sums a share of the rows over the S ranks' `part` in rank order.
+// CTA r sums a share of the rows over the S ranks' `part` in rank order,
+// lane by lane.  vjp_full combines [x̄, m̄] this way.
 template <class Emit>
-__device__ __forceinline__ void finish(const float3 (&acc)[kRows], int row0, int n, int rank, int split,
+__device__ __forceinline__ void finish(const float4 (&acc)[kRows], int row0, int n, int rank, int split,
                                        float4* part, Emit emit) {
     const int t = threadIdx.x;
     if (split == 1) {
@@ -160,7 +163,7 @@ __device__ __forceinline__ void finish(const float3 (&acc)[kRows], int row0, int
     namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) part[t + r * kThreads] = make_float4(acc[r].x, acc[r].y, acc[r].z, 0.f);
+    for (int r = 0; r < kRows; ++r) part[t + r * kThreads] = acc[r];
     cluster.sync();
     const int share = (kBlockRows + split - 1) / split;
     for (int i = t; i < share; i += kThreads) {
@@ -172,11 +175,22 @@ __device__ __forceinline__ void finish(const float3 (&acc)[kRows], int row0, int
             s.x = __fadd_rn(s.x, p.x);
             s.y = __fadd_rn(s.y, p.y);
             s.z = __fadd_rn(s.z, p.z);
+            s.w = __fadd_rn(s.w, p.w);
         }
-        emit(row0 + local, make_float3(s.x, s.y, s.z));
+        emit(row0 + local, s);
     }
     // No CTA leaves while another may still read its partials.
     cluster.sync();
+}
+
+// finish for the force: the rows' accelerations, w lane 0.
+template <class Emit>
+__device__ __forceinline__ void finish(const float3 (&acc)[kRows], int row0, int n, int rank, int split,
+                                       float4* part, Emit emit) {
+    float4 a[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) a[r] = make_float4(acc[r].x, acc[r].y, acc[r].z, 0.f);
+    finish(a, row0, n, rank, split, part, [&](int row, float4 f) { emit(row, make_float3(f.x, f.y, f.z)); });
 }
 
 // Launches kernel over n rows with `split` CTAs a row block, a cluster of

@@ -78,6 +78,8 @@ __device__ __forceinline__ float3 in_tile_pull(const float4* tile, int b_rt, int
 //   φ_k  +=  w m_j (d.A_k)        φ_j  += -w m_k (d.A_j)     Ḡ = Σ φ
 //   φ_k + φ_j = -w (d.g)          (phi: one product for the Newton-3
 //                                  kernel, which needs the pair's sum alone)
+//   (phi_s: φ_j alone, for the in-tile Newton-3 kernel, whose rows keep
+//   their own φ)
 //
 // (the math of nbody3d_tpu/ops/force_vjp.py's docstring, with the x̄ term
 // accumulated per pair rather than folded through row sums).  d.g is
@@ -89,6 +91,7 @@ struct VjpPair {
     float mbar_t;      // m̄ term of the target
     float mbar_s;      // m̄ term of the source
     float phi_t;       // φ term of the target
+    float phi_s;       // φ term of the source
     float phi;         // φ term of the target and the source, -w (d.g)
 };
 
@@ -119,6 +122,7 @@ __device__ __forceinline__ VjpPair vjp_pair(float4 xk, float3 ak, float4 xj, flo
     e.mbar_t = -(w * p);
     e.mbar_s = w * q;
     e.phi_t = w * xj.w * q;
+    e.phi_s = -(w * xk.w * p);
     e.phi = -(w * dg);
     return e;
 }

@@ -17,8 +17,8 @@ cancels only to f32 rounding leaves garbage on heavy bodies.
 Four kernels (``csrc/``; the per-pair terms in ``csrc/pair.cuh``):
 
 ==================  ====================================================
-``vjp_full``        every target against every source, no atomics
-``vjp_sym_diag``    Newton-3 schedule 1: the ordered pairs of each tile
+``vjp_full``        every target against every source, no atomics on rows
+``vjp_sym_diag``    Newton-3 schedule 1: the pairs inside each tile
 ``vjp_sym_hops``    2: off-diagonal tile pairs, each pair once, both rows
 ``vjp_combine``     3: sum the two, scale by G, reduce Ḡ in double
 ==================  ====================================================
@@ -40,7 +40,9 @@ from __future__ import annotations
 
 import torch
 
-from nbody3d_tpu_torch.ops.launch import check_rows, check_tile, hop_blocks, launch, lib, split_hops
+from nbody3d_tpu_torch.ops.launch import (
+    check_rows, check_tile, exact_split, hop_blocks, launch, lib, sm_count, split_hops,
+)
 
 Tensors2 = tuple[torch.Tensor, torch.Tensor]
 
@@ -129,11 +131,12 @@ def vjp_full(pos_mass: torch.Tensor, G: float, abar: torch.Tensor, eps2: float) 
         raise ValueError("eps2 must be > 0")
     if dev.type == "cpu":
         return vjp_full_plain(pos_mass, G, abar, eps2)
+    n = pos_mass.shape[0]
     pm_bar = torch.empty_like(pos_mass)
     gbar = torch.zeros(1, dtype=torch.float64, device=dev)
     launch(
         "vjp_full", dev, lib().nb_vjp_full,
-        pos_mass, abar, pm_bar, gbar, pos_mass.shape[0], float(G), float(eps2),
+        pos_mass, abar, pm_bar, gbar, n, float(G), float(eps2), exact_split(n, n, sm_count(dev.index)),
     )
     return pm_bar, gbar
 

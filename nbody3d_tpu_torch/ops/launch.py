@@ -165,18 +165,19 @@ EXACT_MAX_SPLIT = 8
 # CTAs an SM at which the row blocks alone fill the card: chosen on an H100
 # (PERF.md section 6), where two-galaxy's 157 row blocks ran fastest
 # at S = 6 of 1-8 (942 CTAs, 7.1 an SM) and the sphere's 1,024 (7.8 an SM)
-# leave S = 1, bit for bit the first design.
+# leave S = 1, bit for bit the first design.  vjp_full (exact.cuh's
+# schedule with the VJP pair) also ran fastest at S = 6 there.
 EXACT_FILL = 7
 H100_SMS = 132
 
 
 def exact_split(n_t: int, n_s: int, sms: int = H100_SMS) -> int:
     """CTAs S that take each block of ``EXACT_ROWS`` target rows of a
-    ``force_exact`` or ``fused_step_exact`` launch, each over a contiguous
-    range of the ``EXACT_TILE``-source tiles (:func:`source_ranges`): 1
-    where the row blocks alone give ``EXACT_FILL`` CTAs an SM of ``sms``,
-    else the least S that does, at most ``EXACT_MAX_SPLIT`` and the tile
-    count."""
+    ``force_exact``, ``fused_step_exact`` or ``vjp_full`` launch, each over
+    a contiguous range of the ``EXACT_TILE``-source tiles
+    (:func:`source_ranges`): 1 where the row blocks alone give
+    ``EXACT_FILL`` CTAs an SM of ``sms``, else the least S that does, at
+    most ``EXACT_MAX_SPLIT`` and the tile count."""
     blocks = -(-n_t // EXACT_ROWS)
     cap = max(1, min(EXACT_MAX_SPLIT, -(-n_s // EXACT_TILE)))
     return min(cap, -(-EXACT_FILL * sms // blocks))
