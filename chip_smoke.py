@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a, 15a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
     python3 chip_smoke.py --parent DIR    # also time a parent checkout's redesigned kernels
 
@@ -287,15 +287,39 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    its twin at 131,072 x 131,072 (the twin's one run by host clock); (d) at
    N = 8,192 an explicit 4-chunk composition's 5-step rollout gradient
    against ``backend="jnp"``'s, by v0, dt and G, rtol 2e-3.
+15. the cosmological workflow (``cosmology="eds"|"lcdm"``: the comoving
+   kick-drift of ``ops/expansion.py`` on the periodic mesh force; the
+   ``cosmo`` preset; ``analysis.py``): (a, after 14a) a Zel'dovich box of
+   32^3 bodies (box 10, grid 32, k = 128, no tile overflow): for EdS and
+   ΛCDM (Ω_Λ = 0.7) × PM and P3M, 5 comoving steps by the kernel route
+   against ``backend="jnp"`` (positions and momenta rtol 1e-4, atol 1e-5 of
+   the max); tests/test_expansion.py's EdS growth gate on the kernels (P3M,
+   amp 0.02, a = 1 to 2.25 in 70 steps, the low-k band power within 8% of
+   a², the comoving momentum < 1e-4 of Σ|m·w|); ``power_spectrum`` by the
+   kernel route against its twin (mode counts bit-equal, P rtol 1e-4) at
+   grids 32 and 64; the streamed FoF against the direct one
+   (tests/test_analysis.py's scene and bounds); (b) the ``cosmo`` preset at
+   128^3 = 2,097,152 bodies in 12b's box (grid 128, k = 32, dt = t_i/100):
+   EdS P3M, 30 warm steps (the momentum gate) and 2 timed chunks of 10, its
+   ms/step beside 12b's; ΛCDM P3M one timed chunk of 10; EdS PM 5 timed
+   chunks of 50 beside 12d's; each with a profiled step and the device
+   launches a step against the plain periodic step on the same state, by
+   kernel; after the windows the inherited ``nbr_k`` fault at the EdS state,
+   reported as 12b's and not gated; (c) the analysis of the EdS end state
+   on the card, each timed on the host clock ending in a synchronize:
+   ``summary`` (its device-to-host copies counted by the profiler: 1),
+   ``power_spectrum`` at grid 128 (one ``mesh_deposit``, against its twin),
+   the direct and the streamed FoF (streamed within 1e-3 of N of the direct
+   one's linked bodies) and ``group_catalog``.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice), 13c and 14b (the main paths) and 6c, 6d, 8c, 8e, 9d, 10d,
-10e, 11d, 12c, 13d and 14d each
+12d, 13b (twice), 13c, 14b and 15b (three times) (the main paths) and 6c,
+6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d and 15c each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 10b (yoshida4), 12b (each), 12d and 14b and one profiled gradient rollout of 9b, 9c,
+step of 8b, 8d, 10b (yoshida4), 12b (each), 12d, 14b and 15b (each) and one profiled gradient rollout of 9b, 9c,
 13b (each) and 13c (device busy time, idle share, largest kernels; for the
 gradients the share of each stage; 6a's ``vjp_combine`` and 10b's
 ``sym_combine`` device time a launch, their inputs as their paths leave
@@ -303,7 +327,7 @@ them) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
 and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit``,
 ``mesh_gather`` and ``short_range_bwd`` carry a ``periodic`` entry with
-12b's, 12d's, 13b's and 13c's launches and the periodic form's numbers at
+12b's, 12d's, 13b's, 13c's and 15b's launches and the periodic form's numbers at
 12b's shape (``short_range_bwd``: 13b's);
 ``bound_ms`` from this run's shapes and the operation counts in each
 kernel's source note); the last is the ``{"ok": true, "device": ...}``
@@ -328,7 +352,7 @@ import time
 import numpy as np
 import torch
 
-from nbody3d_tpu_torch import SimConfig, Simulation, _build, cli, gather_checks, pair_checks
+from nbody3d_tpu_torch import SimConfig, Simulation, _build, analysis, cli, gather_checks, pair_checks
 from nbody3d_tpu_torch.models.registry import make_preset
 from nbody3d_tpu_torch.ops import cuda_force as cf
 from nbody3d_tpu_torch.ops import ewald
@@ -1425,6 +1449,20 @@ def _stage(label: str) -> str:
     return next((stage for key, stage in STAGES if key in low), "elementwise and other torch ops")
 
 
+def _busy_us(events) -> float:
+    """The device's busy time in a trace: the union of its events' intervals."""
+    if not events:
+        return 0.0
+    spans = sorted((s, e) for _, s, e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return busy + hi - lo
+
+
 def profile_window(label: str, fn, tries: int = 3, stages: bool = False, per_launch: tuple[str, ...] = ()) -> None:
     """Host wall time, device busy time (the union of the intervals of the
     device's kernels and copies), the idle share 1 - busy / wall and the
@@ -1442,14 +1480,7 @@ def profile_window(label: str, fn, tries: int = 3, stages: bool = False, per_lau
         print(f"  profile {label}: no trace in {tries} held every kernel launch; "
               "device busy time not measured", flush=True)
         return
-    spans = sorted((s, e) for _, s, e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    busy += hi - lo
+    busy = _busy_us(events)
     per_kernel: dict[str, float] = {}
     for name, s, e in events:
         per_kernel[name] = per_kernel.get(name, 0.0) + e - s
@@ -3740,6 +3771,7 @@ SR_MUFU_PERIODIC = 3
 BOX_N = 2_097_152
 BOX_L = 10.0
 PERIODIC_SIMS: dict[str, Simulation] = {}  # 12b's and 12d's simulations, for the checks after their windows
+PERIODIC_MS: dict[str, float] = {}  # 12b's and 12d's ms/step, beside 15b's comoving cells
 
 
 def _box_rows(n: int, n_pad: int, dev, seed: int = 0) -> torch.Tensor:
@@ -3841,9 +3873,9 @@ def _box_run(dev, tag: str, method: str, chunks: int, chunk: int, **cfg):
     torch.cuda.reset_peak_memory_stats()
     config = SimConfig(method=method, pm_grid=128, p3m_nbr_k=32, boundary="periodic", box_size=BOX_L, **cfg)
     sim = Simulation.from_preset("uniform-box", config, n=BOX_N, box_size=BOX_L, device=dev)
-    _mesh_run(sim, f"{tag} uniform-box N={sim.n_real} box {BOX_L:g} grid 128"
-              + (" k 32" if method == "p3m" else "") + (" interlaced" if cfg.get("mesh_interlace") else ""),
-              chunks=chunks, chunk=chunk)
+    PERIODIC_MS[tag] = _mesh_run(sim, f"{tag} uniform-box N={sim.n_real} box {BOX_L:g} grid 128"
+                                 + (" k 32" if method == "p3m" else "")
+                                 + (" interlaced" if cfg.get("mesh_interlace") else ""), chunks=chunks, chunk=chunk)
     PERIODIC_SIMS[tag] = sim
     return [(f"{tag} one step", lambda: sim.run(1, chunk=1))]
 
@@ -3874,7 +3906,7 @@ def _ewald_errors(pos_mass: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor,
     return (torch.linalg.norm(acc.double() - ref, dim=1) / torch.linalg.norm(ref, dim=1).clamp(min=1e-300)).cpu().numpy()
 
 
-def _box_fault(sim: Simulation, samples: int = 2048) -> None:
+def _box_fault(sim: Simulation, samples: int = 2048, label: str = "12b") -> None:
     """12b's inherited ``nbr_k`` fault, reported and not gated: the force
     of ``samples`` sampled bodies against the f64 Ewald oracle (its split
     width L/16 and the minimum image alone: past it erfc(5.66) = 1.6e-15),
@@ -3892,12 +3924,12 @@ def _box_fault(sim: Simulation, samples: int = 2048) -> None:
     ov = p3m.p3m_neighbor_overflow(pos_mass, grid=cfg.pm_grid, n_real=sim.n_real, nbr_k=cfg.p3m_nbr_k,
                                    box_size=BOX_L)
     q = torch.quantile(within, torch.tensor([0.0, 0.5, 0.99, 1.0], device=within.device)).tolist()
-    print(f"[12b inherited nbr_k fault{' interlaced' if cfg.mesh_interlace else ''}] N={sim.n_real}, {samples} "
+    print(f"[{label} inherited nbr_k fault{' interlaced' if cfg.mesh_interlace else ''}] N={sim.n_real}, {samples} "
           f"sampled bodies against the f64 Ewald oracle ({oracle_s:.1f} s): median {np.median(rel):.3e}, p99 "
           f"{np.percentile(rel, 99):.3e}, max {rel.max():.3e}; tile overflow {ov} of {within.numel()} at k = "
           f"{cfg.p3m_nbr_k}; tiles within rcut min {q[0]:.0f}, median {q[1]:.0f}, p99 {q[2]:.0f}, max {q[3]:.0f}",
           flush=True)
-    check(bool(np.isfinite(rel).all()), "[12b] the sampled forces are finite (accuracy not gated: ROADMAP queue 3)")
+    check(bool(np.isfinite(rel).all()), f"[{label}] the sampled forces are finite (accuracy not gated: ROADMAP queue 3)")
 
 
 def phase_periodic_times(dev) -> dict[str, dict]:
@@ -4505,6 +4537,292 @@ def phase_macro_grad_crosscheck(dev, n: int = 8192) -> None:
           f"d/dG {float(gg):.6e} (rel err {e_g:.3e}) vs jnp route, rtol 2e-3")
 
 
+# ------------------------------------------------ the cosmological workflow
+# Phase 15: the comoving step of ops/expansion.py on the periodic
+# mesh force, the cosmo preset, and the analysis layer (analysis.py).
+COSMO_L = BOX_L  # 15b's box: p3m_bench's periodic box (12b's N, box and grid)
+COSMO_N1 = 128  # 128^3 = 2,097,152 bodies
+COSMO_SIMS: dict[str, Simulation] = {}  # 15b's simulations, for 15c and the launch counts after the windows
+
+
+def _eds_t_i(mass: float, G: float, L: float) -> float:
+    """EdS ``t_i = 2 / (3 H_i)``, ``H_i² = 8πGρ̄/3``, ``ρ̄ = mass / L³``
+    (the background's start)."""
+    return 2.0 / (3.0 * np.sqrt(8.0 * np.pi / 3.0 * G * mass / L**3))
+
+
+def _cosmo_config(method: str, cosmology: str, grid: int, nbr_k: int, L: float, **kw) -> SimConfig:
+    return SimConfig(method=method, pm_grid=grid, p3m_nbr_k=nbr_k, boundary="periodic", box_size=L,
+                     cosmology=cosmology, **kw)
+
+
+def _band_power(pos_mass: torch.Tensor, grid: int, L: float, k_max: float) -> float:
+    """tests/test_expansion.py's band power: the mode-weighted mean P(k)
+    over the bins with more than 10 modes below ``k_max``."""
+    k, p, c = analysis.power_spectrum(pos_mass, grid=grid, box_size=L)
+    sel = (c > 10) & (k < k_max)
+    return float(torch.sum(p[sel] * c[sel]) / torch.sum(c[sel]))
+
+
+@contextlib.contextmanager
+def plain_deposit():
+    """``mesh_cuda.deposit`` is its plain twin while the block runs (the
+    power spectrum's twin on the card)."""
+    saved = mc.deposit
+    mc.deposit = lambda c4, fm, grid, order, periodic=False, **kw: mc.deposit_plain(c4, fm, grid, order, periodic)
+    try:
+        yield
+    finally:
+        mc.deposit = saved
+
+
+def _power_spectrum_agrees(tag: str, pos_mass: torch.Tensor, grid: int, L: float) -> None:
+    """``power_spectrum`` by the kernel route (one ``mesh_deposit``) against
+    the plain twin on the same state: mode counts bit-equal, P within rtol
+    1e-4 and 1e-6 of the largest bin (f32 rounding of the deposit's sums)."""
+    before = launch_counts()["mesh_deposit"]
+    k, p, c = analysis.power_spectrum(pos_mass, grid=grid, box_size=L)
+    launched = launch_counts()["mesh_deposit"] - before
+    with plain_deposit():
+        k2, p2, c2 = analysis.power_spectrum(pos_mass, grid=grid, box_size=L)
+    excess = float(((p - p2).abs() - 1e-4 * p2.abs()).max())
+    check(launched == 1 and torch.equal(c, c2) and torch.equal(k, k2) and excess <= 1e-6 * float(p2.abs().max())
+          and bool(torch.isfinite(p).all()),
+          f"{tag}: power_spectrum grid {grid} kernel route ({launched} mesh_deposit launch) vs plain twin: mode "
+          f"counts bit-equal ({int(c.sum())} modes), P worst |diff| - 1e-4|ref| {excess:.3e} <= 1e-6 of max "
+          f"{float(p2.abs().max()):.4e}")
+
+
+def phase_cosmo_checks(dev, n1: int = 32) -> None:
+    """15a: at a small shape.  A Zel'dovich box of 32^3 bodies (box 10,
+    grid 32, k = 128: no tile overflows, so the inherited nbr_k fault stays
+    out): for EdS and ΛCDM (Ω_Λ = 0.7) × PM and P3M, 5 comoving steps by the
+    kernel route against ``backend="jnp"`` on the card (positions and
+    momenta rtol 1e-4, atol 1e-5 of the max); tests/test_expansion.py's EdS
+    growth gate on the card's kernels (P3M, amp 0.02, a = 1 to 2.25 in 70
+    steps: the low-k band power (k < 0.5π·16/L) within 8% of a², the
+    comoving momentum < 1e-4 of Σ|m·w|); ``power_spectrum`` by the kernel
+    route against its twin (grids 32 and 64); the streamed FoF against the
+    direct one as tests/test_analysis.py::test_fof_streamed_matches_exact
+    holds them."""
+    L, grid, nbr_k = 10.0, n1, 128
+    n = n1**3
+    print(f"[15a cosmo] comoving steps, growth gate, P(k) and FoF at {n1}^3 = {n:,} bodies, box {L:g}, grid {grid}, "
+          f"k {nbr_k}", flush=True)
+    for cosmology in ("eds", "lcdm"):
+        pm_np, vel_np, _ = make_preset("cosmo", seed=11, G=G, n=n, box_size=L, amp=0.02, velocity=cosmology)
+        ps, vel = torch.from_numpy(pm_np).to(dev), torch.from_numpy(vel_np).to(dev)
+        ov = p3m.p3m_neighbor_overflow(ps, grid=grid, nbr_k=nbr_k, box_size=L)
+        dt = 0.04 * _eds_t_i(float(pm_np[:, 3].sum()), G, L)
+        for method in ("pm", "p3m"):
+            cfg = _cosmo_config(method, cosmology, grid, nbr_k, L, G=G)
+            states = {}
+            for route, c in (("kernels", cfg), ("jnp", cfg.replace(backend="jnp"))):
+                step = make_step_fn(c, n, n, dev)
+                st = SimState(ps.clone(), vel.clone(), torch.zeros_like(ps), 0)
+                for _ in range(5):
+                    st = step(st, dt, G)
+                states[route] = st
+            torch.cuda.synchronize()
+            moved = float((states["kernels"].pos_mass[:, :3] - ps[:, :3]).abs().max())
+            for what, a, b in (("positions", states["kernels"].pos_mass, states["jnp"].pos_mass),
+                               ("momenta", states["kernels"].vel, states["jnp"].vel)):
+                a, b = a[:, :3], b[:, :3]
+                scale = float(b.abs().max())
+                excess = float(((a - b).abs() - 1e-4 * b.abs()).max())
+                check(excess <= 1e-5 * scale and bool(torch.isfinite(a).all()),
+                      f"[15a cosmo route] {cosmology} {method} N={n} (overflow {ov}), 5 steps of dt = 0.04 t_i "
+                      f"(moved up to {moved:.3e}): kernel route vs jnp route, {what}: worst |diff| - 1e-4|ref| = "
+                      f"{excess:.3e} <= {1e-5 * scale:.3e}")
+    check(ov == 0, f"[15a cosmo] tile overflow at k = {nbr_k}: {ov} = 0")
+
+    # tests/test_expansion.py::test_eds_linear_growth_matches_a_squared at 32^3.
+    pm_np, vel_np, _ = make_preset("cosmo", seed=11, G=G, n=n, box_size=L, amp=0.02, velocity="eds")
+    t_i, a_end, n_steps = _eds_t_i(float(pm_np[:, 3].sum()), G, L), 2.25, 70
+    dt = t_i * (a_end**1.5 - 1.0) / n_steps
+    sim = Simulation(_cosmo_config("p3m", "eds", grid, nbr_k, L, G=G, dt=dt), pm_np, vel_np, device=dev)
+    bands = {"low-k band k < 0.5π·16/L": 0.5 * np.pi * 16 / L, f"half Nyquist k < 0.5π·{n1}/L": 0.5 * np.pi * n1 / L}
+    pm0 = torch.from_numpy(pm_np).to(dev)
+    p0 = {b: _band_power(pm0, grid, L, k_max) for b, k_max in bands.items()}
+    t0 = time.perf_counter()
+    sim.run(n_steps, chunk=n_steps)
+    run_s = time.perf_counter() - t0
+    ratios = {b: _band_power(sim.state.pos_mass, grid, L, k_max) / p0[b] for b, k_max in bands.items()}
+    w = sim.state.vel[:, :3].double() * pm0[:, 3:4].double()
+    mom = float(w.sum(dim=0).norm() / w.abs().sum())
+    low = next(iter(ratios))
+    print(f"[15a cosmo growth] EdS P3M N={n}, {n_steps} steps ({run_s:.3f} s), a = {sim.scale_factor:.6f}: band power "
+          "grew " + ", ".join(f"{r:.4f}× ({b})" for b, r in ratios.items()) + f" against a² = {a_end**2:.4f}",
+          flush=True)
+    check(abs(sim.scale_factor - a_end) < 1e-5 and abs(ratios[low] / a_end**2 - 1.0) < 0.08,
+          f"[15a cosmo growth] {low}: {ratios[low]:.4f} within 8% of a² = {a_end**2:.4f} "
+          f"({ratios[low] / a_end**2 - 1:+.4f})")
+    check(mom < 1e-4, f"[15a cosmo growth] comoving momentum |Σ m w| {mom:.3e} < 1e-4 of Σ|m w|")
+    for g in (grid, 2 * grid):
+        _power_spectrum_agrees("[15a cosmo P(k)]", sim.state.pos_mass, g, L)
+
+    # tests/test_analysis.py::test_fof_streamed_matches_exact on the card.
+    rng = np.random.default_rng(7)
+    centers = rng.uniform(-4, 4, size=(6, 3))
+    pts = np.concatenate([c + rng.normal(scale=0.02, size=(50, 3)) for c in centers] + [rng.uniform(-6, 6, (40, 3))])
+    pm = np.concatenate([pts, rng.uniform(1, 50, size=(len(pts), 1))], axis=1).astype(np.float32)
+    labels_e, _ = analysis.fof_groups(pm, 0.08)
+    labels_s, _, pm_q = analysis.fof_groups_streamed(torch.from_numpy(pm).to(dev), 0.08)
+
+    def parts(labels):
+        groups = {}
+        for i, lab in enumerate(labels):
+            groups.setdefault(int(lab), set()).add(i)
+        return sorted(map(frozenset, groups.values()), key=min)
+
+    ext = pts.max(0) - pts.min(0)
+    cat_e = analysis.group_catalog(pm, np.zeros_like(pm), labels_e, min_size=20)
+    cat_s = analysis.group_catalog(pm_q, None, labels_s, min_size=20)
+    check(parts(labels_e) == parts(labels_s) and np.max(np.abs(pm_q[:, :3] - pm[:, :3])) <= ext.max() / (1 << 21)
+          and np.allclose(pm_q[:, 3], pm[:, 3], rtol=1e-3) and [g["n"] for g in cat_e] == [g["n"] for g in cat_s]
+          and np.allclose([g["mass"] for g in cat_e], [g["mass"] for g in cat_s], rtol=1e-3)
+          and "vcom" not in cat_s[0] and "vcom" in cat_e[0],
+          f"[15a cosmo FoF] streamed (quantized on the card) vs direct: the same partition ({len(parts(labels_e))} "
+          f"groups, {len(cat_e)} of >= 20), positions within extent/2^21, masses and catalog masses rtol 1e-3")
+
+
+def _cosmo_run(dev, tag: str, method: str, cosmology: str, chunks: int, chunk: int, warm: int, base: str):
+    """The ``cosmo`` preset at 128^3 in 15b's box through ``Simulation``
+    (dt = t_i / 100: a step moves a by ~0.7%), ``warm`` steps with the
+    momentum gate and the timed chunks (:func:`_mesh_run`), its ms/step
+    beside ``base``'s from this call."""
+    torch.cuda.reset_peak_memory_stats()
+    n = COSMO_N1**3
+    cfg = _cosmo_config(method, cosmology, 128, 32, COSMO_L, G=G)
+    sim = Simulation.from_preset("cosmo", cfg, n=n, device=dev, box_size=COSMO_L, velocity=cosmology)
+    sim.dt = _eds_t_i(float(sim.state.pos_mass[:, 3].double().sum()), G, COSMO_L) / 100  # before any step
+    ms = _mesh_run(sim, f"{tag} cosmo N={sim.n_real} box {COSMO_L:g} grid 128" + (" k 32" if method == "p3m" else ""),
+                   chunks=chunks, chunk=chunk, warm=warm)
+    ms_base = PERIODIC_MS.get(base)
+    print(f"{tag}: comoving {ms:.4f} ms/step, a = {sim.scale_factor:.6f} at step {sim.step_count}; {base} (the "
+          f"plain periodic step, this call) {ms_base:.4f} ms/step: {ms - ms_base:+.4f} ms/step", flush=True)
+    COSMO_SIMS[tag] = sim
+    return [(f"{tag} one step", lambda: sim.run(1, chunk=1)), functools.partial(_launches_a_step, tag, sim)]
+
+
+def _launches_a_step(tag: str, sim: Simulation, steps: int = 3) -> None:
+    """The comoving step against the plain periodic step
+    (``cosmology="none"``, the frame-shifted Verlet) on copies of the same
+    state: each step function warmed by one step (the comoving step copies
+    its constants to the card once), then ``steps`` steps in one profiled
+    chunk, in turns twice: the device's launches a step, in all and by
+    kernel, its busy time and the host's wall time a step."""
+    from nbody3d_tpu_torch.ops.step import run_chunk
+
+    def state():
+        st = sim.state
+        return SimState(st.pos_mass.clone(), st.vel.clone(), st.accel.clone(), st.step)
+
+    steps_fn = {"comoving": sim.config, "plain periodic": sim.config.replace(cosmology="none")}
+    steps_fn = {name: make_step_fn(cfg, sim.n_pad, sim.n_real, sim.device) for name, cfg in steps_fn.items()}
+    per_step: dict[str, list] = {name: [] for name in steps_fn}
+    for name, step in [*steps_fn.items(), *reversed(steps_fn.items())]:
+        run_chunk(step, state(), sim.dt, sim.G, 1)
+        wall_us, events, complete = _profiled(lambda: run_chunk(step, state(), sim.dt, sim.G, steps))
+        counts: dict[str, int] = {}
+        for label, _, _ in events:
+            counts[label] = counts.get(label, 0) + 1
+        per_step[name].append((len(events) / steps, counts, complete, _busy_us(events) / steps / 1e3,
+                               wall_us / steps / 1e3))
+    (n_c, c_c, ok_c, busy_c, _), (n_p, c_p, ok_p, busy_p, _) = per_step["comoving"][0], per_step["plain periodic"][0]
+    extra = {k: (c_c.get(k, 0) - c_p.get(k, 0)) / steps for k in set(c_c) | set(c_p) if c_c.get(k, 0) != c_p.get(k, 0)}
+    walls = {name: [round(r[4], 4) for r in runs] for name, runs in per_step.items()}
+    print(f"  launches a step {tag}: comoving {n_c:.2f}, plain periodic step {n_p:.2f} on the same state: "
+          f"{n_c - n_p:+.2f} a step (traces complete: {ok_c}, {ok_p}); device busy {busy_c:.4f} against {busy_p:.4f} "
+          f"ms a step, wall ms a step in turns {json.dumps(walls)}; the difference by kernel: "
+          + json.dumps({k: round(v, 2) for k, v in sorted(extra.items(), key=lambda kv: -kv[1])})
+          + "; by kernel, comoving: "
+          + json.dumps({k: round(v / steps, 2) for k, v in sorted(c_c.items(), key=lambda kv: -kv[1])}), flush=True)
+
+
+def phase_cosmo_p3m(dev):
+    """15b: the comoving EdS P3M cell at 12b's N, box, grid and k: 30 warm
+    steps and 2 timed chunks of 10, beside 12b."""
+    return _cosmo_run(dev, "[15b cosmo eds p3m]", "p3m", "eds", 2, 10, 30, "[12b periodic p3m]")
+
+
+def phase_cosmo_p3m_lcdm(dev):
+    """15b: the same with ΛCDM (Ω_Λ = 0.7), one warm step and one timed
+    chunk of 10."""
+    return _cosmo_run(dev, "[15b cosmo lcdm p3m]", "p3m", "lcdm", 1, 10, 1, "[12b periodic p3m]")
+
+
+def phase_cosmo_pm(dev):
+    """15b: the comoving EdS PM cell at 12d's shape, 5 timed chunks of 50,
+    beside 12d."""
+    return _cosmo_run(dev, "[15b cosmo eds pm]", "pm", "eds", 5, 50, 30, "[12d periodic pm]")
+
+
+def phase_cosmo_fault(dev) -> None:
+    """After the windows: the inherited nbr_k fault at 15b's comoving state,
+    reported as 12b's and not gated (ROADMAP queue 3)."""
+    _box_fault(COSMO_SIMS["[15b cosmo eds p3m]"], label="15b cosmo")
+    for tag in ("[15b cosmo lcdm p3m]", "[15b cosmo eds pm]"):
+        del COSMO_SIMS[tag]
+
+
+def _host_ms(fn):
+    """``(fn(), host ms)`` on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_cosmo_analysis(dev) -> None:
+    """15c: the analysis of 15b's EdS P3M end state on the card, each on the
+    host clock ending in a synchronize: ``summary`` (structural, no O(N²)
+    potential; its device-to-host copies counted by the profiler, which
+    must be 1), ``power_spectrum`` at grid 128 (its one ``mesh_deposit``
+    launch), the direct and the streamed FoF on the 2M bodies, and
+    ``group_catalog``."""
+    sim = COSMO_SIMS.pop("[15b cosmo eds p3m]")
+    n, L = sim.n_real, COSMO_L
+    pm_d, vel_d = sim.state.pos_mass[:n], sim.state.vel[:n]
+    print(f"[15c cosmo analysis] 15b's EdS P3M end state, N={n}, a = {sim.scale_factor:.6f}", flush=True)
+    summarize = functools.partial(analysis.summary, pm_d, vel_d, sim.G, eps2=sim.config.eps2, potential=False)
+    summarize()  # warm
+    s, summary_ms = _host_ms(summarize)
+    _, events, complete = _profiled(summarize)
+    d2h = sum("DtoH" in label for label, _, _ in events)
+    check(d2h == 1 and s["n_massive"] == n and all(np.isfinite(s[k]).all() for k in ("com", "velocity_dispersion")),
+          f"[15c summary] {summary_ms:.3f} ms, {d2h} device-to-host copy (profiler, trace complete {complete}) == 1; "
+          f"n_massive {s['n_massive']}, r50 {s['lagrangian_radii']['r50']:.6g}, total mass {s['total_mass']:.6e}")
+    before = launch_counts()["mesh_deposit"]
+    (k, p, c), ps_ms = _host_ms(lambda: analysis.power_spectrum(pm_d, grid=128, box_size=L))
+    launched = launch_counts()["mesh_deposit"] - before
+    shot = float(analysis.shot_noise(pm_d, L**3))
+    check(launched == 1 and bool(torch.isfinite(p).all()) and int(c.sum()) > 0,
+          f"[15c power_spectrum] grid 128: {ps_ms:.3f} ms, {launched} mesh_deposit launch, {int(c.sum())} modes in "
+          f"{c.numel()} bins; P(k={float(k[1]):.4g}) = {float(p[1]):.4e}, P(k={float(k[-1]):.4g}) = "
+          f"{float(p[-1]):.4e}, shot noise {shot:.4e}")
+    _power_spectrum_agrees("[15c power_spectrum]", pm_d, 128, L)
+
+    (pm_h, vel_h), fetch_ms = _host_ms(lambda: (pm_d.cpu().numpy(), vel_d.cpu().numpy()))
+    (labels, ll), fof_ms = _host_ms(lambda: analysis.fof_groups(pm_h, box_size=L))
+    (labels_s, ll_s, pm_q), stream_ms = _host_ms(lambda: analysis.fof_groups_streamed(pm_d, box_size=L))
+    cat, cat_ms = _host_ms(lambda: analysis.group_catalog(pm_h, vel_h, labels, min_size=20, box_size=L))
+    cat_s = analysis.group_catalog(pm_q, None, labels_s, min_size=20, box_size=L)
+
+    def linked(lab):
+        return int((np.bincount(lab)[lab] > 1).sum())
+
+    ld, ls = linked(labels), linked(labels_s)
+    print(f"[15c FoF] N={n}, b = {ll:.6g} (0.2 of the mean separation): direct {fetch_ms:.3f} ms to fetch 32 B a "
+          f"body + {fof_ms:.3f} ms, streamed {stream_ms:.3f} ms (10 B a body); group_catalog {cat_ms:.3f} ms; "
+          f"bodies linked {ld:,} direct, {ls:,} streamed; groups of >= 20: {len(cat)} direct, {len(cat_s)} streamed",
+          flush=True)
+    check(ll == ll_s and (labels >= 0).all() and abs(ld - ls) <= 1e-3 * n and abs(len(cat) - len(cat_s)) <= max(1, len(cat) // 100),
+          f"[15c FoF] streamed vs direct: the same linking length, linked bodies within 1e-3 of N "
+          f"({abs(ld - ls)}), groups of >= 20 within 1% ({len(cat)} vs {len(cat_s)})")
+
+
 def _extras(r: dict) -> str:
     """A row's all-pairs bound and shares, and the parent's time, where it has them."""
     out = ""
@@ -4555,8 +4873,11 @@ PATHS = (
     ("phase 13b (periodic P3M gradient path, interlaced)", phase_periodic_grad_p3m_interlaced, MESH_GRAD),
     ("phase 13c (periodic PM gradient path)", phase_periodic_grad_pm, ("mesh_deposit", "mesh_gather")),
     ("phase 14b (macro sym path, 2M)", phase_macro_sym, SYM_FORCE + ("pair_sym",)),
+    ("phase 15b (comoving EdS P3M path)", phase_cosmo_p3m, MESH_KERNELS),
+    ("phase 15b (comoving ΛCDM P3M path)", phase_cosmo_p3m_lcdm, MESH_KERNELS),
+    ("phase 15b (comoving EdS PM path)", phase_cosmo_pm, ("mesh_deposit", "mesh_gather")),
 )
-PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13")))
+PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13", "phase 15")))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
@@ -4572,6 +4893,7 @@ SIDE = (
     ("phase 12c (periodic accuracy, run and cross-check)", phase_periodic_accuracy, MESH_KERNELS),
     ("phase 13d (periodic gradient cross-check)", phase_periodic_grad_crosscheck, MESH_GRAD),
     ("phase 14d (macro sym gradient cross-check)", phase_macro_grad_crosscheck, SYM_FORCE + ("pair_sym",) + VJP_SYM),
+    ("phase 15c (analysis of 15b's end state)", phase_cosmo_analysis, ("mesh_deposit",)),
 )
 FULL_ROUTE = SIDE[0][0]
 # Kernels on no main path: their launches come from these side windows.
@@ -4604,8 +4926,8 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
 
 def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
     """The kernels line's entry for a kernel's periodic form: its launches
-    on the periodic main paths (12b, 12d, 13b, 13c; also counted in the
-    kernel's ``launches``) and its numbers at 12b's shape (13b's for
+    on the periodic main paths (12b, 12d, 13b, 13c and the comoving 15b;
+    also counted in the kernel's ``launches``) and its numbers at 12b's shape (13b's for
     ``short_range_bwd``)."""
     return {
         "replaces": PERIODIC_REPLACES[name],
@@ -4652,6 +4974,7 @@ def main() -> int:
     phase_periodic_checks(dev)
     phase_periodic_grad_checks(dev)
     phase_macro_checks(dev)
+    phase_cosmo_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -4668,6 +4991,7 @@ def main() -> int:
     phase_exact_times(dev, times)
     times.update(phase_fast_times(dev))
     periodic = phase_periodic_times(dev)
+    phase_cosmo_fault(dev)
     periodic.update(phase_periodic_grad_times(dev))
     times.update(phase_macro_times(dev))
     side = {path: run_window(path, run, ks, dev) for path, run, ks in SIDE}

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels (and its host C code).
 
 ``load_library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` process per source, all started together, links
@@ -8,6 +8,10 @@ where ``key`` hashes the sources and the flags, so an edited source builds
 anew and an unchanged one is reused.  Nothing is built at import time: the
 first kernel launch builds.  A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing falls back to the plain versions.
+
+``load_host_library(name)`` does the same for a host C file of
+``native/`` (the friends-of-friends core), built with the host compiler
+(``$CC``, default ``cc``) into ``_build/<key>/lib<name>.so`` at first use.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import subprocess
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+NATIVE = pathlib.Path(__file__).resolve().parent / "native"
+CC_FLAGS = ("-O2", "-fPIC", "-shared")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,3 +146,28 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Build ``native/<name>.c`` with the host C compiler unless a build of
+    this source exists, and load it once per process.  A failed build
+    raises with the compiler's output."""
+    src = NATIVE / f"{name}.c"
+    cc = os.environ.get("CC", "cc")
+    h = hashlib.sha256(" ".join((cc,) + CC_FLAGS).encode())
+    h.update(src.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / f"lib{name}.so"
+    if not lib.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        try:
+            proc = subprocess.run([cc, *CC_FLAGS, "-o", str(tmp), str(src), "-lm"], capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"{cc} could not run to build {src.name}: {e}") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{cc} failed to build {src.name} (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    return ctypes.CDLL(str(lib))

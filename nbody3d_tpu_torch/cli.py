@@ -6,6 +6,10 @@
 - ``bench``    throughput benchmark printing one JSON line.
 - ``render``   render a checkpoint to PNG.
 - ``convert``  convert checkpoints between reference JSON and native npz.
+- ``analyze``  physics report of a checkpoint: COM frame, conservation
+               norms, Lagrangian radii, profiles, virial ratio, and with
+               ``--fof`` the friends-of-friends catalog, with
+               ``--power-spectrum GRID`` the mass P(k).
 
 Flags follow ``nbody3d_tpu.cli`` where they apply; ``--device`` names the
 device (default ``cuda``, which raises where there is no card).  dt and G
@@ -17,6 +21,9 @@ Resuming a checkpoint keeps its saved config except for the flags given.
     python -m nbody3d_tpu_torch.cli run --method p3m --preset two-galaxy --steps 200 --diagnostics
     python -m nbody3d_tpu_torch.cli run --preset uniform-box --method p3m --boundary periodic \
         --box-size 10 --interlace --steps 100 --diagnostics
+    python -m nbody3d_tpu_torch.cli run --preset cosmo --n 262144 --cosmology eds --method p3m \
+        --boundary periodic --box-size 10 --steps 100 --analyze-every 50
+    python -m nbody3d_tpu_torch.cli analyze out/final.npz --fof --power-spectrum 64 --json
     python -m nbody3d_tpu_torch.cli render out/final.npz -o frame.png
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
 """
@@ -57,6 +64,12 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--interlace", dest="mesh_interlace", default=None, action="store_true",
                    help="periodic box: average two mesh legs on grids offset by half a cell")
     p.add_argument("--no-interlace", dest="mesh_interlace", action="store_false", help="disable --interlace")
+    p.add_argument("--cosmology", default=None, choices=["none", "eds", "lcdm"],
+                   help="expanding background: eds = comoving coordinates on an Einstein-de Sitter universe, "
+                        "lcdm = flat ΛCDM (needs --boundary periodic and --method pm|p3m; vel stores "
+                        "w = a^2 dx/dt, dt is cosmic time: ops/expansion.py)")
+    p.add_argument("--omega-lambda", type=float, default=None,
+                   help="Ω_Λ at the start epoch a=1 for --cosmology lcdm (flat: Ω_m = 1 - Ω_Λ; default 0.7)")
     p.add_argument("--morton-every", type=int, default=None,
                    help="re-sort bodies along the Z-order curve every N steps (0 = never)")
     p.add_argument("--integrator", default=None, choices=["verlet", "euler", "yoshida4"])
@@ -87,6 +100,8 @@ def _config_overrides(args) -> dict:
         ("boundary", args.boundary),
         ("box_size", args.box_size),
         ("mesh_interlace", args.mesh_interlace),
+        ("cosmology", args.cosmology),
+        ("omega_lambda", args.omega_lambda),
         ("morton_every", args.morton_every),
         ("integrator", args.integrator),
         ("block_target", args.block_target),
@@ -101,7 +116,13 @@ def _build_config(args, base=None):
     saved config + explicit flags only (pass ``base``)."""
     from nbody3d_tpu_torch.config import SimConfig
 
-    return (base or SimConfig()).replace(**_config_overrides(args))
+    config = (base or SimConfig()).replace(**_config_overrides(args))
+    if args.omega_lambda is not None and config.cosmology != "lcdm":
+        # Ω_Λ parameterizes the flat ΛCDM background alone.
+        raise SystemExit(
+            f"--omega-lambda only applies to --cosmology lcdm (resolved cosmology is {config.cosmology!r})"
+        )
+    return config
 
 
 def _load_sim(path, args):
@@ -132,8 +153,18 @@ def cmd_run(args) -> int:
             # The reference's run-config controls (index.html:68-75).
             kw = dict(num_galaxies=args.num_galaxies, min_bodies=args.min_bodies,
                       max_bodies=args.max_bodies)
-        elif args.preset == "uniform-box" and config.box_size > 0:
+        elif args.preset in ("uniform-box", "cosmo") and config.box_size > 0:
             kw = dict(box_size=config.box_size)
+        if args.preset == "cosmo" and config.cosmology in ("eds", "lcdm"):
+            # The expanding box's growing mode (w = f_i H_i psi), not the
+            # static Jeans mode: the preset follows the configured physics.
+            kw["velocity"] = config.cosmology
+            if config.cosmology == "lcdm":
+                kw["omega_lambda"] = config.omega_lambda
+        if args.preset == "cosmo" and args.spectrum:
+            kw["spectrum"] = args.spectrum
+            if args.box_mpc is not None:
+                kw["box_mpc"] = args.box_mpc
         sim = Simulation.from_preset(args.preset, config, n=args.n, device=args.device, **kw)
     os.makedirs(args.outdir, exist_ok=True)
     if args.metrics:
@@ -151,10 +182,11 @@ def _save_frame(args, sim, frame_idx: int) -> str:
 
 def _run_loop(args, sim) -> int:
     """Chunks of ``--log-every`` steps; after each, the log lines, the
-    diagnostics, a checkpoint and a frame when their cadence is due, as
-    ``nbody3d_tpu.cli`` does; ``final.npz`` at the end."""
+    diagnostics, a checkpoint, an analysis record and a frame when their
+    cadence is due, as ``nbody3d_tpu.cli`` does; ``final.npz`` at the end."""
     done = 0
     next_ckpt = args.checkpoint_every or 0
+    next_analysis = args.analyze_every or 0
     next_frame = args.render_every or 0
     frame_idx = 0
     if args.render_every:
@@ -178,6 +210,9 @@ def _run_loop(args, sim) -> int:
             sim.save(path)
             print(f"  checkpoint -> {path}", flush=True)
             next_ckpt += args.checkpoint_every
+        if args.analyze_every and done >= next_analysis:
+            _append_analysis(args, sim)
+            next_analysis += args.analyze_every
         if args.render_every and done >= next_frame:
             path = _save_frame(args, sim, frame_idx)
             print(f"  frame -> {path}", flush=True)
@@ -185,6 +220,22 @@ def _run_loop(args, sim) -> int:
             next_frame += args.render_every
     sim.save(os.path.join(args.outdir, "final.npz"))
     return 0
+
+
+def _append_analysis(args, sim) -> None:
+    """``--analyze-every``: the O(N log N) report (no potential) of the real
+    rows, on their device, appended to ``<outdir>/analysis.jsonl``."""
+    from nbody3d_tpu_torch import analysis
+
+    n = sim.n_real
+    s = analysis.summary(sim.state.pos_mass[:n].detach(), sim.state.vel[:n].detach(), sim.G,
+                         eps2=sim.config.eps2, nbins=16, potential=False)
+    s["step"] = sim.step_count
+    with open(os.path.join(args.outdir, "analysis.jsonl"), "a") as f:
+        f.write(json.dumps(s) + "\n")
+    lr = s["lagrangian_radii"]
+    print(f"  r10={lr['r10']:.4g} r50={lr['r50']:.4g} r90={lr['r90']:.4g} "
+          f"sigma_c={s['velocity_dispersion'][0]:.4g}", flush=True)
 
 
 def cmd_render(args) -> int:
@@ -206,6 +257,96 @@ def cmd_convert(args) -> int:
     sim.save(args.output)
     print(f"{args.input} -> {args.output} (N={sim.n_real}, step={sim.step_count})")
     return 0
+
+
+def cmd_analyze(args) -> int:
+    """Physics report of a checkpoint (``nbody3d_tpu_torch.analysis``): the
+    statistics and P(k) on the state's device, FoF on the host (streamed:
+    10 bytes a body from the device)."""
+    from nbody3d_tpu_torch import analysis
+
+    sim = _load_sim(args.checkpoint, args)
+    n = sim.n_real
+    pos_mass, vel = sim.state.pos_mass[:n].detach(), sim.state.vel[:n].detach()
+    stream = args.fof_stream == "always" or (args.fof_stream == "auto" and n >= (1 << 22))
+    pe = args.pe == "exact" or (args.pe == "auto" and n <= 131072)
+    s = analysis.summary(pos_mass, vel, sim.config.G, eps2=sim.config.eps2, nbins=args.bins, potential=pe,
+                         pe_chunk=args.pe_chunk)
+    s["step"] = sim.step_count
+    box = sim.config.box_size if sim.config.boundary == "periodic" else None
+    if args.fof:
+        if stream:
+            labels, ll, pm_cat = analysis.fof_groups_streamed(pos_mass, args.linking_length or None, box_size=box)
+            vel_cat = None  # vcom left out: the velocities stay on the device
+        else:
+            pm_cat, vel_cat = pos_mass.cpu().numpy(), vel.cpu().numpy()
+            labels, ll = analysis.fof_groups(pm_cat, args.linking_length or None, box_size=box)
+        cat = analysis.group_catalog(pm_cat, vel_cat, labels, min_size=args.fof_min_size, box_size=box)
+        s["fof"] = {
+            "linking_length": ll,
+            "min_size": args.fof_min_size,
+            "streamed": bool(stream),
+            "n_groups": len(cat),
+            "grouped_fraction": float(sum(g["n"] for g in cat) / max(n, 1)),
+            "groups": cat[:50],
+        }
+    if args.power_spectrum:
+        k, p, cnt = analysis.power_spectrum(pos_mass, grid=args.power_spectrum, box_size=box)
+        k, p, cnt = (t.tolist() for t in _to_host(k, p, cnt))
+        if box is not None:
+            vol = float(box) ** 3
+        else:
+            # the autobox's measurement box: Nyquist pins grid/L
+            vol = (args.power_spectrum * 3.14159265 / float(k[-1] + k[0])) ** 3
+        s["power_spectrum"] = {"k": k, "P": p, "n_modes": cnt,
+                               "shot_noise": float(analysis.shot_noise(pos_mass, vol))}
+    if args.ps_out:
+        if "power_spectrum" not in s:
+            print("--ps-out requires --power-spectrum GRID", file=sys.stderr)
+            return 2
+        ps = s["power_spectrum"]
+        with open(args.ps_out, "w") as f:
+            f.write("k,P,n_modes\n")
+            for k_i, p_i, c_i in zip(ps["k"], ps["P"], ps["n_modes"]):
+                f.write(f"{k_i:.8g},{p_i:.8g},{c_i:.0f}\n")
+        print(f"wrote {args.ps_out}")
+    if args.profile:
+        edges = s["density_profile"]["edges"]
+        with open(args.profile, "w") as f:
+            f.write("r_lo,r_hi,rho,count,sigma_v\n")
+            for i in range(args.bins):
+                f.write(f"{edges[i]:.8g},{edges[i + 1]:.8g},{s['density_profile']['rho'][i]:.8g},"
+                        f"{s['density_profile']['count'][i]:.0f},{s['velocity_dispersion'][i]:.8g}\n")
+        print(f"wrote {args.profile}")
+    if args.json:
+        print(json.dumps(s))
+        return 0
+    print(f"step               {sim.step_count}")
+    print(analysis.format_report(s))
+    if "fof" in s:
+        f = s["fof"]
+        print(f"fof groups         {f['n_groups']} (>= {f['min_size']} bodies, b={f['linking_length']:.4g}, "
+              f"{100 * f['grouped_fraction']:.1f}% of mass-carrying bodies)")
+        for g in f["groups"][:5]:
+            com = " ".join(f"{x:.4g}" for x in g["com"])
+            print(f"  n={g['n']:<8,} mass={g['mass']:.4g}  com=[{com}]  rmax={g['rmax']:.4g}")
+    if "power_spectrum" in s:
+        ps = s["power_spectrum"]
+        occupied = [(k_i, p_i) for k_i, p_i, c_i in zip(ps["k"], ps["P"], ps["n_modes"]) if c_i > 0]
+        (lo_k, lo_p), (hi_k, hi_p) = occupied[0], occupied[-1]
+        print(f"power spectrum     P({lo_k:.4g})={lo_p:.4g}  P({hi_k:.4g})={hi_p:.4g}  "
+              f"shot noise {ps['shot_noise']:.4g}")
+    if not pe:
+        print("(potential/virial skipped at this N; --pe exact to force)")
+    return 0
+
+
+def _to_host(*tensors):
+    """Host copies of device tensors, in one device-to-host copy."""
+    import torch
+
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu()
+    return torch.split(flat, [t.numel() for t in tensors])
 
 
 def cmd_bench(args) -> int:
@@ -282,6 +423,14 @@ def main(argv=None) -> int:
     p.add_argument("--num-galaxies", type=int, default=2, help="reference-random: galaxies")
     p.add_argument("--min-bodies", type=int, default=20000, help="reference-random: least bodies a galaxy")
     p.add_argument("--max-bodies", type=int, default=20000, help="reference-random: most bodies a galaxy")
+    p.add_argument("--analyze-every", type=int, default=0,
+                   help="append a structural-analysis record (Lagrangian radii, central dispersion: O(N log N) "
+                        "terms only) to <outdir>/analysis.jsonl every K steps")
+    p.add_argument("--spectrum", default=None, choices=["power-law", "eh98"],
+                   help="cosmo preset P(k): power-law (default) or the Eisenstein-Hu 1998 flat-ΛCDM transfer "
+                        "function (Ωm = 1 - omega_lambda; box mapped to --box-mpc h⁻¹Mpc of comoving space)")
+    p.add_argument("--box-mpc", type=float, default=None,
+                   help="physical size the cosmo box represents for --spectrum eh98 (default 100 h⁻¹Mpc)")
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 
@@ -307,6 +456,31 @@ def main(argv=None) -> int:
                         "resolve, not ported")
     _add_common(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("analyze", help="physics analysis report of a checkpoint")
+    p.add_argument("checkpoint")
+    p.add_argument("--bins", type=int, default=64, help="radial bins for the density/dispersion profiles")
+    p.add_argument("--pe", default="auto", choices=["auto", "exact", "skip"],
+                   help="O(N^2) potential/virial terms: auto skips above 128k bodies")
+    p.add_argument("--pe-chunk", type=int, default=1024)
+    p.add_argument("--json", action="store_true", help="machine-readable output")
+    p.add_argument("--profile", default="", help="also write the radial profiles as CSV to this path")
+    p.add_argument("--fof", action="store_true",
+                   help="friends-of-friends group catalog (C union-find core on the host; periodic runs link "
+                        "across the torus seam)")
+    p.add_argument("--linking-length", type=float, default=0.0,
+                   help="FOF linking length (default 0 = 0.2x the mean interparticle separation)")
+    p.add_argument("--fof-min-size", type=int, default=20, help="drop FOF groups below this many members")
+    p.add_argument("--fof-stream", default="auto", choices=["auto", "always", "never"],
+                   help="stream device-quantized positions to the host FOF (10 B/body instead of 16; pair "
+                        "decisions within ~0.1%% of the linking length may flip: analysis.quantize_for_fof); "
+                        "auto = on from 4M bodies; vcom is left out of the catalog")
+    p.add_argument("--power-spectrum", type=int, default=0, metavar="GRID",
+                   help="measure the mass density power spectrum P(k) on a GRID^3 CIC mesh (periodic runs use "
+                        "the torus box; isolated runs the massive bodies' bounding cube)")
+    p.add_argument("--ps-out", default="", help="write the P(k) table as CSV to this path")
+    _add_common(p)
+    p.set_defaults(fn=cmd_analyze)
 
     p = sub.add_parser("convert", help="convert checkpoint formats (.json <-> .npz)")
     p.add_argument("input")

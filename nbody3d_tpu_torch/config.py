@@ -3,9 +3,7 @@
 ``SimConfig`` keeps the JAX package's field names, defaults and JSON
 (``to_json``/``from_json``), so a config written by either package loads
 in the other.  Fields that select paths the port does not have yet
-(cosmology, multi-device strategies) are kept for that interchange;
-choosing a cosmology raises ``NotImplementedError`` in
-:mod:`nbody3d_tpu_torch.ops.step`.
+(multi-device strategies) are kept for that interchange.
 
 ``dt`` and ``G`` stored here are defaults: the engine passes them to every
 step as runtime scalars (the live sliders), and no kernel is rebuilt when
@@ -45,7 +43,9 @@ class SimConfig:
     ``p3m_sigma_cells``, ``p3m_rcut_sigmas``, ``p3m_nbr_k``,
     ``p3m_block``, ``p3m_heavy_k``, ``boundary`` (``"isolated"``, or
     ``"periodic"`` with a mesh method), ``box_size`` and
-    ``mesh_interlace`` (periodic), ``cosmology`` (``"none"`` only),
+    ``mesh_interlace`` (periodic), ``cosmology`` (``"none"``, or
+    ``"eds"``/``"lcdm"`` on the periodic mesh solvers with Verlet: the
+    comoving step of ``ops/expansion.py``), ``omega_lambda`` (``"lcdm"``),
     ``backend``, ``block_target`` (capped at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
     Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,

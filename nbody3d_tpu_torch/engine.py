@@ -59,11 +59,22 @@ class Simulation:
         self.loaded_camera = None
         self.n_real = int(np.asarray(pos_mass).shape[0])
         self.n_pad = pad_count(self.n_real, pad_multiple(config, self.device))
+        # Total mass, cached on the host for the comoving background's
+        # rho_bar (scale_factor): one column sum at init, not one a query.
+        # Invariant: every integrator passes the mass column through
+        # untouched (ops/integrate.py, ops/expansion.py) and no code path
+        # changes masses in place, so this mirror stays tied to the step's
+        # background, which takes rho_bar from the live state each step.
+        # A feature that changes masses must refresh (or remove) this cache,
+        # or scale_factor silently diverges.
+        self._mass_total = float(np.asarray(pos_mass)[:, 3].sum())
         self.state = init_state(
             pos_mass, vel, accel, n_pad=self.n_pad, step=step, device=self.device
         )
         self._step_fn = make_step_fn(config, self.n_pad, self.n_real, self.device)
-        # Live sliders and pause (dt swapped to 0 through _old_dt).
+        # Live sliders and pause (dt swapped to 0 through _old_dt).  Direct
+        # slot writes: the dt/G setters guard a comoving run's history,
+        # which construction has not begun.
         self._dt = float(config.dt)
         self._G = float(config.G)
         self._old_dt: float | None = None
@@ -99,6 +110,7 @@ class Simulation:
 
     @dt.setter
     def dt(self, v: float) -> None:
+        self._guard_cosmo_param("dt", float(v))
         self._dt = float(v)
 
     @property
@@ -107,7 +119,40 @@ class Simulation:
 
     @G.setter
     def G(self, v: float) -> None:
+        self._guard_cosmo_param("G", float(v))
         self._G = float(v)
+
+    def _guard_cosmo_param(self, name: str, v: float) -> None:
+        """Refuse a live dt or G change on a comoving run with history: the
+        background (the step's, ops/expansion.py, and the host mirror in
+        :attr:`scale_factor`) takes cosmic time as ``t_i + step·dt`` from
+        the current dt and G, so a change mid-run would rescale the whole
+        expansion history.  Pause (dt = 0) and its undo stay allowed; a
+        checkpoint restore goes through :meth:`_set_runtime`."""
+        if self.config.cosmology == "none":
+            return
+        cur = self._dt if name == "dt" else self._G
+        if v == cur or (name == "dt" and v == 0.0):
+            return  # no change, or pause
+        if name == "dt" and self._old_dt is not None and v == self._old_dt:
+            return  # unpause
+        if self.step_count == 0 and self.stats.total_steps == 0:
+            return  # no history yet: the run starts from here
+        raise ValueError(
+            f"cannot change {name} mid-run with cosmology="
+            f"{self.config.cosmology!r}: the comoving background integrates "
+            f"from t_i with constant dt/G, so a live change would rescale "
+            f"the entire expansion history (ops/expansion.py).  Pause, or "
+            f"regenerate/restart with the new value."
+        )
+
+    def _set_runtime(self, dt: float | None = None, G: float | None = None) -> None:
+        """Install dt and G past the cosmology guard: for a checkpoint
+        restore, whose saved values made the history it holds."""
+        if dt is not None:
+            self._dt = float(dt)
+        if G is not None:
+            self._G = float(G)
 
     @property
     def paused(self) -> bool:
@@ -164,6 +209,9 @@ class Simulation:
         if self.last_render_ms is not None:
             rec["render_ms"] = round(self.last_render_ms, 3)
             rec["render_info"] = self.last_render_info
+        a = self.scale_factor
+        if a is not None:
+            rec["a"] = round(a, 6)
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -194,6 +242,19 @@ class Simulation:
             self.state.pos_mass, self.state.vel, self.state.accel, n_real=self.n_real
         )
         self.state = SimState(p, v, a, self.state.step)
+
+    @property
+    def scale_factor(self) -> float | None:
+        """The background's scale factor ``a(t)`` of a comoving run (None in
+        static space), from the host mirror of the step's background
+        (``ops/expansion.py::cosmic_time_and_scale``)."""
+        if self.config.cosmology == "none":
+            return None
+        from nbody3d_tpu_torch.ops.expansion import cosmic_time_and_scale
+
+        rho_bar = self._mass_total / float(self.config.box_size) ** 3
+        dt = self._old_dt if self._old_dt is not None else self.dt
+        return cosmic_time_and_scale(self.config, self.G, rho_bar, self.step_count, dt)[1]
 
     @property
     def pair_interactions_per_step(self) -> int:
@@ -315,10 +376,13 @@ class Simulation:
     # ------------------------------------------------------------- logging
     def log_lines(self) -> Iterator[str]:
         s = self.stats
+        a = self.scale_factor
         yield (
             f"step={self.step_count} steps/s={s.steps_per_s:.2f} "
             f"Gints/s={s.gints_per_s:.2f} wall_ms/step={s.ms_per_step:.3f} "
-            f"N={self.n_real} dt={self.dt:g} G={self.G:g} device={self.device}"
+            f"N={self.n_real} dt={self.dt:g} G={self.G:g}"
+            + (f" a={a:.4f}" if a is not None else "")
+            + f" device={self.device}"
         )
         if self.last_render_ms is not None:
             yield f"  render_ms={self.last_render_ms:.1f} {self.last_render_info}"

@@ -12,7 +12,9 @@ arrays, bit for bit, as ``nbody3d_tpu.models.registry.make_preset``.
 - ``uniform-sphere`` — N=1,024 cold uniform ball.
 - ``fibonacci-shell`` — the reference's golden-angle shell.
 - ``uniform-box`` — cold uniform box.
-- ``cosmo`` is not ported: it needs the mesh solvers.
+- ``cosmo`` — Zel'dovich P(k)-seeded periodic box (``models/cosmo.py``);
+  pair with ``boundary="periodic"`` (and a cosmology for the comoving
+  step).
 """
 
 from __future__ import annotations
@@ -27,12 +29,6 @@ from nbody3d_tpu_torch.models.plummer import plummer_sphere
 from nbody3d_tpu_torch.models.sphere import fibonacci_shell, uniform_sphere
 
 MakerResult = tuple[np.ndarray, np.ndarray, np.ndarray]
-
-# Presets of the JAX package that wait for a later part of the port.
-NOT_PORTED = {
-    "cosmo": "ROADMAP.md queue 1 item 9 (mesh solvers: models/cosmo.py)",
-}
-
 
 def _two_galaxy(seed: int, G: float, n: int | None, size_factor: float) -> MakerResult:
     rng = np.random.default_rng(seed)
@@ -92,6 +88,28 @@ def _uniform_box(
     return pm, vel, np.full((3,), box_size / 2.0)
 
 
+def _cosmo(
+    seed: int, G: float, n: int | None, size_factor: float,
+    *, box_size: float = 10.0, amp: float = 0.005, index: float = -1.0,
+    velocity: str = "growing", omega_lambda: float = 0.7,
+    spectrum: str = "power-law", box_mpc: float = 100.0,
+) -> MakerResult:
+    """Zel'dovich-displaced lattice on the periodic box (``n`` rounds to the
+    nearest perfect cube; default 32^3 = 32,768).  ``velocity``: "growing"
+    (the static box's Jeans mode), "eds"/"lcdm" (the expanding box's
+    growing modes; ``omega_lambda`` read by "lcdm" only) or "cold".
+    ``spectrum``: "power-law" (slope ``index``) or "eh98" with the box
+    mapped to ``box_mpc`` h⁻¹Mpc."""
+    from nbody3d_tpu_torch.models.cosmo import zeldovich_box
+
+    n_per_dim = max(2, round(float(n or 32768) ** (1.0 / 3.0)))
+    return zeldovich_box(
+        n_per_dim, box_size, amp=amp, index=index, G=G, velocity=velocity,
+        omega_lambda=omega_lambda, spectrum=spectrum, box_mpc=box_mpc,
+        rng=np.random.default_rng(seed),
+    )
+
+
 PRESETS: dict[str, Callable[..., MakerResult]] = {
     "two-galaxy": _two_galaxy,
     "reference-random": _reference_random,
@@ -100,6 +118,7 @@ PRESETS: dict[str, Callable[..., MakerResult]] = {
     "uniform-sphere": _uniform,
     "fibonacci-shell": _fib,
     "uniform-box": _uniform_box,
+    "cosmo": _cosmo,
 }
 
 
@@ -114,8 +133,6 @@ def make_preset(
 ) -> MakerResult:
     """Instantiate a named preset. ``n`` overrides the preset's default body
     count where meaningful."""
-    if name in NOT_PORTED:
-        raise KeyError(f"preset {name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
     return PRESETS[name](seed, G, n, size_factor, **kw)

@@ -9,13 +9,17 @@ nothing.
 
 Dispatch (``config.backend``, mirroring ``nbody3d_tpu/ops/step.py``):
 
-- ``method="pm"`` and ``"p3m"`` (isolated or periodic, no cosmology): the
-  mesh solvers of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On
-  the kernel route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
+- ``method="pm"`` and ``"p3m"`` (isolated or periodic): the mesh solvers
+  of ``ops/pm.py`` and ``ops/p3m.py`` and the integrator.  On the kernel
+  route they run ``mesh_deposit``, ``mesh_gather`` and (P3M)
   ``short_range`` (a backward also ``short_range_bwd``), in their
   periodic forms on the periodic box; on
   ``"jnp"`` their plain twins.  ``boundary="periodic"`` with
   ``method="direct"`` raises ``ValueError``, as in the JAX package.
+- ``cosmology="eds"|"lcdm"``: the comoving kick-drift step of
+  ``ops/expansion.py`` on the periodic mesh force of either route; an
+  isolated boundary, ``method="direct"`` or an integrator other than
+  Verlet raises the JAX package's ``ValueError``.
 
 For ``method="direct"``:
 
@@ -109,9 +113,6 @@ PAD_GRANULE = GPU_TILE
 SYM_MAX_N = 768 * 1024
 MACRO_MIN_N = SYM_MAX_N
 
-# Configurations of the JAX package that the port does not run yet.
-_TODO_COSMO = "ROADMAP.md queue 1 item 9 (cosmology: ops/expansion.py, models/cosmo.py)"
-
 
 def fit_block(n: int, want: int, floor: int = 8) -> int:
     """Largest power-of-two-ish block <= want that divides n."""
@@ -168,8 +169,6 @@ def _check_supported(config: SimConfig) -> None:
             "pairs, which is ill-defined on the torus without an Ewald sum (ops/ewald.py has the O(N^2) "
             "oracle for validation only)"
         )
-    if config.cosmology != "none":
-        raise NotImplementedError(f"cosmology={config.cosmology!r}: {_TODO_COSMO}")
     if config.grad_precision not in ("precise", "fast"):
         # Both values run the same f32 VJP kernels (config.py).
         raise ValueError(f"unknown grad_precision {config.grad_precision!r}")
@@ -276,6 +275,13 @@ def make_step_fn(
     _check_supported(config)
     route = resolve_backend(config, device)
     eps2 = config.eps2
+
+    if config.cosmology != "none":
+        # Comoving coordinates on an expanding background: the staggered
+        # kick-drift of ops/expansion.py on the periodic mesh force.
+        from nbody3d_tpu_torch.ops.expansion import make_cosmo_step_fn
+
+        return make_cosmo_step_fn(config, n_pad, n_real, route)
 
     if config.method != "direct":
         return _integrated_step(config.integrator, make_mesh_accel_fn(config, n_real, route), n_real)

@@ -103,17 +103,26 @@ def test_pallas_backend_on_cpu_raises():
 
 
 @pytest.mark.parametrize(
-    "kw",
+    "kw,error",
     [
-        {"method": "pm", "cosmology": "eds"},
-        {"method": "p3m", "boundary": "periodic", "box_size": 10.0, "cosmology": "lcdm"},
-        {"method": "pm", "boundary": "periodic", "box_size": 10.0, "cosmology": "eds"},
-        {"cosmology": "eds"},
+        ({"method": "pm", "cosmology": "eds"}, "needs boundary='periodic'"),
+        ({"method": "p3m", "boundary": "periodic", "box_size": 10.0, "cosmology": "lcdm", "pm_grid": 16,
+          "p3m_nbr_k": 1}, None),
+        ({"method": "pm", "boundary": "periodic", "box_size": 10.0, "cosmology": "eds", "pm_grid": 16}, None),
+        ({"cosmology": "eds"}, "needs boundary='periodic'"),
     ],
 )
-def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+def test_unported_configs_raise(kw, error):
+    """The cosmology configurations, once unported: an isolated boundary
+    raises the JAX package's ``ValueError``; the periodic mesh ones run a
+    comoving step (tests/test_torch_cosmo.py holds them to JAX)."""
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+        return
+    sim = Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+    sim.run(1)
+    assert sim.step_count == 1 and sim.scale_factor > 1.0 and np.isfinite(sim.arrays()[0]).all()
 
 
 @pytest.mark.parametrize(
@@ -211,7 +220,8 @@ def test_port_imports_without_jax():
         "import nbody3d_tpu_torch.render.rasterize, nbody3d_tpu_torch.render.resolve\n"
         "import nbody3d_tpu_torch.render.image, nbody3d_tpu_torch.render.colormap\n"
         "import nbody3d_tpu_torch.ops.pm, nbody3d_tpu_torch.ops.p3m, nbody3d_tpu_torch.ops.mesh_cuda\n"
-        "import nbody3d_tpu_torch.ops.ewald\n"
+        "import nbody3d_tpu_torch.ops.ewald, nbody3d_tpu_torch.ops.expansion, nbody3d_tpu_torch.analysis\n"
+        "import nbody3d_tpu_torch.models.cosmo\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'nbody3d_tpu' or m.startswith('nbody3d_tpu.')]\n"
         "assert not bad, bad\n"

@@ -22,6 +22,7 @@ CASES = [
     ("uniform-sphere", 4096, 0),
     ("fibonacci-shell", 777, 6),
     ("uniform-box", 1500, 7),
+    ("cosmo", 1000, 8),
 ]
 
 
@@ -48,7 +49,13 @@ def test_reference_random_settings_bit_equal():
 
 
 def test_cosmo_names_its_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        make_preset("cosmo")
+    """``cosmo`` (ROADMAP queue 1 item 9b) is ported: the default preset is
+    JAX's 32³ box, bit for bit (tests/test_torch_cosmo.py holds the rest);
+    an unknown name still raises."""
+    got = make_preset("cosmo")
+    want = jax_make_preset("cosmo")
+    assert got[0].shape == (32**3, 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     with pytest.raises(KeyError, match="unknown preset"):
         make_preset("no-such-preset")

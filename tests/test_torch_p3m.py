@@ -409,18 +409,24 @@ def test_cli_run_p3m_on_cpu(capsys, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "kw,item",
+    "kw,error",
     [
-        ({"method": "p3m", "cosmology": "eds", "boundary": "periodic", "box_size": 10.0}, "item 9"),
-        ({"method": "pm", "cosmology": "lcdm"}, "queue 1 item 9 (cosmology"),
+        ({"method": "p3m", "cosmology": "eds", "boundary": "periodic", "box_size": 10.0, "pm_grid": 16,
+          "p3m_nbr_k": 1}, None),
+        ({"method": "pm", "cosmology": "lcdm"}, "needs boundary='periodic' and a mesh solver"),
     ],
 )
-def test_unported_mesh_configs_raise(kw, item):
-    """A cosmology raises when the step is built (ROADMAP queue 1 item 9b).
-    The periodic box, forward and backward, runs: tests/test_torch_periodic.py
-    and tests/test_torch_periodic_grad.py."""
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
-        Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+def test_unported_mesh_configs_raise(kw, error):
+    """A cosmology on the mesh solvers, once unported (ROADMAP queue 1 item
+    9b): periodic P3M with EdS runs a comoving step; isolated PM with
+    ΛCDM raises the JAX package's ``ValueError`` when the step is built."""
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+        return
+    sim = Simulation.from_preset("uniform-sphere", SimConfig(**kw), n=256, device="cpu")
+    sim.run(1)
+    assert sim.step_count == 1 and np.isfinite(sim.arrays()[0]).all()
 
 
 
