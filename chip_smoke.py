@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a, 15a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a, 15a, 16a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
     python3 chip_smoke.py --parent DIR    # also time a parent checkout's redesigned kernels
 
@@ -311,15 +311,42 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``power_spectrum`` at grid 128 (one ``mesh_deposit``, against its twin),
    the direct and the streamed FoF (streamed within 1e-3 of N of the direct
    one's linked bodies) and ``group_catalog``.
+16. the live viewer and the rest of render: (a, after 15a, also in
+   ``--kernels-only``) the quantized ``resolve="device"`` (``scatter_reduce_``
+   on the card for the splats below 2 px, the rest stamped on the host) on
+   the scenes of tests/test_render.py:206-246 and the two-galaxy frame:
+   the card's framebuffer bit-equal to the CPU route's on a copy of the
+   same prep, and against the exact ``auto`` frame lit pixels agree on
+   > 0.999 and rgb within 8 on > 0.995 (one body: its pixel; the
+   two-galaxy frame's rgb share printed, not gated: 16-bit depth ties in
+   a galaxy's narrow depth range, where the JAX package's own device
+   resolve has the same share, tests/test_torch_viewer.py); at N =
+   500,010 1920x1080 the device-resolve frame beside the ``auto`` frame
+   (in turns) and the bytes each copies to the host; (b) ``LiveViewer`` on
+   the reference default (two-galaxy N = 40,002, exact, 960x720, 20 steps a
+   frame) on an ephemeral port, every HTTP call with a timeout: /frame.jpg
+   and 3 /stream parts (SOI/EOI), pause after ten pipelined frames (steps
+   = 20 a frame, energy drift <= 1e-3 over them), the paused /frame.jpg
+   equal to ``encode_jpeg(render_frame(same camera))`` byte for byte,
+   /control orbit, pan, zoom, logdt, size=640x480 and reset, /export.npz
+   then POST /import.npz while paused (bit-equal; the file holds the
+   paused dt, 0), the imported sim set running by /control?logdt (2 s of
+   frames: steps = 20 a frame), regenerate; the HUD's fps, frame, compute, host, render and
+   encode ms and the JPEG bytes; with the loop stopped the frame interval
+   beside the sequential sum chunk + render + encode (printed, not gated)
+   and one profiled pipelined frame (idle share); (c) ``cli animate`` of
+   7b's ``final.npz``, 12 frames as APNG (``acTL`` 12, each frame equal to
+   its PNG) and GIF (12 images); (d) ``cli run --trace`` writes a trace
+   that names ``force_exact``.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice), 13c, 14b and 15b (three times) (the main paths) and 6c,
-6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d and 15c each
+12d, 13b (twice), 13c, 14b, 15b (three times) and 16b (the main paths) and 6c,
+6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d, 15c, 16c and 16d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 10b (yoshida4), 12b (each), 12d, 14b and 15b (each) and one profiled gradient rollout of 9b, 9c,
+step of 8b, 8d, 10b (yoshida4), 12b (each), 12d, 14b and 15b (each), one pipelined frame of 16b and one profiled gradient rollout of 9b, 9c,
 13b (each) and 13c (device busy time, idle share, largest kernels; for the
 gradients the share of each stage; 6a's ``vjp_combine`` and 10b's
 ``sym_combine`` device time a launch, their inputs as their paths leave
@@ -339,14 +366,18 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import http.client
+import io
 import itertools
 import json
 import pathlib
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -369,7 +400,7 @@ from nbody3d_tpu_torch.ops.step import (
     GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
 )
 from nbody3d_tpu_torch.render import rasterize, resolve
-from nbody3d_tpu_torch.render.image import read_png, save_png
+from nbody3d_tpu_torch.render.image import read_apng, read_png, save_png
 from nbody3d_tpu_torch.scatter_checks import (
     deposit_adversarial, deposit_operands, f32_sum_bounds, f32_sum_excess, resolve_adversarial,
 )
@@ -4823,6 +4854,311 @@ def phase_cosmo_analysis(dev) -> None:
           f"({abs(ld - ls)}), groups of >= 20 within 1% ({len(cat)} vs {len(cat_s)})")
 
 
+# ------------------------------------------------------- the live viewer
+def _quantized_agrees(tag: str, prep, w: int, h: int) -> torch.Tensor:
+    """The quantized resolve on the card (``scatter_reduce_`` there, the
+    large splats stamped on the host) against the CPU route on a copy of
+    the same prep: the framebuffers bit-equal."""
+    got = resolve.resolve_quantized(*prep, width=w, height=h)
+    want = resolve.resolve_quantized(*(t.cpu() for t in prep), width=w, height=h)
+    n_large = int((prep[5] & (prep[4] >= resolve.DEVICE_RMAX)).sum())
+    lit = int((got != resolve.EMPTY32).sum())
+    check(torch.equal(got, want) and lit > 0,
+          f"{tag}: CUDA route == CPU route ({int(prep[5].sum())} visible splats, {n_large} stamped on the host, "
+          f"{lit} pixels lit)")
+    return got
+
+
+def device_resolve_scenes() -> dict:
+    """16a's scenes: tests/test_render.py:206-246 (20k bodies 320x240, one
+    body 128x128) and the two-galaxy frame."""
+    return {
+        "20k dense, 320x240 (tests/test_render.py:206)": (*render_scene(20_000, 13), Camera(target=np.zeros(3), radius=4.0),
+                                                          dict(width=320, height=240)),
+        "one body, 128x128 (tests/test_render.py:237)": (np.array([[0, 0, 0, 100.0]], np.float32),
+                                                         np.zeros((1, 4), np.float32),
+                                                         Camera(target=np.zeros(3), radius=5.0),
+                                                         dict(width=128, height=128)),
+        "two-galaxy N=40,002, 1024x768": _two_galaxy_frame(),
+    }
+
+
+def phase_device_resolve_checks(dev) -> None:
+    """16a: the quantized ``device`` resolve on the card: bit-equal to the
+    CPU route on the same prep, and the JAX package's contract against the
+    exact ``auto`` frame (lit pixels agree on > 0.999, rgb within 8 on >
+    0.995; one body: its pixel within 8); then at N = 500,010 1920x1080 its
+    frame beside the ``auto`` frame (``splat_resolve``) and the bytes each
+    copies to the host."""
+    print("[16a device resolve] quantized scatter on the card vs the CPU route and the exact frame", flush=True)
+    for name, (pm, vel, cam, frame) in device_resolve_scenes().items():
+        w, h = frame["width"], frame["height"]
+        buf = _quantized_agrees(f"[16a] {name}", _prep(pm, vel, cam, frame, dev), w, h)
+        img = resolve.quantized_image(buf, width=w, height=h)
+        pm_d, vel_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
+        check(np.array_equal(rasterize.render_points(pm_d, vel_d, cam, resolve="device", **frame), img),
+              f"[16a] {name}: render_points(resolve='device') == the resolve's image")
+        exact = rasterize.render_points(pm_d, vel_d, cam, **frame)
+        lit_e, lit_q = exact.any(axis=2), img.any(axis=2)
+        both = lit_e & lit_q
+        close = (np.abs(exact[both].astype(int) - img[both].astype(int)) <= 8).all(axis=1)
+        lit_ok = (lit_e == lit_q).mean() > 0.999
+        if pm.shape[0] == 1:
+            ok, bar = bool(both[h // 2, w // 2]) and bool(close.all()), "its pixel within 8"
+        elif name.startswith("two-galaxy"):
+            # Not gated: a galaxy's narrow depth range ties at 16 bits, and the
+            # JAX package's own device resolve has the port's share there
+            # (tests/test_torch_viewer.py::test_device_resolve_two_galaxy_as_jax).
+            ok, bar = lit_ok, "rgb share reported, not gated"
+        else:
+            ok, bar = lit_ok and close.mean() > 0.995, "> 0.995"
+        check(ok, f"[16a] {name} vs the exact auto frame: lit pixels agree on {(lit_e == lit_q).mean():.6f} "
+                  f"(> 0.999), rgb within 8 on {close.mean():.6f} of {int(both.sum())} ({bar})")
+    pm, vel = render_scene(500_010, 0)
+    big = dict(width=1920, height=1080)
+    cam = Camera(target=np.zeros(3), radius=5.0)
+    prep = _prep(pm, vel, cam, big, dev)
+    _quantized_agrees("[16a] N=500,010 1920x1080", prep, 1920, 1080)
+    pm_d, vel_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
+    ms = {}
+    for res in ("auto", "device", "auto", "device"):  # in turns
+        rasterize.render_points(pm_d, vel_d, cam, resolve=res, **big)
+        ms.setdefault(res, []).append(statistics.median(
+            host_ms(lambda: rasterize.render_points(pm_d, vel_d, cam, resolve=res, **big)) for _ in range(3)))
+    n_large = int((prep[5] & (prep[4] >= resolve.DEVICE_RMAX)).sum())
+    auto_b, dev_b = 1920 * 1080 * 3, 1920 * 1080 * 4 + 32 * n_large
+    print(f"  [16a] N=500,010 1920x1080 frame, host clock, synced, median of 3, in turns: device resolve "
+          f"{ms['device']} ms (copies {dev_b:,} B: the int32 buffer and {n_large} large splats at 32 B), auto "
+          f"(splat_resolve) {ms['auto']} ms (copies {auto_b:,} B: the uint8 image)", flush=True)
+
+
+def _jpeg_size(data: bytes) -> tuple[int, int]:
+    """(width, height) from a baseline JPEG's SOF0."""
+    i = data.index(b"\xff\xc0")
+    h, w = struct.unpack(">HH", data[i + 5:i + 9])
+    return w, h
+
+
+def _http(port: int, path: str, body: bytes | None = None) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST" if body is not None else "GET", path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _stream_parts(port: int, parts: int) -> list[bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", "/stream")
+        resp = conn.getresponse()
+        out = []
+        for _ in range(parts):
+            head = [resp.readline() for _ in range(4)]  # boundary, type, length, blank line
+            out.append(resp.read(int(head[2].split(b":")[1])))
+            resp.readline()
+        return out
+    finally:
+        conn.close()
+
+
+def _until(pred, timeout: float = 60.0) -> bool:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.02)
+    return True
+
+
+def _jpeg_ok(data: bytes) -> bool:
+    return data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+
+
+SERVE_W, SERVE_H, SERVE_K = 960, 720, 20
+
+
+def phase_serve(dev):
+    """16b: ``LiveViewer`` on the reference default (two-galaxy N = 40,002,
+    exact, 960x720, 20 steps a frame) on an ephemeral port in this process,
+    every HTTP call with a timeout: /stats, /frame.jpg, /stream, /control,
+    export and import, regenerate; then, with the loop stopped, the
+    sequential parts of a frame and (after the counts) a profiled frame."""
+    from nbody3d_tpu_torch.render.jpeg import encode_jpeg
+    from nbody3d_tpu_torch.viewer import LiveViewer
+
+    sim = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+    d0 = sim.diagnostics()
+    v = LiveViewer(sim, width=SERVE_W, height=SERVE_H, steps_per_frame=SERVE_K)
+    server = v.make_server("127.0.0.1", 0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    print(f"[16b serve] LiveViewer two-galaxy N={sim.n_real} exact, {SERVE_W}x{SERVE_H}, {SERVE_K} steps a frame, "
+          f"http://127.0.0.1:{port}/", flush=True)
+
+    def sample():
+        with v._sim_lock:
+            return v.sim.step_count, v.chunks_done, v._frames_done, time.perf_counter()
+
+    t_start = time.perf_counter()
+    try:
+        v.start()
+        # The energy window: ten pipelined frames from the start, then pause.
+        check(_until(lambda: v.chunks_done >= 10), f"[16b] ten pipelined frames ({v.chunks_done})")
+        st, body = _http(port, "/frame.jpg")
+        check(st == 200 and _jpeg_ok(body) and _jpeg_size(body) == (SERVE_W, SERVE_H),
+              f"[16b] /frame.jpg: {st}, SOI/EOI, {_jpeg_size(body)}, {len(body):,} B")
+        parts = _stream_parts(port, 3)
+        check(len(parts) == 3 and all(map(_jpeg_ok, parts)), f"[16b] /stream: 3 parts, SOI/EOI, {[len(p) for p in parts]} B")
+        check(_http(port, "/control?pause=1")[0] == 204 and v.sim.paused, "[16b] /control?pause=1")
+        frames = v._frames_done
+        _until(lambda: v._frames_done >= frames + 2)
+        with v._sim_lock:
+            steps, chunks, d1 = v.sim.step_count, v.chunks_done, v.sim.diagnostics()
+        drift = abs(float(d1.total_energy) - float(d0.total_energy)) / abs(float(d0.total_energy))
+        check(steps == SERVE_K * chunks and drift <= 1e-3,
+              f"[16b] {chunks} pipelined frames advanced {steps} steps (20 a frame); energy drift {drift:.3e} <= 1e-3")
+        # Paused: the served frame is the encode of render_frame at the same camera.
+        cam, w, h = v._snapshot()
+        st, served = _http(port, "/frame.jpg")
+        want = encode_jpeg(v.sim.render_frame(camera=cam, width=w, height=h), v.quality)
+        check(st == 200 and served == want, f"[16b] paused /frame.jpg == encode_jpeg(render_frame(same camera)) "
+                                             f"({len(served):,} B)")
+        az0, r0, target0 = v.camera.azimuth, v.camera.radius, v.camera.target.copy()
+        codes = [_http(port, f"/control?{q}")[0] for q in ("orbit=40,10", "pan=15,-5", "zoom=0.3", "logdt=-3.8",
+                                                            "size=640x480")]
+        moved = v.camera.azimuth != az0 and v.camera.radius > r0 and not np.array_equal(v.camera.target, target0)
+        frames = v._frames_done
+        _until(lambda: v._frames_done >= frames + 2)
+        st, small = _http(port, "/frame.jpg")
+        stats = json.loads(_http(port, "/stats")[1])
+        check(codes == [204] * 5 and moved and _jpeg_size(small) == (640, 480) and stats["resolution"] == "640x480"
+              and stats["paused"] and abs(stats["dt"] - 10**-3.8) < 1e-12,
+              f"[16b] /control orbit, pan, zoom, logdt, size: {codes}, camera {stats['camera']}, frame "
+              f"{_jpeg_size(small)}, dt {stats['dt']:.6g} (applied on unpause)")
+        check(_http(port, "/control?reset=1")[0] == 204 and np.isclose(v.camera.radius, 5.0), "[16b] /control?reset=1")
+        # Export and import while paused: the file holds the paused dt, 0, so
+        # the imported sim runs from the next dt slider move (as the JAX
+        # package's viewer, whose checkpoints store the live dt).
+        st, npz = _http(port, "/export.npz")
+        st2, _ = _http(port, "/import.npz", npz)
+        with np.load(io.BytesIO(npz)) as z, v._sim_lock:
+            same = all(np.array_equal(z[k], a) for k, a in zip(("pos_mass", "vel", "accel"), v.sim.arrays()))
+            same &= int(z["step"]) == v.sim.step_count
+        check(st == 200 and st2 == 204 and same, f"[16b] /export.npz ({len(npz):,} B) then POST /import.npz: the "
+                                                 "imported state equals the exported one bit for bit")
+        _http(port, f"/control?size={SERVE_W}x{SERVE_H}")
+        check(_http(port, "/control?logdt=-3.8")[0] == 204 and not v.sim.paused and abs(v.sim.dt - 10**-3.8) < 1e-12,
+              f"[16b] the imported sim (dt {v.sim.dt:.6g} after /control?logdt=-3.8) runs")
+        c0 = v.chunks_done
+        _until(lambda: v.chunks_done >= c0 + 2)  # the imported sim's first frames
+        a = sample()
+        time.sleep(2.0)
+        b = sample()
+        interval_ms = (b[3] - a[3]) / max(b[2] - a[2], 1) * 1e3
+        check(b[1] > a[1] and b[0] - a[0] == SERVE_K * (b[1] - a[1]),
+              f"[16b] {b[1] - a[1]} pipelined frames in {b[3] - a[3]:.3f} s advanced {b[0] - a[0]} steps")
+        stats = json.loads(_http(port, "/stats")[1])
+        check(_http(port, "/control?regenerate=1")[0] == 204 and v.sim.n_real == 40_002,
+              f"[16b] /control?regenerate=1: N={v.sim.n_real}")
+        c0 = v.chunks_done
+        check(_until(lambda: v.chunks_done >= c0 + 3, 30) and v.sim.step_count >= 3 * SERVE_K,
+              f"[16b] the regenerated sim steps ({v.sim.step_count} steps)")
+    finally:
+        v.stop()
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=10)
+    window_s = time.perf_counter() - t_start
+    check(v.error is None and not v._thread.is_alive() and not serving.is_alive(),
+          f"[16b] loop and server stopped, no loop error ({v.error!r}); window {window_s:.3f} s")
+    print(f"  [16b] stats: fps {stats['fps']:.3f}, frame {stats['frame_ms']:.3f} ms, compute {stats['compute_ms']:.3f} "
+          f"ms, host {stats['host_ms']:.3f} ms, render {stats['render_ms']:.3f} ms, encode {v.encode_ms:.3f} ms, "
+          f"JPEG {v.jpeg_bytes:,} B, {stats['steps_per_s']:.3f} steps/s", flush=True)
+    # The sequential parts of a frame, the loop stopped: the chunk, the render, the encode.
+    s = v.sim
+    chunk_ms = statistics.median(host_ms(lambda: s.run(SERVE_K, chunk=SERVE_K)) for _ in range(3))
+    render_ms = statistics.median(host_ms(lambda: s.render_frame(width=SERVE_W, height=SERVE_H)) for _ in range(3))
+    img = s.render_frame(width=SERVE_W, height=SERVE_H)
+    encode_ms = statistics.median(host_ms(lambda: encode_jpeg(img, v.quality)) for _ in range(3))
+
+    def enqueue_ms() -> float:
+        """The host's time to enqueue a chunk (``run_async``), the device idle before it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        token = s.run_async(SERVE_K)
+        t = (time.perf_counter() - t0) * 1e3
+        s.wait_chunk(token)
+        return t
+
+    enqueue = statistics.median(enqueue_ms() for _ in range(3))
+    print(f"  [16b] frame interval {interval_ms:.3f} ms (measured, pipelined) vs the sequential sum "
+          f"{chunk_ms + render_ms + encode_ms:.3f} ms = chunk {chunk_ms:.3f} + render {render_ms:.3f} + encode "
+          f"{encode_ms:.3f} (host clock, synced, median of 3); the host's enqueue of a chunk {enqueue:.3f} ms",
+          flush=True)
+    return [(f"16b one pipelined serve frame ({SERVE_W}x{SERVE_H}, {SERVE_K} steps)", v.pipelined_frame)]
+
+
+def _gif_frames(data: bytes) -> int:
+    """The image descriptors of a GIF89a, walking its blocks."""
+    if data[:6] != b"GIF89a":
+        return -1
+    flags, pos, frames = data[10], 13, 0
+    pos += 3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos += 2
+        else:
+            frames += 1
+            local = data[pos + 9]
+            pos += 10 + (3 * 2 ** ((local & 7) + 1) if local & 0x80 else 0) + 1
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return frames
+
+
+def phase_animate(dev, out: pathlib.Path) -> None:
+    """16c: ``cli animate`` of 7b's ``final.npz`` on the card, 12 frames
+    (1024x768), as APNG and GIF: the APNG holds 12 frames (``acTL``), each
+    equal to its frame PNG bit for bit; the GIF 12 images."""
+    final, anim = str(out / "final.npz"), out / "anim"
+    times = {}
+    for fmt in ("apng", "gif"):
+        argv = ["animate", final, "--device", dev.type, "--frames", "12", "--outdir", str(anim),
+                "--video", str(anim / f"orbit.{fmt}")]
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        times[fmt] = time.perf_counter() - t0
+        check(rc == 0, f"[16c] cli {' '.join(argv)}: rc {rc} in {times[fmt]:.3f} s")
+    data = (anim / "orbit.apng").read_bytes()
+    i = data.index(b"acTL")
+    n_frames = struct.unpack(">I", data[i + 4:i + 8])[0]
+    frames = read_apng(str(anim / "orbit.apng"))
+    pngs = [read_png(str(anim / f"frame_{k:06d}.png")) for k in range(12)]
+    check(n_frames == len(frames) == 12 and all(np.array_equal(a, b) for a, b in zip(frames, pngs))
+          and np.array_equal(read_png(str(anim / "orbit.apng")), pngs[0]) and pngs[0].any(),
+          f"[16c] orbit.apng ({len(data):,} B): acTL {n_frames} frames, each == its frame PNG bit for bit")
+    gif = (anim / "orbit.gif").read_bytes()
+    check(_gif_frames(gif) == 12, f"[16c] orbit.gif ({len(gif):,} B): GIF89a, {_gif_frames(gif)} images")
+
+
+def phase_trace(dev, out: pathlib.Path) -> None:
+    """16d: ``cli run --trace`` (two-galaxy, 20 steps) writes a
+    ``torch.profiler`` trace that names ``force_exact``."""
+    argv = ["run", "--device", dev.type, "--preset", "two-galaxy", "--steps", "20", "--log-every", "10",
+            "--outdir", str(out / "traced"), "--trace", str(out / "trace")]
+    rc = cli.main(argv)
+    path = out / "trace" / "trace.json"
+    text = path.read_text() if path.exists() else ""
+    check(rc == 0 and "force_exact" in text and json.loads(text).get("traceEvents"),
+          f"[16d] cli {' '.join(argv)}: rc {rc}, {path.name} {len(text):,} B names force_exact "
+          f"{text.count('force_exact')} times")
+
+
 def _extras(r: dict) -> str:
     """A row's all-pairs bound and shares, and the parent's time, where it has them."""
     out = ""
@@ -4849,8 +5185,8 @@ def _print_times(out: dict[str, dict]) -> None:
 SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
 VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # The main paths, each with the kernels it runs; a kernel's "launches" is
-# its sum over these windows and phase 7b's (its entry is made in main,
-# which knows the output directory).
+# its sum over these windows, phase 7b's (its entry is made in main,
+# which knows the output directory) and the live viewer's, 16b.
 PATHS = (
     ("phase 4 (exact path)", phase_exact, ("force_exact",)),
     ("phase 5 (sym path)", phase_sym, SYM),
@@ -4879,6 +5215,7 @@ PATHS = (
 )
 PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13", "phase 15")))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
+SERVE_PATH = "phase 16b (live viewer)", phase_serve, ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
 SIDE = (
@@ -4975,6 +5312,7 @@ def main() -> int:
     phase_periodic_grad_checks(dev)
     phase_macro_checks(dev)
     phase_cosmo_checks(dev)
+    phase_device_resolve_checks(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -4984,7 +5322,10 @@ def main() -> int:
         out = pathlib.Path(args.outdir or tmp)
         out.mkdir(parents=True, exist_ok=True)
         render_path = (RENDER_PATH[0], functools.partial(phase_render_path, out=out), RENDER_PATH[1])
-        by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path,)}
+        by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path, SERVE_PATH)}
+        # 16c and 16d: 7b's checkpoint animated, and a traced run.
+        run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
+        run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))

@@ -5,6 +5,9 @@
                diagnostics, checkpoints and frame dumps.
 - ``bench``    throughput benchmark printing one JSON line.
 - ``render``   render a checkpoint to PNG.
+- ``animate``  an orbiting-camera frame sequence of a checkpoint, and an
+               APNG/GIF (or, with ffmpeg, MP4/WebM) of it.
+- ``serve``    the live interactive viewer over HTTP (MJPEG + controls).
 - ``convert``  convert checkpoints between reference JSON and native npz.
 - ``analyze``  physics report of a checkpoint: COM frame, conservation
                norms, Lagrangian radii, profiles, virial ratio, and with
@@ -25,6 +28,9 @@ Resuming a checkpoint keeps its saved config except for the flags given.
         --boundary periodic --box-size 10 --steps 100 --analyze-every 50
     python -m nbody3d_tpu_torch.cli analyze out/final.npz --fof --power-spectrum 64 --json
     python -m nbody3d_tpu_torch.cli render out/final.npz -o frame.png
+    python -m nbody3d_tpu_torch.cli animate out/final.npz --frames 120 --video orbit.gif
+    python -m nbody3d_tpu_torch.cli serve --preset two-galaxy --port 8000
+    python -m nbody3d_tpu_torch.cli run --steps 200 --trace trace_dir
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
 """
 
@@ -75,6 +81,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--integrator", default=None, choices=["verlet", "euler", "yoshida4"])
     p.add_argument("--block-target", type=int, default=None,
                    help="sym tile cap (the tile is at most 256 bodies)")
+    p.add_argument("--block-source", type=int, default=None,
+                   help="accepted for interchange with nbody3d_tpu.cli and kept in the saved config; "
+                        "it has no effect on the port's kernels")
 
 
 def _config_overrides(args) -> dict:
@@ -105,6 +114,7 @@ def _config_overrides(args) -> dict:
         ("morton_every", args.morton_every),
         ("integrator", args.integrator),
         ("block_target", args.block_target),
+        ("block_source", args.block_source),
     ]:
         if arg is not None:
             ov[field] = arg
@@ -181,9 +191,21 @@ def _save_frame(args, sim, frame_idx: int) -> str:
 
 
 def _run_loop(args, sim) -> int:
+    """The run, inside a ``torch.profiler`` trace with ``--trace DIR``."""
+    from nbody3d_tpu_torch.utils.profiling import device_trace
+
+    with device_trace(args.trace):
+        _run_chunks(args, sim)
+    if args.trace:
+        print(f"  trace -> {os.path.join(args.trace, 'trace.json')}", flush=True)
+    sim.save(os.path.join(args.outdir, "final.npz"))
+    return 0
+
+
+def _run_chunks(args, sim) -> None:
     """Chunks of ``--log-every`` steps; after each, the log lines, the
     diagnostics, a checkpoint, an analysis record and a frame when their
-    cadence is due, as ``nbody3d_tpu.cli`` does; ``final.npz`` at the end."""
+    cadence is due, as ``nbody3d_tpu.cli`` does."""
     done = 0
     next_ckpt = args.checkpoint_every or 0
     next_analysis = args.analyze_every or 0
@@ -218,8 +240,6 @@ def _run_loop(args, sim) -> int:
             print(f"  frame -> {path}", flush=True)
             frame_idx += 1
             next_frame += args.render_every
-    sim.save(os.path.join(args.outdir, "final.npz"))
-    return 0
 
 
 def _append_analysis(args, sim) -> None:
@@ -246,6 +266,56 @@ def cmd_render(args) -> int:
                            color_mode=args.color_mode, resolve=args.resolve)
     save_png(args.output, img)
     print(f"wrote {args.output}")
+    return 0
+
+
+def cmd_animate(args) -> int:
+    """Frames of a checkpoint under a scripted orbiting camera (the headless
+    stand-in for the reference's orbit, camera.js:143-168), the physics
+    advancing between frames with ``--steps-per-frame``; with ``--video`` an
+    APNG, GIF or (through ffmpeg) MP4/WebM of them."""
+    import math
+
+    from nbody3d_tpu_torch.render.image import save_animation, save_png
+    from nbody3d_tpu_torch.utils.camera import ROT_SPEED, Camera
+
+    sim = _load_sim(args.checkpoint, args)
+    cam = Camera(target=sim.camera_target)
+    os.makedirs(args.outdir, exist_ok=True)
+    step_px = math.radians(args.orbit_degrees) / max(args.frames, 1) / ROT_SPEED
+    paths = []
+    for i in range(args.frames):
+        path = os.path.join(args.outdir, f"frame_{i:06d}.png")
+        save_png(path, sim.render_frame(camera=cam, width=args.width, height=args.height))
+        paths.append(path)
+        cam.orbit(step_px, 0.0)
+        if args.steps_per_frame:
+            sim.run(args.steps_per_frame, chunk=args.steps_per_frame)
+    print(f"wrote {args.frames} frames to {args.outdir}")
+    if args.video:
+        save_animation(paths, args.video, fps=args.fps)
+        print(f"wrote {args.video}")
+    return 0
+
+
+# serve --resolve: the JAX package's names map to the port's resolves.
+SERVE_RESOLVES = {"auto": "auto", "host": "host", "device": "device", "pallas": "auto", "native": "host",
+                  "numpy": "host"}
+
+
+def cmd_serve(args) -> int:
+    """The live interactive viewer (``viewer.py``): the simulation advances
+    on the device while the server streams frames and takes the controls."""
+    from nbody3d_tpu_torch.engine import Simulation
+    from nbody3d_tpu_torch.viewer import LiveViewer
+
+    if args.checkpoint:
+        sim = _load_sim(args.checkpoint, args)
+    else:
+        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n, device=args.device)
+    viewer = LiveViewer(sim, width=args.width, height=args.height, steps_per_frame=args.steps_per_frame,
+                        diagnostics_every=args.diagnostics_every, resolve=SERVE_RESOLVES[args.resolve])
+    viewer.serve_forever(args.host, args.port)
     return 0
 
 
@@ -431,6 +501,8 @@ def main(argv=None) -> int:
                         "function (Ωm = 1 - omega_lambda; box mapped to --box-mpc h⁻¹Mpc of comoving space)")
     p.add_argument("--box-mpc", type=float, default=None,
                    help="physical size the cosmo box represents for --spectrum eh98 (default 100 h⁻¹Mpc)")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run (host ops and CUDA kernels) to DIR/trace.json")
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 
@@ -453,9 +525,44 @@ def main(argv=None) -> int:
     p.add_argument("--resolve", default="auto", choices=["auto", "host", "device"],
                    help="auto = on the device (the splat_resolve kernel on a card); host = the "
                         "f64 host frame of the JAX package's default; device = the quantized "
-                        "resolve, not ported")
+                        "resolve (16-bit depth, rgb565; only the framebuffer and the splats of 2 px "
+                        "and more leave the device)")
     _add_common(p)
     p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("animate", help="orbiting-camera frame sequence from a checkpoint")
+    p.add_argument("checkpoint")
+    p.add_argument("--frames", type=int, default=120)
+    p.add_argument("--orbit-degrees", type=float, default=360.0)
+    p.add_argument("--steps-per-frame", type=int, default=0,
+                   help="advance the simulation between frames (0 = camera only)")
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--height", type=int, default=768)
+    p.add_argument("--outdir", default="frames")
+    p.add_argument("--video", default=None,
+                   help="also assemble the frames into this file: .png/.apng (APNG) and .gif are written "
+                        "by the port; .mp4/.webm need ffmpeg on PATH")
+    p.add_argument("--fps", type=float, default=30.0)
+    _add_common(p)
+    p.set_defaults(fn=cmd_animate)
+
+    p = sub.add_parser("serve", help="live interactive viewer over HTTP (MJPEG + controls)")
+    p.add_argument("--checkpoint", default=None, help="resume from a checkpoint")
+    p.add_argument("--preset", default="two-galaxy")
+    p.add_argument("--n", type=int, default=None)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000, help="0 = any free port (printed at start)")
+    p.add_argument("--width", type=int, default=960)
+    p.add_argument("--height", type=int, default=720)
+    p.add_argument("--steps-per-frame", type=int, default=20)
+    p.add_argument("--diagnostics-every", type=int, default=0,
+                   help="compute total energy every this many frames (0 = off)")
+    p.add_argument("--resolve", default="auto", choices=list(SERVE_RESOLVES),
+                   help="the frame's resolve, as render's: auto (the splat_resolve kernel), host (the f64 "
+                        "host frame) or device (the quantized scatter); the JAX package's names map as "
+                        "pallas -> auto, native -> host, numpy -> host")
+    _add_common(p)
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("analyze", help="physics analysis report of a checkpoint")
     p.add_argument("checkpoint")

@@ -6,6 +6,14 @@ clock and ends in ``torch.cuda.synchronize`` on a CUDA device, so the time
 covers the device's work and not just its enqueueing.  Frames render on
 the state's device (``render/``: the ``splat_resolve`` kernel on a card);
 only the finished image comes to the host.
+
+The live viewer's pipelined frame (``viewer.py``) rests on CUDA stream
+order: :meth:`Simulation.render_frame_begin` enqueues a frame's device
+work on the current stream and :meth:`Simulation.run_async` the next
+chunk after it, so the frame reads the pre-chunk state; the host then
+waits on the frame's event alone (:meth:`Simulation.render_frame_finish`)
+and encodes while the chunk runs, and :meth:`Simulation.wait_chunk` waits
+on the chunk's event.
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ class Simulation:
             np.zeros(3) if camera_target is None else np.asarray(camera_target, dtype=np.float64)
         )
         self.loaded_camera = None
+        # (name, n, preset_kw) when built by from_preset: what regenerate()
+        # rolls again (the reference's regenerate button re-runs main()).
+        self._preset: tuple | None = None
         self.n_real = int(np.asarray(pos_mass).shape[0])
         self.n_pad = pad_count(self.n_real, pad_multiple(config, self.device))
         # Total mass, cached on the host for the comoving background's
@@ -85,6 +96,10 @@ class Simulation:
         # The last frame's render time (host clock, ms) and size + camera.
         self.last_render_ms: float | None = None
         self.last_render_info: str | None = None
+        # Pinned host buffers of the pipelined frames, by (shape, dtype),
+        # and the stream that fetches a quantized frame's large splats.
+        self._pinned: dict[tuple, torch.Tensor] = {}
+        self._side_stream = None
 
     @classmethod
     def from_preset(
@@ -101,7 +116,30 @@ class Simulation:
             name, seed=config.seed, G=config.G, n=n,
             size_factor=config.size_factor, **preset_kw,
         )
-        return cls(config, pos_mass, vel, device=device, camera_target=target)
+        sim = cls(config, pos_mass, vel, device=device, camera_target=target)
+        sim._preset = (name, n, dict(preset_kw))
+        return sim
+
+    def regenerate(self, seed: int | None = None, **settings) -> "Simulation":
+        """A fresh Simulation from the same preset with new randomness (the
+        reference's regenerate button, ``util.js:69-75``), on the same
+        device; the caller swaps it in.  ``settings`` are the galaxy panel's
+        (``index.html:68-75``: ``num_galaxies``, ``min_bodies``,
+        ``max_bodies``): with any of them the run becomes a
+        ``reference-random`` one, as the reference's ``main()`` reads the
+        panel.  The live G and dt (the one saved while paused) carry over,
+        as ``main()`` reads the sliders (``nbody3d.js:115``)."""
+        if self._preset is None:
+            raise ValueError("regenerate requires a preset-built simulation (Simulation.from_preset)")
+        name, n, kw = self._preset
+        if settings:
+            base = kw if name == "reference-random" else {}
+            name, n, kw = "reference-random", None, {**base, **settings}
+        if seed is None:
+            seed = int(np.random.SeedSequence().generate_state(1)[0]) & 0x7FFFFFFF
+        dt_live = self._old_dt if self._old_dt is not None else self.dt
+        config = self.config.replace(seed=seed, G=self.G, dt=dt_live)
+        return Simulation.from_preset(name, config, n=n, device=self.device, **kw)
 
     # -------------------------------------------------- live dt/G (sliders)
     @property
@@ -192,6 +230,41 @@ class Simulation:
 
     def step(self, n: int = 1) -> SimState:
         return self.run(n, chunk=n)
+
+    def _event(self):
+        """A CUDA event recorded on the device's current stream (None on
+        the CPU, where the work is done when the call returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
+    def run_async(self, k: int):
+        """Enqueue one chunk of ``k`` steps and return without waiting: a
+        token for :meth:`wait_chunk`, or None (and nothing runs) while
+        paused.  Work enqueued before this call on the device's stream (a
+        frame's :meth:`render_frame_begin`) runs first."""
+        if self.dt == 0.0 or k <= 0:
+            return None
+        self._maybe_wrap_box()
+        self._maybe_morton_sort()
+        t0 = time.perf_counter()
+        self.state = run_chunk(self._step_fn, self.state, self.dt, self.G, k)
+        return k, t0, self._event()
+
+    def wait_chunk(self, token) -> None:
+        """Wait for the chunk of :meth:`run_async` (its event), then update
+        the stats and the metrics with the time from enqueue to done."""
+        if token is None:
+            return
+        k, t0, ev = token
+        if ev is not None:
+            ev.synchronize()
+        elapsed = time.perf_counter() - t0
+        self.stats.update(k, elapsed, self.pair_interactions_per_step)
+        if self.metrics_path:
+            self._append_metrics(k, elapsed)
 
     def _append_metrics(self, k: int, elapsed: float) -> None:
         rec = {
@@ -349,8 +422,9 @@ class Simulation:
         ``resolve="auto"`` renders on the state's device (the
         ``splat_resolve`` kernel on a card) from the real rows only: mass-0
         padding would still splat through the minimum-size clamp.
-        ``"host"`` is the JAX package's default f64 host frame.  The camera
-        defaults to one orbiting ``camera_target``.
+        ``"host"`` is the JAX package's default f64 host frame, ``"device"``
+        its quantized resolve (``render/resolve.py``).  The camera defaults
+        to one orbiting ``camera_target``.
         """
         from nbody3d_tpu_torch.render.rasterize import render_points
         from nbody3d_tpu_torch.utils.camera import Camera
@@ -371,6 +445,105 @@ class Simulation:
         # The image is on the host, so the device's work is done.
         self.last_render_ms = (time.perf_counter() - t0) * 1e3
         self.last_render_info = f"{width}x{height} {camera.describe()}"
+        return img
+
+    def _to_pinned(self, t: torch.Tensor) -> torch.Tensor:
+        """A non-blocking copy of ``t`` into this sim's pinned host buffer of
+        its shape and dtype (``t`` itself on the CPU).  One frame is in
+        flight at a time: the next copy into the buffer comes after the
+        frame's finish."""
+        if t.device.type != "cuda":
+            return t
+        key = (tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        return buf
+
+    def render_frame_begin(
+        self,
+        camera=None,
+        *,
+        width: int = 1024,
+        height: int = 768,
+        color_mode: str = "magnitude",
+        resolve: str = "auto",
+    ) -> dict:
+        """Phase 1 of a pipelined frame, from the current state: for
+        ``"auto"`` and ``"device"`` the prep and the resolve are enqueued on
+        the device's current stream with a non-blocking copy of the image
+        (or the quantized buffer) into a pinned host buffer and an event
+        after it, with no host sync; a chunk enqueued next runs after them.
+        ``"host"`` copies the state to the host here.  Returns the handle of
+        :meth:`render_frame_finish`."""
+        from nbody3d_tpu_torch.render import rasterize, resolve as rs
+        from nbody3d_tpu_torch.utils.camera import Camera
+
+        if resolve not in rasterize.RESOLVES:
+            raise ValueError(f"unknown resolve {resolve!r} ({', '.join(rasterize.RESOLVES)})")
+        if camera is None:
+            camera = Camera(target=self.camera_target)
+        t0 = time.perf_counter()
+        pm, vel = self.state.pos_mass[: self.n_real].detach(), self.state.vel[: self.n_real].detach()
+        handle = {"camera": camera, "width": width, "height": height, "color_mode": color_mode,
+                  "resolve": resolve}
+        if resolve == "host":
+            handle["src"] = (pm.cpu().numpy(), vel.cpu().numpy())
+        else:
+            prep = rasterize.prep_device(pm, vel, camera, width, height, self.config.size_factor, 64, color_mode)
+            if resolve == "auto":
+                buf = rs.splat_resolve(*prep, width=width, height=height)
+                handle["host"] = self._to_pinned(rs.buffer_image(buf, width=width, height=height))
+            else:
+                handle["host"] = self._to_pinned(rs.quantized_scatter(*prep, width=width, height=height))
+                handle["prep"] = prep
+            handle["event"] = self._event()
+        handle["begin_ms"] = (time.perf_counter() - t0) * 1e3
+        return handle
+
+    def _large_splats(self, prep, event):
+        """The quantized frame's large splats, fetched on a side stream that
+        waits for the frame's event alone (the current stream has the
+        chunk after it); each prep tensor is recorded on that stream."""
+        from nbody3d_tpu_torch.render import resolve as rs
+
+        if event is None:
+            return rs.quantized_large(*prep)
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=self.device)
+        side = self._side_stream
+        side.wait_event(event)
+        with torch.cuda.stream(side):
+            for t in prep:
+                t.record_stream(side)
+            return rs.quantized_large(*prep)
+
+    def render_frame_finish(self, handle: dict) -> np.ndarray:
+        """Phase 2 of a pipelined frame: wait for the frame's event (not the
+        chunk's), then finish on the host: the image itself (``"auto"``),
+        the large splats stamped and the colours decoded (``"device"``), or
+        the host render (``"host"``).  Returns the (H, W, 3) uint8 image;
+        :attr:`last_render_ms` is the begin's ms plus the finish's."""
+        from nbody3d_tpu_torch.render import rasterize, resolve as rs
+
+        t0 = time.perf_counter()
+        w, h, cam = handle["width"], handle["height"], handle["camera"]
+        if handle["resolve"] == "host":
+            img = rasterize.render_points(*handle["src"], cam, width=w, height=h,
+                                          size_factor=self.config.size_factor,
+                                          color_mode=handle["color_mode"], resolve="host")
+        else:
+            if handle["event"] is not None:
+                handle["event"].synchronize()
+            if handle["resolve"] == "auto":
+                img = handle["host"].numpy().copy()
+            else:
+                large = self._large_splats(handle["prep"], handle["event"])
+                buf = rs.quantized_frame(handle["host"], large, width=w, height=h)
+                img = rs.quantized_image(buf, width=w, height=h)
+        self.last_render_ms = handle["begin_ms"] + (time.perf_counter() - t0) * 1e3
+        self.last_render_info = f"{w}x{h} {cam.describe()}"
         return img
 
     # ------------------------------------------------------------- logging

@@ -17,7 +17,8 @@ A frame is a prep and a resolve:
   state's device, in input order with no radius sort.
 - **resolve** min-reduces the packed keys per pixel
   (``render/resolve.py``): the ``splat_resolve`` kernel on a CUDA device,
-  its plain twin on the CPU.
+  its plain twin on the CPU; or the quantized words of the JAX package's
+  ``"device"`` resolve.
 
 :func:`render_points` picks them with ``resolve=``:
 
@@ -26,7 +27,10 @@ A frame is a prep and a resolve:
 - ``"host"``: the f64 host prep and the twin on CPU tensors, bit for bit
   the JAX package's default frame (its ``auto``/``native``/``numpy``
   resolves);
-- ``"device"`` (the JAX package's quantized XLA scatter) is not ported.
+- ``"device"``: the device prep and the quantized resolve
+  (``resolve.quantized_scatter``: ``scatter_reduce_`` on the state's
+  device for the splats below 2 px, the rest stamped on the host), the
+  JAX package's ``"device"`` contract: 16-bit depth test, rgb565 colour.
 
 Nothing falls back: a failed build or launch raises.
 
@@ -42,10 +46,16 @@ import numpy as np
 import torch
 
 from nbody3d_tpu_torch.render.colormap import direction_colormap, velocity_colormap
-from nbody3d_tpu_torch.render.resolve import buffer_image, resolve_keys_plain, splat_resolve
+from nbody3d_tpu_torch.render.resolve import (
+    buffer_image,
+    quantized_image,
+    resolve_keys_plain,
+    resolve_quantized,
+    splat_resolve,
+)
 from nbody3d_tpu_torch.utils.camera import Camera
 
-_TODO_DEVICE_RESOLVE = "ROADMAP.md queue 1 item 8 (the quantized 'device' resolve)"
+RESOLVES = ("auto", "host", "device")
 
 
 def project_points(
@@ -198,16 +208,16 @@ def render_buffer(
     resolve: str = "auto",
 ) -> torch.Tensor:
     """The ``(H * W,)`` framebuffer of one frame (``render/resolve.py``), on
-    the state's device for ``resolve="auto"``, on the CPU for ``"host"``.
-    See :func:`render_points` for the arguments."""
-    if resolve == "device":
-        raise NotImplementedError(f"resolve='device': {_TODO_DEVICE_RESOLVE}")
-    if resolve not in ("auto", "host"):
-        raise ValueError(f"unknown resolve {resolve!r} (auto, host)")
+    the state's device for ``resolve="auto"``, on the CPU for ``"host"``
+    and (the uint32 words of the quantized resolve) ``"device"``.  See
+    :func:`render_points` for the arguments."""
+    if resolve not in RESOLVES:
+        raise ValueError(f"unknown resolve {resolve!r} ({', '.join(RESOLVES)})")
     args = (camera, width, height, size_factor, max_radius_px, color_mode)
-    if resolve == "auto":
+    if resolve != "host":
         pm, v = _as_tensor(pos_mass), _as_tensor(vel)
-        return splat_resolve(*prep_device(pm, v, *args), width=width, height=height)
+        fn = splat_resolve if resolve == "auto" else resolve_quantized
+        return fn(*prep_device(pm, v, *args), width=width, height=height)
     if isinstance(pos_mass, torch.Tensor):
         pos_mass, vel = pos_mass.detach().cpu().numpy(), vel.detach().cpu().numpy()
     cx, cy, keys, r = _prep_host(pos_mass, vel, *args)
@@ -238,10 +248,13 @@ def render_points(
     "direction" (``nbody3d.js:381``).  ``resolve``: "auto" (the device prep
     and the ``splat_resolve`` kernel on the state's device; its twin for a
     CPU state), "host" (the f64 host prep and the twin on the CPU: the JAX
-    package's default frame), or "device" (not ported, raises).
+    package's default frame), or "device" (the device prep and the
+    quantized resolve: 16-bit depth, rgb565 colour).
     """
     buf = render_buffer(
         pos_mass, vel, camera, width=width, height=height, size_factor=size_factor,
         max_radius_px=max_radius_px, color_mode=color_mode, resolve=resolve,
     )
+    if resolve == "device":
+        return quantized_image(buf, width=width, height=height, background=background)
     return buffer_image(buf, width=width, height=height, background=background).cpu().numpy()

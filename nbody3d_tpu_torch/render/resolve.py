@@ -24,10 +24,23 @@ reached.  Every real key is below 2^62 (depth bits <= 0x3F800000).
   splats large enough to cover it.
 - :func:`buffer_image` and :func:`buffer_planes` turn the words into the
   ``(H, W, 3)`` uint8 image and the rgb24 / depth planes.
+
+The quantized resolve (the JAX package's ``resolve="device"``,
+``nbody3d_tpu/render/rasterize.py:328-463``, an XLA scatter-min there) is
+a second framebuffer: 32-bit words ``depth16 << 16 | rgb565``, where
+``depth16`` is the top half of the depth bits.  :func:`quantized_scatter`
+min-reduces the small splats (``r < 2`` px) on their device, one
+``scatter_reduce_(..., "amin")`` for each of :data:`DEVICE_OFFSETS` that
+the radius reaches; :func:`quantized_large` fetches the large ones to the
+host, and :func:`quantized_frame` stamps them there (:func:`_stamp_large`)
+with the same words.  Only the ``(H * W,)`` int32 buffer and the large
+splats leave the device.  :func:`quantized_image` decodes the colour by
+bit replication.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -187,3 +200,102 @@ def buffer_image(
     rgb = ((buf[:, None] >> shifts) & 0xFF).to(torch.uint8)
     bg = torch.tensor(background, dtype=torch.uint8, device=buf.device)
     return torch.where(hit, rgb, bg).view(height, width, 3)
+
+
+# ------------------------------------------------------ the quantized resolve
+# The stamp offsets of a splat with r < 2 px (|offset| <= r; the farthest is
+# |(1, 1)| = 1.415) and the radius from which the host stamps a splat.
+DEVICE_OFFSETS = ((0, 0), (1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (1, -1), (-1, 1), (-1, -1))
+DEVICE_RMAX = 2.0
+EMPTY32 = 0xFFFFFFFF  # no splat reached the pixel; real words are below 0x3F810000
+# The device buffer is int32 holding each uint32 word less 2^31, so int32
+# order is the words' order.
+_BIAS32 = 1 << 31
+# Rows the scatter sends nowhere (masked or off the frame) spread over this
+# many spill slots past the frame, not one contended address.
+_SPILL = 1024
+
+
+def quantized_keys(depth_bits: torch.Tensor, rgb24: torch.Tensor) -> torch.Tensor:
+    """The int64 words ``(depth_bits >> 16) << 16 | rgb565``: the uint32 bit
+    patterns (given as int32) shifted as unsigned, the colour's top 5, 6
+    and 5 bits."""
+    depth = depth_bits.to(torch.int64) & 0xFFFFFFFF
+    c = rgb24.to(torch.int64)
+    rgb565 = (((c >> 19) & 0x1F) << 11) | (((c >> 10) & 0x3F) << 5) | ((c >> 3) & 0x1F)
+    return ((depth >> 16) << 16) | rgb565
+
+
+def quantized_scatter(
+    cx: torch.Tensor, cy: torch.Tensor, depth_bits: torch.Tensor, rgb24: torch.Tensor,
+    r: torch.Tensor, visible: torch.Tensor, *, width: int, height: int,
+) -> torch.Tensor:
+    """The small splats' ``(H * W,)`` int32 buffer (each word less 2^31) on
+    the splats' device, enqueued without a host sync.  Each visible splat
+    with ``r < 2`` min-reduces its word into every pixel ``(cx + dx, cy +
+    dy)`` in the frame with ``r >= |(dx, dy)|`` (float32 compare)."""
+    dev = _check_splats(cx, cy, depth_bits, rgb24, r, visible, width, height)
+    n, hw = cx.shape[0], height * width
+    words = (quantized_keys(depth_bits, rgb24) - _BIAS32).to(torch.int32)
+    small = visible & (r < DEVICE_RMAX)
+    buf = torch.full((hw + _SPILL,), EMPTY32 - _BIAS32, dtype=torch.int32, device=dev)
+    spill = hw + (torch.arange(n, device=dev) & (_SPILL - 1))
+    x0, y0 = cx.to(torch.int64), cy.to(torch.int64)
+    for dx, dy in DEVICE_OFFSETS:
+        need = float(np.float32(math.hypot(dx, dy)))
+        m = small if need == 0.0 else small & (r >= need)
+        x, y = x0 + dx, y0 + dy
+        m = m & (x >= 0) & (x < width) & (y >= 0) & (y < height)
+        buf.scatter_reduce_(0, torch.where(m, y * width + x, spill), words, "amin")
+    return buf[:hw]
+
+
+def quantized_large(
+    cx: torch.Tensor, cy: torch.Tensor, depth_bits: torch.Tensor, rgb24: torch.Tensor,
+    r: torch.Tensor, visible: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, np.ndarray]:
+    """The visible splats with ``r >= 2`` on the host: int64 centres and
+    words, float64 radii (a host sync on the current stream).  Their order
+    does not matter: a minimum does not depend on it."""
+    sel = torch.nonzero(visible & (r >= DEVICE_RMAX)).squeeze(1)
+    rows = torch.stack([cx[sel].to(torch.int64), cy[sel].to(torch.int64), quantized_keys(depth_bits[sel], rgb24[sel]),
+                        r[sel].to(torch.float64).view(torch.int64)]).cpu()
+    return rows[0], rows[1], rows[2], rows[3].view(torch.float64).numpy()
+
+
+def quantized_frame(words: torch.Tensor, large, *, width: int, height: int) -> torch.Tensor:
+    """The ``(H * W,)`` int64 framebuffer of uint32 words on the host: the
+    device buffer ``words`` (int32, less 2^31, on the CPU) with the large
+    splats stamped in."""
+    buf = words.to(torch.int64) + _BIAS32
+    _stamp_large(buf.view(height, width), *large)
+    return buf
+
+
+def resolve_quantized(
+    cx: torch.Tensor, cy: torch.Tensor, depth_bits: torch.Tensor, rgb24: torch.Tensor,
+    r: torch.Tensor, visible: torch.Tensor, *, width: int, height: int,
+) -> torch.Tensor:
+    """The quantized framebuffer of the splats, on the host."""
+    prep = (cx, cy, depth_bits, rgb24, r, visible)
+    words = quantized_scatter(*prep, width=width, height=height).cpu()
+    return quantized_frame(words, quantized_large(*prep), width=width, height=height)
+
+
+@functools.cache
+def _decode565() -> np.ndarray:
+    """Every rgb565 word's 8-bit colour by bit replication, (65536, 3) uint8."""
+    v = np.arange(65536)
+    r5, g6, b5 = (v >> 11) & 0x1F, (v >> 5) & 0x3F, v & 0x1F
+    return np.stack([(r5 << 3) | (r5 >> 2), (g6 << 2) | (g6 >> 4), (b5 << 3) | (b5 >> 2)], axis=-1).astype(np.uint8)
+
+
+def quantized_image(
+    buf: torch.Tensor, *, width: int, height: int, background: tuple[int, int, int] = (0, 0, 0)
+) -> np.ndarray:
+    """The ``(H, W, 3)`` uint8 image of a quantized framebuffer: rgb565 to
+    8 bits a channel by bit replication (a table lookup), the background
+    where no splat landed."""
+    lut = np.concatenate([_decode565(), np.asarray(background, np.uint8)[None]])
+    b = buf.numpy()
+    return np.take(lut, np.where(b == EMPTY32, 65536, b & 0xFFFF), axis=0).reshape(height, width, 3)

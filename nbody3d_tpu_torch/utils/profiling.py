@@ -1,13 +1,16 @@
-"""EMA-filtered step timing and the pair-interaction rate.
+"""EMA-filtered step timing, the pair-interaction rate, and device traces.
 
 Step times are host wall clock around a chunk of steps that ends in a
 device synchronize (``Simulation.run``), smoothed with the reference HUD's
-update rule ``x += (sample - x) / filterStrength``.
+update rule ``x += (sample - x) / filterStrength``.  :func:`device_trace`
+is the deep dive: a ``torch.profiler`` Chrome trace around a block.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 
 
@@ -66,3 +69,22 @@ class Timer:
     def __exit__(self, *exc):
         self.elapsed = time.perf_counter() - self._t0
         return False
+
+
+@contextlib.contextmanager
+def device_trace(path: str | None):
+    """A ``torch.profiler`` trace of the block (host ops, and the CUDA
+    kernels where there is a card), written as ``<path>/trace.json`` for
+    chrome://tracing or Perfetto; nothing when ``path`` is None.  The
+    counterpart of the JAX package's ``jax.profiler`` trace."""
+    if path is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(path, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(path, "trace.json"))

@@ -206,9 +206,10 @@ def test_step_stats_match_jax():
     assert t.elapsed > 0
 
 
-def test_port_imports_without_jax():
+def test_port_imports_without_jax(tmp_path):
     """The package, every module of it and chip_smoke.py import with jax
-    and PIL blocked, and pull in nothing of nbody3d_tpu."""
+    and PIL blocked, and pull in nothing of nbody3d_tpu; the JPEG, GIF and
+    APNG encoders run so."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['PIL'] = None\n"
         "import nbody3d_tpu_torch, nbody3d_tpu_torch.cli, nbody3d_tpu_torch._build\n"
@@ -221,12 +222,17 @@ def test_port_imports_without_jax():
         "import nbody3d_tpu_torch.render.image, nbody3d_tpu_torch.render.colormap\n"
         "import nbody3d_tpu_torch.ops.pm, nbody3d_tpu_torch.ops.p3m, nbody3d_tpu_torch.ops.mesh_cuda\n"
         "import nbody3d_tpu_torch.ops.ewald, nbody3d_tpu_torch.ops.expansion, nbody3d_tpu_torch.analysis\n"
-        "import nbody3d_tpu_torch.models.cosmo\n"
+        "import nbody3d_tpu_torch.models.cosmo, nbody3d_tpu_torch.viewer, nbody3d_tpu_torch.render.jpeg\n"
         "import chip_smoke\n"
+        "import numpy as np\n"
+        "from nbody3d_tpu_torch.render import image, jpeg\n"
+        "frame = np.zeros((16, 16, 3), np.uint8)\n"
+        "assert jpeg.encode_jpeg(frame)[:2] == b'\\xff\\xd8'\n"
+        "image.save_animation([frame, frame], 'PIL_BLOCKED_DIR/a.gif'); image.save_animation([frame], 'PIL_BLOCKED_DIR/a.apng')\n"
         "bad = [m for m in sys.modules if m == 'nbody3d_tpu' or m.startswith('nbody3d_tpu.')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
-    )
+    ).replace("PIL_BLOCKED_DIR", str(tmp_path))
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
         cwd=pathlib.Path(__file__).resolve().parents[1],

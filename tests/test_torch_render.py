@@ -281,8 +281,9 @@ def test_resolve_choices_and_wrapper_checks():
     img = rasterize.render_points(pos_mass, vel, cam, width=64, height=48)
     assert img.shape == (48, 64, 3) and img.dtype == np.uint8 and img.any()
     assert all(c == 0 for c in launch_counts().values())  # CPU tensors: the twin
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rasterize.render_points(pos_mass, vel, cam, width=64, height=48, resolve="device")
+    quantized = rasterize.render_points(pos_mass, vel, cam, width=64, height=48, resolve="device")
+    assert quantized.shape == (48, 64, 3) and quantized.dtype == np.uint8 and quantized.any()
+    assert (quantized.any(axis=2) == img.any(axis=2)).mean() >= 0.999
     with pytest.raises(ValueError, match="unknown resolve"):
         rasterize.render_points(pos_mass, vel, cam, width=64, height=48, resolve="native")
     prep = rasterize.prep_device(torch.from_numpy(pos_mass), torch.from_numpy(vel), cam, 64, 48)
