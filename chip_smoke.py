@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``nbody3d_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py                 # everything below, one card
-    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a, 15a, 16a)
+    python3 chip_smoke.py --kernels-only  # build + small-shape checks (1-3, 7a, 8a-13a, 14a-17a)
     python3 chip_smoke.py --outdir DIR    # keep phase 7b's frames and checkpoints
     python3 chip_smoke.py --parent DIR    # also time a parent checkout's redesigned kernels
 
@@ -338,9 +338,26 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    7b's ``final.npz``, 12 frames as APNG (``acTL`` 12, each frame equal to
    its PNG) and GIF (12 images); (d) ``cli run --trace`` writes a trace
    that names ``force_exact``.
+17. sharded direct stepping (``parallel/``; the machine has one card, and
+   NCCL takes one rank a card): (a, after 16a, also in ``--kernels-only``)
+   the D-rank schedules replayed rank by rank in one process, the step's
+   own hop functions (``sharded.hop_force``, ``SymHops``) on the shapes and
+   diagonals of a D-rank run with slices in place of the collectives, each
+   rank's assembled force against the single-device kernel at full width:
+   exact two-galaxy N = 40,002, ring and gather at D = 2, 4, 8 and the 2 x 2
+   grid, exact (< 1e-5 of scale) and fast (< 2e-4); sym uniform-sphere N =
+   262,144, ringsym at D = 2, 4, 8 and at D = 2 with 2 source chunks a pair
+   hop (< 2e-5); (b) phase 4's run through ``Simulation(mesh=
+   default_mesh(1))`` over NCCL (a process group of one rank), strategy
+   ring, phase 4's token, ms/step beside phase 4's; (c) phase 5's run with
+   strategy ring and ``force_mode="sym"`` (ringsym at one rank: the sym
+   chain and the torch Verlet), phase 5's token, ms/step beside phase 5's;
+   (d) the gather and the 1 x 1 grid (two-galaxy, one chunk of 50 each)
+   bit-equal to one device's run from the same state, and the sharded
+   diagnostics against the single-device ones (rtol 1e-5).
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice), 13c, 14b, 15b (three times) and 16b (the main paths) and 6c,
+12d, 13b (twice), 13c, 14b, 15b (three times), 16b and 17b-17d (the main paths) and 6c,
 6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d, 15c, 16c and 16d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
@@ -382,6 +399,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nbody3d_tpu_torch import SimConfig, Simulation, _build, analysis, cli, gather_checks, pair_checks
 from nbody3d_tpu_torch.models.registry import make_preset
@@ -399,6 +417,8 @@ from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import (
     GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
 )
+from nbody3d_tpu_torch.parallel import sharded
+from nbody3d_tpu_torch.parallel.mesh import default_mesh, grid_mesh
 from nbody3d_tpu_torch.render import rasterize, resolve
 from nbody3d_tpu_torch.render.image import read_apng, read_png, save_png
 from nbody3d_tpu_torch.scatter_checks import (
@@ -1669,11 +1689,11 @@ def _timed_chunks(sim: Simulation, chunks: int, chunk: int) -> list[float]:
     return times
 
 
-def _exact_run(dev, tag: str, **kw) -> float:
+def _exact_run(dev, tag: str, mesh=None, **kw) -> float:
     """two-galaxy N = 40,002 (the reference default) with ``kw``: 200 steps
     in chunks of 50, energy drift <= 1e-3, momentum error <= 1e-5.
     Returns the median ms/step."""
-    sim = Simulation.from_preset("two-galaxy", SimConfig(**kw), device=dev)
+    sim = Simulation.from_preset("two-galaxy", SimConfig(**kw), device=None if mesh else dev, mesh=mesh)
     d0 = sim.diagnostics()
     times = _timed_chunks(sim, 4, 50)
     d1 = sim.diagnostics()
@@ -1692,13 +1712,13 @@ def _exact_run(dev, tag: str, **kw) -> float:
     return med / 50 * 1e3
 
 
-def _sphere_run(dev, tag: str, chunk: int, **kw) -> tuple[float, Simulation]:
+def _sphere_run(dev, tag: str, chunk: int, mesh=None, **kw) -> tuple[float, Simulation]:
     """uniform-sphere N = 262,144, ``morton_every=64``, sym unless ``kw``
     names another force_mode: 1 warm and 2 timed chunks, energy drift <=
     1e-4 * max(steps, 140) / 140, momentum error <= 1e-5.  Returns the
     median ms/step and the simulation."""
     cfg = SimConfig(**{"force_mode": "sym", "morton_every": 64, **kw})
-    sim = Simulation.from_preset("uniform-sphere", cfg, n=262144, device=dev)
+    sim = Simulation.from_preset("uniform-sphere", cfg, n=262144, device=None if mesh else dev, mesh=mesh)
     d0 = sim.diagnostics()
     warm = _timed_chunks(sim, 1, chunk)
     times = _timed_chunks(sim, 2, chunk)
@@ -5159,6 +5179,182 @@ def phase_trace(dev, out: pathlib.Path) -> None:
           f"{text.count('force_exact')} times")
 
 
+# --------------------------------------------- 17: sharded direct stepping
+REPLAY_D = (2, 4, 8)
+
+
+def replay_ring(config: SimConfig, full: torch.Tensor, g: float, d: int, strategy: str) -> torch.Tensor:
+    """Every rank's force of a D-rank ring or gather step in one process:
+    the step's own hop (``sharded.hop_force`` with ``ring_diag`` or
+    ``gather_diag``) on each rank's shard and, in place of the transfers,
+    the slice the rank would hold at that hop (rank ``my - k``'s shard)."""
+    shard = full.shape[0] // d
+    force = sharded.hop_force(config, full.device)
+    rows = [full[i * shard : (i + 1) * shard] for i in range(d)]
+    out = []
+    for my in range(d):
+        if strategy == "gather":
+            out.append(force(rows[my], full, g, sharded.gather_diag(my, shard)))
+            continue
+        acc = torch.zeros_like(rows[my])
+        for k in range(d):
+            acc += force(rows[my], rows[(my - k) % d], g, sharded.ring_diag(k))
+        out.append(acc)
+    return torch.cat(out)
+
+
+def replay_ringsym(config: SimConfig, full: torch.Tensor, g: float, d: int, src_chunks: int | None = None):
+    """Every rank's force of a D-rank ringsym step in one process: each
+    rank's ``SymHops.self_force``, its ``pair_force`` with the shard of
+    ``my - k`` at hop k (where ``ringsym_keeps``), the target part kept and
+    the source part handed to rank ``my - k``, as the backward carry does."""
+    shard = full.shape[0] // d
+    hops = sharded.SymHops(config, shard, full.device, src_chunks)
+    rows = [full[i * shard : (i + 1) * shard] for i in range(d)]
+    acc = [hops.self_force(r, g) for r in rows]
+    for my in range(d):
+        for k in range(1, d // 2 + 1):
+            if sharded.ringsym_keeps(k, my, d):
+                at, ar = hops.pair_force(rows[my], rows[(my - k) % d], g)
+                acc[my] += at
+                acc[(my - k) % d] += ar
+    return torch.cat(acc), hops
+
+
+def replay_grid(config: SimConfig, full: torch.Tensor, g: float, nrows: int, ncols: int) -> torch.Tensor:
+    """Every rank's force of an R x C grid step in one process: rank (r, c)'s
+    tile, target segment r against source set c (the pieces ``i*C + c``),
+    with ``grid_diag``; the reduce-scatter over "col" is the sum over c."""
+    m = full.shape[0] // (nrows * ncols)
+    seg = ncols * m
+    force = sharded.hop_force(config, full.device)
+    out = torch.zeros_like(full)
+    for r in range(nrows):
+        for c in range(ncols):
+            src = torch.cat([full[(i * ncols + c) * m : (i * ncols + c + 1) * m] for i in range(nrows)])
+            out[r * seg : (r + 1) * seg] += force(full[r * seg : (r + 1) * seg], src, g, sharded.grid_diag(r, c, m))
+    return out
+
+
+def _replay_agrees(tag: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> None:
+    torch.cuda.synchronize()
+    e = rel_err(got[:, :3], want[:, :3])
+    check(bool(torch.isfinite(got).all()) and e < tol, f"[17a replay] {tag}: every rank's force vs the single-device "
+          f"kernel {e:.3e} < {tol:g} of scale")
+
+
+def phase_sharded_replay(dev) -> None:
+    """17a: the D-rank schedules replayed rank by rank in one process at
+    full width, each rank's assembled force against the single-device
+    kernel: exact two-galaxy N = 40,002 (ring and gather at D = 2, 4, 8 and
+    the 2 x 2 grid, exact and fast), sym uniform-sphere N = 262,144 (ringsym
+    at D = 2, 4, 8, and D = 2 with two source chunks a pair hop)."""
+    print("[17a sharded replay] every rank's hops at D = 2, 4, 8 and 2 x 2, full width", flush=True)
+    t0 = time.perf_counter()
+    pm_np, vel_np, _ = make_preset("two-galaxy", seed=0, G=G)
+    n = pm_np.shape[0]
+    for mode, tol in (("exact", 1e-5), ("fast", FAST_TWIN_TOL)):
+        config = SimConfig(force_mode=mode)
+        single = cf.force_exact if mode == "exact" else cf.force_fast
+        for n_pad in sorted({pad_count(n, PAD_GRANULE * d) for d in REPLAY_D + (4,)}):
+            full = init_state(pm_np, vel_np, n_pad=n_pad, device=dev).pos_mass
+            want = single(full, full, G, EPS2)
+            for d in REPLAY_D:
+                if pad_count(n, PAD_GRANULE * d) != n_pad:
+                    continue
+                for strategy in ("ring", "gather"):
+                    _replay_agrees(f"{mode} two-galaxy N={n} (n_pad {n_pad}) {strategy} D={d}",
+                                   replay_ring(config, full, G, d, strategy), want, tol)
+            if n_pad == pad_count(n, PAD_GRANULE * 4):
+                _replay_agrees(f"{mode} two-galaxy N={n} (n_pad {n_pad}) 2d 2x2",
+                               replay_grid(config, full, G, 2, 2), want, tol)
+    config = SimConfig(force_mode="sym")
+    pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=262_144)
+    full = init_state(pm_np, vel_np, device=dev).pos_mass
+    want = make_sym_accel_fn(config, full.shape[0])(full, G)
+    for d, chunks in ((2, None), (4, None), (8, None), (2, 2)):
+        got, hops = replay_ringsym(config, full, G, d, chunks)
+        _replay_agrees(f"sym uniform-sphere N={full.shape[0]} ringsym D={d}, {hops.src_chunks} source chunk(s) "
+                       f"a pair hop, tile {hops.b}", got, want, 2e-5)
+    print(f"  17a: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+class OneRankGroup:
+    """A process group of one rank over NCCL (a ``file://`` store in a
+    temporary directory) for phase 17's sharded runs on the one card; the
+    1-D mesh and the 1 x 1 grid over it."""
+
+    def __enter__(self):
+        self._tmp = tempfile.TemporaryDirectory()
+        dist.init_process_group("nccl", init_method=f"file://{self._tmp.name}/store", rank=0, world_size=1)
+        SHARDED["x"] = default_mesh(1)
+        SHARDED["2d"] = grid_mesh(1, 1)
+        return self
+
+    def __exit__(self, *exc):
+        SHARDED.clear()
+        dist.destroy_process_group()
+        self._tmp.cleanup()
+
+
+SHARDED: dict = {}  # phase 17's meshes while OneRankGroup holds the process group
+
+
+def phase_sharded_ring(dev) -> None:
+    """17b: phase 4's run through ``Simulation(mesh=default_mesh(1))``,
+    strategy ring (one rank: the gather), phase 4's token, ms/step beside
+    phase 4's."""
+    ms = MAIN["phase 17b"] = _exact_run(dev, "17b sharded ring, 1 rank", mesh=SHARDED["x"], strategy="ring")
+    one = MAIN.get("phase 4", float("nan"))
+    print(f"  sharded ring {ms:.4f} vs one device (phase 4) {one:.4f} ms/step ({ms / one - 1:+.2%})", flush=True)
+
+
+def phase_sharded_ringsym(dev) -> None:
+    """17c: phase 5's run through ``Simulation(mesh=default_mesh(1))``,
+    strategy ring with ``force_mode="sym"`` (ringsym: the sym chain on the
+    shard, no pair hop), phase 5's token, ms/step beside phase 5's."""
+    ms = MAIN["phase 17c"] = _sphere_run(dev, "17c sharded ringsym, 1 rank", chunk=50, mesh=SHARDED["x"],
+                                         strategy="ring")[0]
+    one = MAIN.get("phase 5", float("nan"))
+    print(f"  ringsym {ms:.4f} vs the fused sym step (phase 5) {one:.4f} ms/step ({ms / one - 1:+.2%})", flush=True)
+
+
+def phase_sharded_gather_2d(dev) -> None:
+    """17d: two-galaxy through the gather (1 rank) and the 2-D grid (1 x
+    1), one chunk of 50 each, against one device's run from the same state
+    (bit-equal: one rank gathers and reduces copies), and the sharded
+    diagnostics against the single-device ones (rtol 1e-5)."""
+    pm_np, vel_np, _ = make_preset("two-galaxy", seed=0, G=G)
+    one = Simulation(SimConfig(), pm_np, vel_np, device=dev)
+    one.run(50, chunk=50)
+    want = one.arrays()
+    d_one = one.diagnostics()
+    for strategy, mesh in (("gather", SHARDED["x"]), ("2d", SHARDED["2d"])):
+        sim = Simulation(SimConfig(strategy=strategy), pm_np, vel_np, mesh=mesh)
+        t0 = time.perf_counter()
+        sim.run(50, chunk=50)
+        ms = (time.perf_counter() - t0) / 50 * 1e3
+        got = sim.arrays()
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+        check(err == 0.0, f"[17d] {strategy} on mesh {mesh.shape}: 50 steps ({ms:.4f} ms/step) bit-equal to one "
+              f"device's (max |diff| {err:.3e})")
+        d = sim.diagnostics()
+        e = max(abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+                for a, b in ((d.kinetic, d_one.kinetic), (d.potential, d_one.potential),
+                             (d.total_energy, d_one.total_energy), (d.total_mass, d_one.total_mass)))
+        pscale = float(np.abs(want[0][:, 3:4] * want[1][:, :3]).sum())
+        em = float(np.abs(np.asarray(d.momentum) - np.asarray(d_one.momentum)).max()) / pscale
+        check(e <= 1e-5 and em <= 1e-6, f"[17d] {strategy}: sharded diagnostics vs one device's: energies and "
+              f"mass {e:.3e} <= 1e-5, momentum {em:.3e} <= 1e-6 of sum |m v|")
+
+
+SHARDED_PATHS = (
+    ("phase 17b (sharded ring path, 1 rank)", phase_sharded_ring, ("force_exact",)),
+    ("phase 17c (sharded ringsym path, 1 rank)", phase_sharded_ringsym, SYM_FORCE),
+    ("phase 17d (sharded gather and 2d paths, 1 rank)", phase_sharded_gather_2d, ("force_exact",)),
+)
+
+
 def _extras(r: dict) -> str:
     """A row's all-pairs bound and shares, and the parent's time, where it has them."""
     out = ""
@@ -5186,7 +5382,8 @@ SYM = ("sym_diag_prep", "sym_hops", "sym_epilogue")
 VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # The main paths, each with the kernels it runs; a kernel's "launches" is
 # its sum over these windows, phase 7b's (its entry is made in main,
-# which knows the output directory) and the live viewer's, 16b.
+# which knows the output directory), the live viewer's, 16b, and phase
+# 17's (``SHARDED_PATHS``, run inside ``OneRankGroup``).
 PATHS = (
     ("phase 4 (exact path)", phase_exact, ("force_exact",)),
     ("phase 5 (sym path)", phase_sym, SYM),
@@ -5313,6 +5510,7 @@ def main() -> int:
     phase_macro_checks(dev)
     phase_cosmo_checks(dev)
     phase_device_resolve_checks(dev)
+    phase_sharded_replay(dev)
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
@@ -5323,6 +5521,10 @@ def main() -> int:
         out.mkdir(parents=True, exist_ok=True)
         render_path = (RENDER_PATH[0], functools.partial(phase_render_path, out=out), RENDER_PATH[1])
         by_path = {path: run_window(path, run, ks, dev) for path, run, ks in PATHS + (render_path, SERVE_PATH)}
+        t0 = time.perf_counter()
+        with OneRankGroup():
+            by_path.update({path: run_window(path, run, ks, dev) for path, run, ks in SHARDED_PATHS})
+        print(f"  17b-17d with the process group's set-up: {time.perf_counter() - t0:.1f} s", flush=True)
         # 16c and 16d: 7b's checkpoint animated, and a traced run.
         run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
         run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)

@@ -19,6 +19,16 @@ device (default ``cuda``, which raises where there is no card).  dt and G
 take linear values (``--dt 1e-4``) or log-slider values (``--log-dt -4``).
 Resuming a checkpoint keeps its saved config except for the flags given.
 
+Several devices (``run``, ``bench``): ``--devices N``
+starts N local ranks, one process a device (NCCL on ``--device cuda``, one
+card a rank; gloo on ``--device cpu``), and shards the bodies over them
+with ``--strategy ring|ringsym|gather|2d`` (``parallel/``).
+``--distributed`` joins a process group that ``torchrun`` started
+(``init_method="env://"``, device ``cuda:$LOCAL_RANK``) and shards over all
+of its ranks.  Only rank 0 prints and writes files.  Rendering a sharded
+run is not ported yet (ROADMAP item 11c): ``animate`` and ``serve`` refuse
+these flags.
+
     python -m nbody3d_tpu_torch.cli run --preset two-galaxy --steps 2000 --diagnostics \
         --checkpoint-every 500 --render-every 500 --outdir out
     python -m nbody3d_tpu_torch.cli run --method p3m --preset two-galaxy --steps 200 --diagnostics
@@ -32,6 +42,9 @@ Resuming a checkpoint keeps its saved config except for the flags given.
     python -m nbody3d_tpu_torch.cli serve --preset two-galaxy --port 8000
     python -m nbody3d_tpu_torch.cli run --steps 200 --trace trace_dir
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
+    python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --backend jnp --n 2048 --steps 20
+    torchrun --nproc-per-node 8 -m nbody3d_tpu_torch.cli run --distributed --strategy ringsym \
+        --force-mode sym --preset uniform-sphere --n 262144 --steps 100
 """
 
 from __future__ import annotations
@@ -84,6 +97,15 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--block-source", type=int, default=None,
                    help="accepted for interchange with nbody3d_tpu.cli and kept in the saved config; "
                         "it has no effect on the port's kernels")
+    p.add_argument("--devices", type=int, default=1,
+                   help=">1 shards the bodies over this many local ranks, one process a device "
+                        "(run, bench; animate and serve refuse it: ROADMAP item 11c)")
+    p.add_argument("--strategy", default=None, choices=["ring", "ringsym", "gather", "2d"],
+                   help="the sharded force's exchange: ring (sources round the ring), ringsym (Newton-3 "
+                        "half ring), gather (all-gather the sources), 2d (the grid decomposition)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group torchrun started (env://, cuda:$LOCAL_RANK) and shard "
+                        "over all of its ranks")
 
 
 def _config_overrides(args) -> dict:
@@ -115,6 +137,7 @@ def _config_overrides(args) -> dict:
         ("integrator", args.integrator),
         ("block_target", args.block_target),
         ("block_source", args.block_source),
+        ("strategy", args.strategy),
     ]:
         if arg is not None:
             ov[field] = arg
@@ -135,14 +158,63 @@ def _build_config(args, base=None):
     return config
 
 
-def _load_sim(path, args):
+def _resolved_strategy(args) -> str:
+    """The strategy in effect: the flag, else a resumed checkpoint's saved
+    config, else the default.  The mesh's shape follows it (2d needs two
+    axes)."""
+    if args.strategy is not None:
+        return args.strategy
+    if getattr(args, "checkpoint", None):
+        from nbody3d_tpu_torch.utils.checkpoint import peek_config
+
+        saved = peek_config(args.checkpoint)
+        if saved is not None:
+            return saved.strategy
+    from nbody3d_tpu_torch.config import SimConfig
+
+    return SimConfig().strategy
+
+
+def _build_mesh(args):
+    """The mesh of this rank, or None on one device: with
+    ``--distributed`` over the ranks torchrun started, in a rank that
+    :func:`main` spawned for ``--devices N`` over those.  Ranks other than
+    0 print nothing."""
+    import torch.distributed as dist
+
+    if args.distributed:
+        import torch
+
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+            dist.init_process_group("nccl", init_method="env://")
+        else:
+            dist.init_process_group("gloo", init_method="env://")
+    elif not dist.is_initialized():
+        return None
+    from nbody3d_tpu_torch.parallel.mesh import default_mesh, grid_mesh
+
+    n = args.devices if args.devices > 1 else None
+    mesh = grid_mesh(n_devices=n) if _resolved_strategy(args) == "2d" else default_mesh(n)
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    return mesh
+
+
+def _primary(sim) -> bool:
+    """Whether this process writes files: one device, or rank 0."""
+    return sim.mesh is None or sim.mesh.rank == 0
+
+
+def _load_sim(path, args, mesh=None):
     """Resume semantics: the checkpoint's saved config wins except for
     flags the user set (dt/G stored in a reference-JSON file included,
     set again below when given on the command line)."""
     from nbody3d_tpu_torch.engine import Simulation
     from nbody3d_tpu_torch.utils.checkpoint import peek_config
 
-    sim = Simulation.load(path, _build_config(args, base=peek_config(path)), device=args.device)
+    config = _build_config(args, base=peek_config(path))
+    sim = Simulation.load(path, config, device=None if mesh else args.device, mesh=mesh)
     ov = _config_overrides(args)
     if "dt" in ov:
         sim.dt = ov["dt"]
@@ -154,8 +226,9 @@ def _load_sim(path, args):
 def cmd_run(args) -> int:
     from nbody3d_tpu_torch.engine import Simulation
 
+    mesh = _build_mesh(args)
     if args.checkpoint:
-        sim = _load_sim(args.checkpoint, args)
+        sim = _load_sim(args.checkpoint, args, mesh)
     else:
         config = _build_config(args)
         kw = {}
@@ -175,9 +248,10 @@ def cmd_run(args) -> int:
             kw["spectrum"] = args.spectrum
             if args.box_mpc is not None:
                 kw["box_mpc"] = args.box_mpc
-        sim = Simulation.from_preset(args.preset, config, n=args.n, device=args.device, **kw)
-    os.makedirs(args.outdir, exist_ok=True)
-    if args.metrics:
+        sim = Simulation.from_preset(args.preset, config, n=args.n, device=None if mesh else args.device,
+                                     mesh=mesh, **kw)
+    if _primary(sim):
+        os.makedirs(args.outdir, exist_ok=True)
         sim.metrics_path = args.metrics
     return _run_loop(args, sim)
 
@@ -194,10 +268,11 @@ def _run_loop(args, sim) -> int:
     """The run, inside a ``torch.profiler`` trace with ``--trace DIR``."""
     from nbody3d_tpu_torch.utils.profiling import device_trace
 
-    with device_trace(args.trace):
+    trace = args.trace if _primary(sim) else None
+    with device_trace(trace):
         _run_chunks(args, sim)
-    if args.trace:
-        print(f"  trace -> {os.path.join(args.trace, 'trace.json')}", flush=True)
+    if trace:
+        print(f"  trace -> {os.path.join(trace, 'trace.json')}", flush=True)
     sim.save(os.path.join(args.outdir, "final.npz"))
     return 0
 
@@ -244,11 +319,15 @@ def _run_chunks(args, sim) -> None:
 
 def _append_analysis(args, sim) -> None:
     """``--analyze-every``: the O(N log N) report (no potential) of the real
-    rows, on their device, appended to ``<outdir>/analysis.jsonl``."""
+    rows, on their device, appended to ``<outdir>/analysis.jsonl`` (a
+    sharded state gathered first, on every rank)."""
     from nbody3d_tpu_torch import analysis
 
     n = sim.n_real
-    s = analysis.summary(sim.state.pos_mass[:n].detach(), sim.state.vel[:n].detach(), sim.G,
+    state = sim.global_state()
+    if not _primary(sim):
+        return
+    s = analysis.summary(state.pos_mass[:n].detach(), state.vel[:n].detach(), sim.G,
                          eps2=sim.config.eps2, nbins=16, potential=False)
     s["step"] = sim.step_count
     with open(os.path.join(args.outdir, "analysis.jsonl"), "a") as f:
@@ -427,7 +506,8 @@ def cmd_bench(args) -> int:
             f"bench: --steps ({args.steps}) must be a multiple of --chunk ({args.chunk})"
         )
     config = _build_config(args)
-    sim = Simulation.from_preset(args.preset, config, n=args.n, device=args.device)
+    mesh = _build_mesh(args)
+    sim = Simulation.from_preset(args.preset, config, n=args.n, device=None if mesh else args.device, mesh=mesh)
     sim.run(max(args.warmup_steps, args.chunk), chunk=args.chunk)
     t0 = time.perf_counter()
     sim.run(args.steps, chunk=args.chunk)
@@ -445,6 +525,8 @@ def cmd_bench(args) -> int:
         "method": config.method,
         "device": str(sim.device),
         "device_name": _device_name(sim.device),
+        "devices": sim.mesh.size if sim.mesh is not None else 1,
+        "strategy": config.strategy if sim.mesh is not None else None,
     }
     print(json.dumps(out))
     return 0
@@ -461,8 +543,11 @@ def _device_name(device) -> str:
 def cmd_info(args) -> int:
     import torch
 
+    from nbody3d_tpu_torch.parallel.mesh import mesh_info
+
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     info = {
+        **mesh_info(),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "cuda_available": torch.cuda.is_available(),
@@ -599,6 +684,28 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
+    if args.fn in (cmd_animate, cmd_serve) and (args.devices > 1 or args.distributed):
+        raise NotImplementedError(f"{args.cmd} on a mesh renders a sharded state: ROADMAP item 11c, not ported yet")
+    if args.fn in MESH_COMMANDS and args.devices > 1 and not args.distributed:
+        import torch
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            from nbody3d_tpu_torch.parallel.launch import spawn
+
+            kind = torch.device(args.device).type
+            threads = max(1, torch.get_num_threads() // args.devices)
+            spawn(_rank_main, args.devices, args, device=kind, timeout=None, threads=threads)
+            return 0
+    return args.fn(args)
+
+
+# The subcommands that step a simulation on a mesh with --devices/--distributed.
+MESH_COMMANDS = (cmd_run, cmd_bench)
+
+
+def _rank_main(rank: int, world: int, args) -> int:
+    """One of the ``--devices N`` ranks: the subcommand on the mesh."""
     return args.fn(args)
 
 

@@ -2,8 +2,7 @@
 
 ``SimConfig`` keeps the JAX package's field names, defaults and JSON
 (``to_json``/``from_json``), so a config written by either package loads
-in the other.  Fields that select paths the port does not have yet
-(multi-device strategies) are kept for that interchange.
+in the other.
 
 ``dt`` and ``G`` stored here are defaults: the engine passes them to every
 step as runtime scalars (the live sliders), and no kernel is rebuilt when
@@ -49,9 +48,10 @@ class SimConfig:
     ``backend``, ``block_target`` (capped at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
     Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,
-    ``grad_precision``, ``seed`` and ``size_factor``.
-    ``p3m_halo_tiles`` belongs to the sharded P3M step, which is not
-    ported.
+    ``grad_precision``, ``seed``, ``size_factor``, and on a mesh
+    (``parallel/``) ``strategy`` and ``mesh_axis``.  ``p3m_halo_tiles``
+    belongs to the sharded P3M step, which is not ported (ROADMAP item
+    11b).
     """
 
     # Physics.
@@ -101,7 +101,8 @@ class SimConfig:
     # one path.  (Only the forward of force_mode="fast" rounds weights.)
     grad_precision: str = "precise"
 
-    # Multi-device (not ported).
+    # Multi-device (parallel/sharded.py): the 1-D mesh's axis, and the
+    # exchange: "ring" | "ringsym" | "gather" | "2d".
     mesh_axis: str = "x"
     strategy: str = "ring"
 

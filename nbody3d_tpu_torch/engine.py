@@ -1,5 +1,13 @@
 """Simulation engine: owns the state on one device, steps it in chunks.
 
+With a ``mesh`` (``parallel/mesh.py``) the state is sharded: every rank
+builds the same global state, keeps its rows (``parallel.shard_state``)
+and steps them with the sharded step of ``config.strategy``; diagnostics
+are the sharded ones, and what needs the global state (``arrays``, the
+Morton re-sort, ``save``) gathers it on every rank, which makes those
+calls collective: every rank makes them, in one order.  Only rank 0
+writes a checkpoint.  Rendering a sharded state is ROADMAP item 11c.
+
 The host sees the state at chunk boundaries only (logging, diagnostics,
 Morton re-sorts, checkpoints, frames).  Each chunk is timed on the host
 clock and ends in ``torch.cuda.synchronize`` on a CUDA device, so the time
@@ -37,14 +45,28 @@ from nbody3d_tpu_torch.ops.step import (
     resolve_device,
     run_chunk,
 )
+from nbody3d_tpu_torch.parallel import sharded
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count, unpad
 from nbody3d_tpu_torch.utils.profiling import Ema, StepStats
 
 
+def _resolve_sim_device(device, mesh) -> torch.device:
+    """``device``, or the mesh's: with a mesh the state lives on its rank's
+    device, and a ``device`` given beside it must be that one."""
+    if mesh is None:
+        if device is None:
+            raise TypeError("Simulation needs a device (or a mesh)")
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device!r} is not the mesh rank's device {mesh.device}")
+    return mesh.device
+
+
 class Simulation:
     """A :class:`SimState` on ``device``, its step function and run
-    bookkeeping.  ``device`` is required: ``"cuda"`` raises where there is
-    no card, and nothing moves to another device behind the caller."""
+    bookkeeping.  ``device`` is required, or with a ``mesh`` its rank's
+    device: ``"cuda"`` raises where there is no card, and nothing moves to
+    another device behind the caller."""
 
     def __init__(
         self,
@@ -53,12 +75,14 @@ class Simulation:
         vel: np.ndarray,
         accel: np.ndarray | None = None,
         *,
-        device: torch.device | str,
+        device: torch.device | str | None = None,
         step: int = 0,
         camera_target: np.ndarray | None = None,
+        mesh=None,
     ):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _resolve_sim_device(device, mesh)
         # The camera's orbit centre (a preset's third return value), and the
         # full camera pose of a loaded checkpoint (util.js:247-258).
         self.camera_target = (
@@ -69,7 +93,8 @@ class Simulation:
         # rolls again (the reference's regenerate button re-runs main()).
         self._preset: tuple | None = None
         self.n_real = int(np.asarray(pos_mass).shape[0])
-        self.n_pad = pad_count(self.n_real, pad_multiple(config, self.device))
+        # A mesh's shards hold whole tiles: the granule times the ranks.
+        self.n_pad = pad_count(self.n_real, pad_multiple(config, self.device) * (mesh.size if mesh else 1))
         # Total mass, cached on the host for the comoving background's
         # rho_bar (scale_factor): one column sum at init, not one a query.
         # Invariant: every integrator passes the mass column through
@@ -82,7 +107,12 @@ class Simulation:
         self.state = init_state(
             pos_mass, vel, accel, n_pad=self.n_pad, step=step, device=self.device
         )
-        self._step_fn = make_step_fn(config, self.n_pad, self.n_real, self.device)
+        if mesh is None:
+            self._step_fn = make_step_fn(config, self.n_pad, self.n_real, self.device)
+        else:
+            self._step_fn = sharded.make_sharded_step(config, self.n_pad, self.n_real, mesh)
+            self._sharded_diag = sharded.make_sharded_diagnostics(config, self.n_pad, mesh)
+            self.state = sharded.shard_state(self.state, mesh)
         # Live sliders and pause (dt swapped to 0 through _old_dt).  Direct
         # slot writes: the dt/G setters guard a comoving run's history,
         # which construction has not begun.
@@ -107,8 +137,9 @@ class Simulation:
         name: str,
         config: SimConfig | None = None,
         *,
-        device: torch.device | str,
+        device: torch.device | str | None = None,
         n: int | None = None,
+        mesh=None,
         **preset_kw,
     ) -> "Simulation":
         config = config or SimConfig()
@@ -116,7 +147,7 @@ class Simulation:
             name, seed=config.seed, G=config.G, n=n,
             size_factor=config.size_factor, **preset_kw,
         )
-        sim = cls(config, pos_mass, vel, device=device, camera_target=target)
+        sim = cls(config, pos_mass, vel, device=device, camera_target=target, mesh=mesh)
         sim._preset = (name, n, dict(preset_kw))
         return sim
 
@@ -139,7 +170,7 @@ class Simulation:
             seed = int(np.random.SeedSequence().generate_state(1)[0]) & 0x7FFFFFFF
         dt_live = self._old_dt if self._old_dt is not None else self.dt
         config = self.config.replace(seed=seed, G=self.G, dt=dt_live)
-        return Simulation.from_preset(name, config, n=n, device=self.device, **kw)
+        return Simulation.from_preset(name, config, n=n, device=self.device, mesh=self.mesh, **kw)
 
     # -------------------------------------------------- live dt/G (sliders)
     @property
@@ -311,10 +342,13 @@ class Simulation:
         if done < self._next_morton:
             return
         self._next_morton = done + every
-        p, v, a = morton_reorder(
-            self.state.pos_mass, self.state.vel, self.state.accel, n_real=self.n_real
-        )
-        self.state = SimState(p, v, a, self.state.step)
+        state = self.global_state()
+        p, v, a = morton_reorder(state.pos_mass, state.vel, state.accel, n_real=self.n_real)
+        state = SimState(p, v, a, state.step)
+        if self.mesh is not None:
+            # The same stable sort on every rank; each keeps its own rows.
+            state = sharded.shard_state(state, self.mesh)
+        self.state = state
 
     @property
     def scale_factor(self) -> float | None:
@@ -341,9 +375,17 @@ class Simulation:
     def step_count(self) -> int:
         return self.state.step
 
+    def global_state(self) -> SimState:
+        """The whole padded state: this one, or a sharded one gathered on
+        every rank (collective)."""
+        if self.mesh is None:
+            return self.state
+        return sharded.gather_state(self.state, self.mesh)
+
     def arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host copies of the real (unpadded) pos_mass, vel, accel."""
-        return unpad(self.state, self.n_real)
+        """Host copies of the real (unpadded) pos_mass, vel, accel
+        (collective with a mesh)."""
+        return unpad(self.global_state(), self.n_real)
 
     def diagnostics(self, chunk: int | None = 1024) -> diag_mod.Diagnostics:
         """Energy/momentum diagnostics of the padded state on the device
@@ -352,6 +394,9 @@ class Simulation:
         the host (:meth:`_periodic_diagnostics`)."""
         if self.config.boundary == "periodic":
             return self._periodic_diagnostics()
+        if self.mesh is not None:
+            d = self._sharded_diag(self.state, self.G)
+            return diag_mod.Diagnostics(*(t.detach().cpu().numpy() for t in d))
         if chunk is not None:
             # Bound the (chunk, N) pair temporaries to ~1 GB each.
             mem_cap = max(8, (1 << 28) // max(self.n_pad, 1))
@@ -369,8 +414,9 @@ class Simulation:
         diagnostics' cadence.  Padding rows carry zero mass."""
         from nbody3d_tpu_torch.ops.ewald import ewald_potential_energy_f64
 
-        pm_h = self.state.pos_mass.detach().cpu().double().numpy()
-        vel_h = self.state.vel.detach().cpu().double().numpy()
+        state = self.global_state()
+        pm_h = state.pos_mass.detach().cpu().double().numpy()
+        vel_h = state.vel.detach().cpu().double().numpy()
         m = pm_h[:, 3:4]
         ke = 0.5 * float(np.sum(m[:, 0] * np.sum(vel_h[:, :3] ** 2, axis=1)))
         pe = float(self.G) * ewald_potential_energy_f64(pm_h, float(self.config.box_size), eps2=self.config.eps2)
@@ -386,26 +432,32 @@ class Simulation:
     # ---------------------------------------------------------- checkpoint
     def save(self, path: str) -> None:
         """Save a checkpoint; format by suffix: ``.json`` = reference
-        schema, ``.npz`` = native (``utils/checkpoint.py``)."""
+        schema, ``.npz`` = native (``utils/checkpoint.py``).  With a mesh
+        every rank calls it (the state is gathered) and rank 0 writes."""
         from nbody3d_tpu_torch.utils import checkpoint
 
-        if checkpoint.check_format(path) == "json":
+        fmt = checkpoint.check_format(path)
+        if self.mesh is not None and self.mesh.rank != 0:
+            self.arrays()  # the gather that rank 0's save makes
+            return
+        if fmt == "json":
             checkpoint.save_reference_json(path, self)
         else:
             checkpoint.save_npz(path, self)
 
     @classmethod
     def load(
-        cls, path: str, config: SimConfig | None = None, *, device: torch.device | str
+        cls, path: str, config: SimConfig | None = None, *, device: torch.device | str | None = None, mesh=None
     ) -> "Simulation":
-        """A Simulation on ``device`` from a ``.json`` or ``.npz`` checkpoint.
-        ``config=None`` takes the file's (npz) or the defaults with the file's
-        G and dt (JSON)."""
+        """A Simulation on ``device`` (or sharded over ``mesh``: every rank
+        reads the file and keeps its rows) from a ``.json`` or ``.npz``
+        checkpoint.  ``config=None`` takes the file's (npz) or the defaults
+        with the file's G and dt (JSON)."""
         from nbody3d_tpu_torch.utils import checkpoint
 
         if checkpoint.check_format(path) == "json":
-            return checkpoint.load_reference_json(path, config, device=device)
-        return checkpoint.load_npz(path, config, device=device)
+            return checkpoint.load_reference_json(path, config, device=device, mesh=mesh)
+        return checkpoint.load_npz(path, config, device=device, mesh=mesh)
 
     # -------------------------------------------------------------- render
     def render_frame(
@@ -429,6 +481,7 @@ class Simulation:
         from nbody3d_tpu_torch.render.rasterize import render_points
         from nbody3d_tpu_torch.utils.camera import Camera
 
+        self._check_unsharded()
         if camera is None:
             camera = Camera(target=self.camera_target)
         t0 = time.perf_counter()
@@ -446,6 +499,13 @@ class Simulation:
         self.last_render_ms = (time.perf_counter() - t0) * 1e3
         self.last_render_info = f"{width}x{height} {camera.describe()}"
         return img
+
+    def _check_unsharded(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "rendering a sharded simulation: the min-merge sharded render (render/sharded.py) is "
+                "ROADMAP item 11c, not ported yet"
+            )
 
     def _to_pinned(self, t: torch.Tensor) -> torch.Tensor:
         """A non-blocking copy of ``t`` into this sim's pinned host buffer of
@@ -482,6 +542,7 @@ class Simulation:
 
         if resolve not in rasterize.RESOLVES:
             raise ValueError(f"unknown resolve {resolve!r} ({', '.join(rasterize.RESOLVES)})")
+        self._check_unsharded()
         if camera is None:
             camera = Camera(target=self.camera_target)
         t0 = time.perf_counter()

@@ -31,24 +31,33 @@ def kinetic_energy(pos_mass: torch.Tensor, vel: torch.Tensor) -> torch.Tensor:
 
 
 def potential_energy(
-    pos_mass: torch.Tensor, G: float, *, eps2: float = 1e-4, chunk: int | None = None
+    pos_mass: torch.Tensor,
+    G: float,
+    *,
+    eps2: float = 1e-4,
+    chunk: int | None = None,
+    sources: torch.Tensor | None = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Softened pairwise potential.  O(N^2); ``chunk`` bounds memory."""
+    """Softened pairwise potential.  O(N^2); ``chunk`` bounds memory.
+    With ``sources`` (a sharded state's gathered rows, of which
+    ``pos_mass`` are rows ``row0 ..``), the part of it that these rows
+    carry: half of each of their pairs, the self pair left out by index."""
     n = pos_mass.shape[0]
-    pos = pos_mass[:, :3]
+    src = pos_mass if sources is None else sources
     m = pos_mass[:, 3]
     if chunk is None or chunk >= n:
         chunk = n
     if n % chunk != 0:
         raise ValueError(f"chunk {chunk} must divide N {n}")
-    src_idx = torch.arange(n, device=pos_mass.device)
+    src_idx = torch.arange(src.shape[0], device=pos_mass.device)
     parts = []
     for s in range(0, n, chunk):
-        tpos = pos[s : s + chunk]
-        diff = pos[None, :, :] - tpos[:, None, :]
+        tpos = pos_mass[s : s + chunk, :3]
+        diff = src[None, :, :3] - tpos[:, None, :]
         d2 = torch.sum(diff * diff, dim=-1) + eps2
-        pair = m[s : s + chunk, None] * m[None, :] * torch.rsqrt(d2)
-        pair = torch.where(src_idx[None, :] == src_idx[s : s + chunk, None], 0.0, pair)
+        pair = m[s : s + chunk, None] * src[None, :, 3] * torch.rsqrt(d2)
+        pair = torch.where(src_idx[None, :] == src_idx[row0 + s : row0 + s + chunk, None], 0.0, pair)
         parts.append(torch.sum(pair))
     return -0.5 * float(G) * torch.sum(torch.stack(parts))
 

@@ -1,0 +1,186 @@
+"""What the multi-rank tests run on each rank (``parallel.launch.spawn``).
+
+A spawned rank imports the module of its function anew, and the test
+modules import jax, so the ranks' functions live here.  :func:`run_cases`
+runs a list of cases on the mesh each builds and returns rank 0's results
+as numpy (other ranks return None); a rank that imported the JAX package
+fails (and ``spawn`` fails one that imported jax).  The states come from
+:func:`random_bodies`, which the tests call too, so the JAX package gets
+the same inputs.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from nbody3d_tpu_torch.config import SimConfig
+from nbody3d_tpu_torch.parallel import mesh as mesh_mod
+from nbody3d_tpu_torch.parallel import sharded
+from nbody3d_tpu_torch.state import init_state
+
+
+def random_bodies(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_sharded.py``'s ``random_state`` bodies: positions
+    N(0, 1), masses U(1, 50), velocities N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    pm = np.concatenate([rng.normal(size=(n, 3)), rng.uniform(1, 50, size=(n, 1))], axis=1).astype(np.float32)
+    v = np.concatenate([rng.normal(size=(n, 3)) * 0.1, np.zeros((n, 1))], axis=1).astype(np.float32)
+    return pm, v
+
+
+def _mesh(spec):
+    """``"x"``: the 1-D mesh; ``(rows, cols)``: the grid mesh (``(None,
+    None)``: its default shape)."""
+    return mesh_mod.default_mesh() if spec == "x" else mesh_mod.grid_mesh(*spec)
+
+
+def _numpy(state):
+    return tuple(t.numpy().copy() for t in (state.pos_mass, state.vel, state.accel)) + (state.step,)
+
+
+def _step_case(mesh, case: dict):
+    """``steps`` sharded steps of :func:`random_bodies` (padded to
+    ``n_pad``); the gathered state."""
+    cfg = SimConfig(**case["config"])
+    n, n_pad = case["n"], case.get("n_pad", case["n"])
+    pm, v = random_bodies(case["seed"], n)
+    state = sharded.shard_state(init_state(pm, v, n_pad=n_pad, device="cpu"), mesh)
+    step = sharded.make_sharded_step(cfg, n_pad, n, mesh, src_chunks=case.get("src_chunks"))
+    for _ in range(case.get("steps", 1)):
+        state = step(state, case.get("dt", 1e-4), case.get("G", 1e-4))
+    return _numpy(sharded.gather_state(state, mesh))
+
+
+def _diag_case(mesh, case: dict):
+    cfg = SimConfig(**case.get("config", {}))
+    pm, v = random_bodies(case["seed"], case["n"])
+    state = sharded.shard_state(init_state(pm, v, device="cpu"), mesh)
+    d = sharded.make_sharded_diagnostics(cfg, case["n"], mesh)(state, case.get("G", 1e-4))
+    return tuple(t.numpy().copy() for t in d)
+
+
+class _Spy:
+    """Records, in call order, each ``batch_isend_irecv`` ("send") and
+    each hop force ("force") of the sharded module."""
+
+    def __init__(self):
+        self.log: list[str] = []
+
+    def wrap(self, what: str, fn):
+        def spy(*args, **kw):
+            self.log.append(what)
+            return fn(*args, **kw)
+
+        return spy
+
+
+def _order_case(mesh, case: dict):
+    """The ring's call order on this rank, with the kernel route's force
+    (``force_exact``'s twin here) and the transfers spied on."""
+    spy = _Spy()
+    saved = dist.batch_isend_irecv, sharded.force_exact, sharded.accel_partial
+    dist.batch_isend_irecv = spy.wrap("send", saved[0])
+    sharded.force_exact = spy.wrap("force", saved[1])
+    sharded.accel_partial = spy.wrap("force", saved[2])
+    try:
+        _step_case(mesh, case)
+    finally:
+        dist.batch_isend_irecv, sharded.force_exact, sharded.accel_partial = saved
+    return spy.log
+
+
+def _engine_case(mesh, case: dict):
+    """``Simulation(mesh=...)``: a preset run with Morton re-sorts, the
+    diagnostics, a checkpoint saved and loaded back sharded (npz and
+    JSON), and a refused frame."""
+    from nbody3d_tpu_torch.engine import Simulation
+
+    cfg = SimConfig(**case["config"])
+    sim = Simulation.from_preset(case["preset"], cfg, n=case["n"], mesh=mesh)
+    sim.run(case["steps"], chunk=case["chunk"])
+    d = sim.diagnostics()
+    out = {"arrays": sim.arrays(), "n_pad": sim.n_pad, "shard": sim.state.pos_mass.shape[0],
+           "step": sim.step_count, "diag": tuple(np.asarray(x) for x in d)}
+    path = case["path"]
+    for suffix in (".npz", ".json"):
+        sim.save(path + suffix)
+        dist.barrier()  # rank 0 has written the file
+        back = Simulation.load(path + suffix, mesh=mesh)
+        out["loaded" + suffix] = back.arrays()
+    try:
+        sim.render_frame()
+    except NotImplementedError as e:
+        out["render_error"] = str(e)
+    return out
+
+
+def _mesh_case(mesh, case: dict):
+    """The mesh as this rank sees it, and an all-gather of the ranks along
+    each axis (their global ranks, in group order)."""
+    along = {}
+    for axis, group in mesh.groups.items():
+        size = dist.get_world_size(group)
+        out = torch.empty(size, dtype=torch.int64)
+        mesh_mod.all_gather_single(out, torch.tensor([mesh.rank]), group=group)
+        along[axis] = out.tolist()
+    return {"shape": mesh.shape, "axes": mesh.axis_names, "rank": mesh.rank, "coords": mesh.coords,
+            "along": along, "info": mesh_mod.mesh_info()}
+
+
+def _mesh_errors_case(mesh, case: dict):
+    """What the constructors raise for a device count or shape that does
+    not fit the process group."""
+    out = []
+    for make in (lambda: mesh_mod.default_mesh(dist.get_world_size() + 1),
+                 lambda: mesh_mod.grid_mesh(rows=dist.get_world_size() + 1),
+                 lambda: mesh_mod.grid_mesh(2, dist.get_world_size())):
+        try:
+            make()
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+CASES = {"step": _step_case, "diag": _diag_case, "order": _order_case, "engine": _engine_case,
+         "mesh": _mesh_case, "mesh_errors": _mesh_errors_case}
+
+
+def run_cases(rank: int, world: int, cases: list[dict]):
+    """Run ``cases`` (each ``{"kind": ..., "mesh": "x" | (rows, cols),
+    ...}``) in order; rank 0 returns their results, and every rank the
+    mesh cases' (each rank's view)."""
+    out = []
+    for case in cases:
+        res = CASES[case["kind"]](_mesh(case.get("mesh", "x")), case)
+        out.append(res if rank == 0 or case["kind"] == "mesh" else None)
+    if any(m.split(".")[0] == "nbody3d_tpu" for m in sys.modules):
+        raise RuntimeError("a rank of the port imported the JAX package")
+    return out
+
+
+def raise_on(rank: int, world: int, bad: int):
+    """Rank ``bad`` raises; the others wait for it in a collective."""
+    if rank == bad:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.barrier()
+
+
+def hang_on(rank: int, world: int, bad: int):
+    """Rank ``bad`` never reaches the collective the others wait in."""
+    if rank == bad:
+        import time
+
+        time.sleep(3600)
+    dist.barrier()
+
+
+def env_of(rank: int, world: int):
+    """What a rank sees of its process: whether jax is loaded, its threads."""
+    return {"jax": "jax" in sys.modules, "threads": torch.get_num_threads(), "pid": os.getpid(),
+            "rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend()}

@@ -67,9 +67,10 @@ def save_reference_json(path: str, sim) -> None:
         json.dump(data, f)
 
 
-def load_reference_json(path: str, config: SimConfig | None = None, *, device):
+def load_reference_json(path: str, config: SimConfig | None = None, *, device=None, mesh=None):
     """A Simulation from a reference-schema file; its G and dt, where it
-    has them, replace ``config``'s."""
+    has them, replace ``config``'s.  With a mesh every rank reads the file
+    and keeps its rows."""
     from nbody3d_tpu_torch.engine import Simulation
 
     with open(path, "rb") as f:
@@ -97,7 +98,7 @@ def load_reference_json(path: str, config: SimConfig | None = None, *, device):
         config = config.replace(dt=dt)
     sim = Simulation(
         config, bodies, vel, accel, step=step, device=device,
-        camera_target=camera.target if camera is not None else None,
+        camera_target=camera.target if camera is not None else None, mesh=mesh,
     )
     sim.loaded_camera = camera
     return sim
@@ -118,8 +119,9 @@ def save_npz(path: str, sim) -> None:
     )
 
 
-def load_npz(path: str, config: SimConfig | None = None, *, device):
-    """A Simulation from a native file; ``config=None`` takes the saved one."""
+def load_npz(path: str, config: SimConfig | None = None, *, device=None, mesh=None):
+    """A Simulation from a native file; ``config=None`` takes the saved one.
+    With a mesh every rank reads the file and keeps its rows."""
     from nbody3d_tpu_torch.engine import Simulation
 
     with np.load(path) as z:
@@ -128,7 +130,7 @@ def load_npz(path: str, config: SimConfig | None = None, *, device):
         camera = Camera.from_dict(json.loads(bytes(z["camera_json"]).decode()))
     config = saved_config if config is None else config
     sim = Simulation(
-        config, pos_mass, vel, accel, step=step, device=device, camera_target=camera.target,
+        config, pos_mass, vel, accel, step=step, device=device, camera_target=camera.target, mesh=mesh,
     )
     sim.dt = config.dt
     sim.G = config.G

@@ -223,6 +223,7 @@ def test_port_imports_without_jax(tmp_path):
         "import nbody3d_tpu_torch.ops.pm, nbody3d_tpu_torch.ops.p3m, nbody3d_tpu_torch.ops.mesh_cuda\n"
         "import nbody3d_tpu_torch.ops.ewald, nbody3d_tpu_torch.ops.expansion, nbody3d_tpu_torch.analysis\n"
         "import nbody3d_tpu_torch.models.cosmo, nbody3d_tpu_torch.viewer, nbody3d_tpu_torch.render.jpeg\n"
+        "import nbody3d_tpu_torch.parallel, nbody3d_tpu_torch.parallel.launch, nbody3d_tpu_torch.parallel.rank_checks\n"
         "import chip_smoke\n"
         "import numpy as np\n"
         "from nbody3d_tpu_torch.render import image, jpeg\n"
