@@ -355,9 +355,32 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    (d) the gather and the 1 x 1 grid (two-galaxy, one chunk of 50 each)
    bit-equal to one device's run from the same state, and the sharded
    diagnostics against the single-device ones (rtol 1e-5).
+18. sharded PM and P3M (``parallel/exchange.py``, ``parallel/mesh_force.py``):
+   (a, after the small-shape checks, not in ``--kernels-only``) the sharded
+   P3M force replayed rank by rank in one process on the kernel route
+   (``ReplayGroup``: the collectives as sums and concatenations over a
+   list), at 12b's box with D = 2, 4, 8 and at 8b's two-galaxy scene
+   (padded for 8 ranks to 8,200 tiles) with D = 8, stage by stage: (i) the
+   concatenated sorted slices are the global stable (key, gid) sort and the
+   inverse exchange restores every row, bit for bit; (ii) each rank's
+   ``short_range`` over [slice ; halo] (its first 128 target tiles) within
+   the P3M tests' bound of its twin, its ``mesh_deposit`` within the f32
+   summation bounds (``_deposit_agrees``) and its sorted-rows
+   ``mesh_gather`` within 1e-5 of the twin; each rank's halo demand
+   against ``h_cap``; (iii) at 12b, where the tiles and the selection are
+   one device's, the assembled force against the single-device P3M within
+   rtol 1e-4, atol 1e-5 of the max (a truncated halo: (iv) instead); (iv)
+   at 8b the net kick <= 1e-5 of sum |m a|; (b) 12b's periodic P3M and
+   12d's periodic PM, (c) 15b's comoving EdS P3M and (d) 8b's isolated P3M
+   through ``Simulation(mesh=default_mesh(1))`` (NCCL, one rank), 30 warm
+   steps and 2 timed chunks of 10, ms/step beside the one-device phase in
+   the same call, then one step from the end state against one device's
+   step within rtol 1e-4, atol 1e-5 of the max (not bit for bit: the
+   deposit's atomics).  Phase 18's lines carry the card's name and power
+   limit.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice), 13c, 14b, 15b (three times), 16b and 17b-17d (the main paths) and 6c,
+12d, 13b (twice), 13c, 14b, 15b (three times), 16b, 17b-17d and 18b-18d (the main paths) and 6c,
 6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d, 15c, 16c and 16d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
@@ -371,7 +394,7 @@ them) follow their windows.  The line before the last is ``{"kernels":
 [...]}`` (launches summed over the main paths, ``vjp_full``'s from 6c
 and ``sym_diag``'s from 10e; ``short_range``, ``mesh_deposit``,
 ``mesh_gather`` and ``short_range_bwd`` carry a ``periodic`` entry with
-12b's, 12d's, 13b's, 13c's and 15b's launches and the periodic form's numbers at
+12b's, 12d's, 13b's, 13c's, 15b's, 18b's and 18c's launches and the periodic form's numbers at
 12b's shape (``short_range_bwd``: 13b's);
 ``bound_ms`` from this run's shapes and the operation counts in each
 kernel's source note); the last is the ``{"ok": true, "device": ...}``
@@ -417,8 +440,10 @@ from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import (
     GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
 )
-from nbody3d_tpu_torch.parallel import sharded
+from nbody3d_tpu_torch.parallel import exchange, sharded
+from nbody3d_tpu_torch.parallel.exchange import ReplayGroup
 from nbody3d_tpu_torch.parallel.mesh import default_mesh, grid_mesh
+from nbody3d_tpu_torch.parallel.mesh_force import ShardedP3M, ShardedPM
 from nbody3d_tpu_torch.render import rasterize, resolve
 from nbody3d_tpu_torch.render.image import read_apng, read_png, save_png
 from nbody3d_tpu_torch.scatter_checks import (
@@ -577,8 +602,11 @@ def print_clocks(after: str) -> None:
           "(SM MHz, W, C)", flush=True)
 
 
+CARD: dict[str, str] = {}  # nvidia-smi's "name, power.limit", printed beside phase 18's numbers
+
+
 def phase_device() -> torch.device:
-    smi = nvidia_smi("name,power.limit")
+    smi = CARD["smi"] = nvidia_smi("name,power.limit")
     print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2500,7 +2528,8 @@ def phase_p3m(dev):
     nb = sim.n_pad // p3m.DEFAULT_BLOCK
     check(nb == 8193 and nb > p3m._FLAT_MAX_TILES,
           f"8b: n_real {sim.n_real}, n_pad {sim.n_pad}, {nb} tiles > {p3m._FLAT_MAX_TILES}: two-level selection")
-    _mesh_run(sim, f"[8b p3m] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) grid 128 k 32", chunks=2, chunk=10)
+    MAIN["phase 8b"] = _mesh_run(sim, f"[8b p3m] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}) grid 128 k 32",
+                                 chunks=2, chunk=10)
     MESH_SIMS["p3m"] = sim
     return [("p3m step at 2M", lambda: sim.run(1, chunk=1))]
 
@@ -4750,6 +4779,7 @@ def _cosmo_run(dev, tag: str, method: str, cosmology: str, chunks: int, chunk: i
     ms = _mesh_run(sim, f"{tag} cosmo N={sim.n_real} box {COSMO_L:g} grid 128" + (" k 32" if method == "p3m" else ""),
                    chunks=chunks, chunk=chunk, warm=warm)
     ms_base = PERIODIC_MS.get(base)
+    PERIODIC_MS[tag] = ms
     print(f"{tag}: comoving {ms:.4f} ms/step, a = {sim.scale_factor:.6f} at step {sim.step_count}; {base} (the "
           f"plain periodic step, this call) {ms_base:.4f} ms/step: {ms - ms_base:+.4f} ms/step", flush=True)
     COSMO_SIMS[tag] = sim
@@ -5348,10 +5378,202 @@ def phase_sharded_gather_2d(dev) -> None:
               f"mass {e:.3e} <= 1e-5, momentum {em:.3e} <= 1e-6 of sum |m v|")
 
 
+# ------------------------------------------------ 18: sharded PM and P3M
+def _card() -> str:
+    return f"card {CARD['smi']}"
+
+
+def replay_mesh(config: SimConfig, full: torch.Tensor, n_real: int, d: int, g: float = G):
+    """Every rank's sharded mesh force of a D-rank step in one process
+    (``mesh_force``'s force over ``exchange.ReplayGroup``: the collectives
+    as sums and concatenations over the list) on the kernel route:
+    ``(force, per-rank accelerations, trace)``."""
+    force = (ShardedP3M if config.method == "p3m" else ShardedPM)(config, full.shape[0], n_real, d, "kernels")
+    trace: dict = {}
+    acc = force.accel(ReplayGroup(d), list(full.view(d, -1, 4)), g, trace)
+    torch.cuda.synchronize()
+    return force, acc, trace
+
+
+def _replay_stage_checks(tag: str, force, trace: dict, d: int, sr_tiles: int = 128) -> None:
+    """18a (i) and (ii) on one replay: the concatenated sorted slices are
+    the global stable (key, gid) sort, and the inverse exchange restores
+    every row, bit for bit; each rank's ``short_range`` (its first
+    ``sr_tiles`` target tiles, halo sources included), ``mesh_deposit`` and
+    ``mesh_gather`` against their twins on the rank's operands.  Prints
+    each rank's halo demand against ``h_cap``; returns whether one
+    truncated."""
+    keys, pm_k = torch.cat(trace["keys"]), torch.cat(trace["pm_k"])
+    order = torch.argsort(keys, stable=True)
+    sorted_ok = torch.equal(torch.cat(trace["ps_raw"]), pm_k[order]) and torch.equal(
+        torch.cat(trace["gid_s"]).long(), order)
+    back = exchange.inverse_exchange(ReplayGroup(d), trace["ps_raw"], trace["gid_s"], force.shard)
+    check(sorted_ok and all(torch.equal(b, p) for b, p in zip(back, trace["pm_k"])),
+          f"[18a] {tag} (i): the {d} sorted slices are the global stable (key, gid) sort of the "
+          f"{keys.numel()} rows, and the inverse exchange restores every row, bit for bit")
+    worst_sr, halo_slots = 0.0, 0
+    box = force.box if force.periodic else None
+    for r, sr in enumerate(trace["short_range"]):
+        got = p3m.short_range_tiles(sr["ps"], sr["nbr_idx"], force.eps2, trace["sigma"], trace["rcut"], force.block,
+                                    sr["nbr_mask"], box=box, nt=sr["nt"])
+        m = min(sr_tiles, sr["nt"])
+        want = p3m._short_range_tiles(sr["ps"], sr["nbr_idx"][:m], force.eps2, trace["sigma"], trace["rcut"],
+                                      force.block, sr["nbr_mask"][:m], box)
+        ok, e = _sr_agree(got[: m * force.block, :3], want[:, :3])
+        worst_sr = max(worst_sr, e)
+        halo_slots += int(((sr["nbr_idx"][:m] >= sr["nt"]) & (sr["nbr_mask"][:m] > 0)).sum())
+        check(ok and bool(torch.isfinite(got).all()), f"[18a] {tag} (ii) rank {r}: short_range over [slice ; halo] "
+              f"({sr['ps'].shape[0]} source rows) vs twin on its first {m} target tiles, {e:.3e} of the max")
+    for leg, ms in enumerate(trace["mesh"]):
+        for r, (c4, fm) in enumerate(ms["ops"]):
+            rho = mc.deposit(c4, fm, force.grid, 3, force.periodic)
+            if fm[:, 3].any():
+                _deposit_agrees(f"[18a] {tag} (ii) rank {r} leg {leg}", c4, fm, force.grid, 3, rho,
+                                mc.deposit_plain(c4, fm, force.grid, 3, force.periodic), force.periodic)
+            else:  # a slice of padding rows alone
+                check(not rho.any(), f"[18a] {tag} (ii) rank {r} leg {leg}: mesh_deposit of massless rows is 0")
+            acc = mc.gather(ms["grids"], c4, fm, force.grid, 3, force.periodic, sorted_rows=True)
+            e = rel_err(acc, mc.gather_plain(ms["grids"], c4, fm, force.grid, 3, force.periodic))
+            check(e < 1e-5 and not acc[:, 3].any(), f"[18a] {tag} (ii) rank {r} leg {leg}: mesh_gather (sorted "
+                  f"rows) vs twin {e:.3e} < 1e-5 of the max")
+    demand = [int(sr["demand"]) for sr in trace["short_range"]]
+    print(f"  [18a] {tag}: short_range vs twin worst {worst_sr:.3e} of the max ({halo_slots} live halo slots "
+          f"checked); halo demand a rank {demand} against h_cap {force.h_cap} ({force.tiles_per} own tiles, "
+          f"{force.nb} tiles, tile {force.block})", flush=True)
+    return max(demand) > force.h_cap
+
+
+def _net_kick(pm_real: torch.Tensor, acc: torch.Tensor) -> float:
+    """``|sum m a| / max_c sum |m a_c|`` over real rows, in f64."""
+    ma = pm_real[:, 3:4].double() * acc[:, :3].double()
+    return float(ma.sum(0).abs().max() / ma.abs().sum(0).max())
+
+
+def phase_sharded_mesh_replay(dev) -> None:
+    """18a: sharded P3M replayed rank by rank in one process at full width
+    on the kernel route, stage by stage: 12b's box (uniform box N =
+    2,097,152, box 10, grid 128, k = 32, tile 256: the tiling and the
+    selection of one device) at D = 2, 4, 8, each rank's assembled force
+    against the single-device P3M (rtol 1e-4, atol 1e-5 of the max); 8b's
+    two-galaxy scene (2,097,154 bodies, padded for 8 ranks to 8,200 tiles:
+    another tiling than one device's 8,193, so the force is held by its
+    momentum) at D = 8, the net kick <= 1e-5 of sum |m a|."""
+    t0 = time.perf_counter()
+    print(f"[18a sharded mesh replay] P3M ranks replayed in one process at full width ({_card()})", flush=True)
+    cfg = SimConfig(method="p3m", pm_grid=128, p3m_nbr_k=32, boundary="periodic", box_size=BOX_L)
+    pm_np, _, _ = make_preset("uniform-box", seed=0, G=G, n=BOX_N, box_size=BOX_L)
+    full = init_state(pm_np, np.zeros_like(pm_np), device=dev).pos_mass
+    want = p3m.accel_p3m(full, G, grid=cfg.pm_grid, eps2=cfg.eps2, nbr_k=cfg.p3m_nbr_k, boundary="periodic",
+                         box_size=BOX_L)
+    for d in REPLAY_D:
+        t1 = time.perf_counter()
+        force, acc, trace = replay_mesh(cfg, full, BOX_N, d)
+        t_replay = time.perf_counter() - t1
+        truncated = _replay_stage_checks(f"12b box D={d}", force, trace, d)
+        got = torch.cat(acc)
+        scale = float(want[:, :3].abs().max())
+        err = (got[:, :3] - want[:, :3]).abs()
+        ok = bool((err <= 1e-5 * scale + 1e-4 * want[:, :3].abs()).all())
+        kick = _net_kick(full, got)
+        if truncated:
+            print(f"  [18a] 12b box D={d}: a halo truncates: the force is held by its momentum", flush=True)
+            check(kick <= 1e-5, f"[18a] 12b box D={d} (iv): net kick {kick:.3e} <= 1e-5 of sum |m a|")
+        else:
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"[18a] 12b box D={d} (iii): the assembled force vs the single-device P3M, max |diff| "
+                  f"{float(err.max()) / scale:.3e} of the max, within rtol 1e-4, atol 1e-5 of the max (net kick "
+                  f"{kick:.3e}; replay {t_replay:.2f} s)")
+        del trace
+    cfg = SimConfig(method="p3m", pm_grid=128, p3m_nbr_k=32)
+    pos_mass, _, n_real = _clustered(P3M_N, pad_count(P3M_N, PAD_GRANULE * 8), dev)
+    force, acc, trace = replay_mesh(cfg, pos_mass, n_real, 8)
+    _replay_stage_checks("8b two-galaxy D=8", force, trace, 8)
+    got = torch.cat(acc)
+    kick = _net_kick(pos_mass[:n_real], got[:n_real])
+    check(bool(torch.isfinite(got).all()) and kick <= 1e-5,
+          f"[18a] 8b two-galaxy N={n_real} D=8 ({force.nb} tiles, {force.tiles_per} a rank) (iv): net kick "
+          f"{kick:.3e} <= 1e-5 of sum |m a| (the heavy split's {force.heavy_k} bodies summed over the ranks)")
+    print(f"  18a: {time.perf_counter() - t0:.1f} s ({_card()})", flush=True)
+
+
+def _sharded_cell(dev, tag: str, build, base: str, base_ms: float, chunks: int, chunk: int):
+    """``build(**where)`` on ``default_mesh(1)`` (NCCL, one rank) through
+    :func:`_mesh_run` (30 warm steps and the timed chunks: 50 steps), its
+    ms/step beside ``base``'s one-device ms/step from this call; then from
+    the state it reached one sharded step against one device's step, each
+    array within rtol 1e-4, atol 1e-5 of its max.  Not bit for bit:
+    ``mesh_deposit``'s float atomics add in no fixed order, so two
+    one-device steps differ in the last bits too.  (Trajectories are not
+    compared: a body whose last bit differs can change its Morton tile,
+    and the truncated selection of these cells, the inherited ``nbr_k``
+    fault, turns that into a different neighbour list.)"""
+    torch.cuda.reset_peak_memory_stats()
+    sim = build(mesh=SHARDED["x"])
+    ms = _mesh_run(sim, f"{tag} Simulation(mesh=default_mesh(1)) N={sim.n_real}", chunks=chunks, chunk=chunk)
+    st = sim.state
+    steps = (sharded.make_sharded_step(sim.config, sim.n_pad, sim.n_real, SHARDED["x"]),
+             make_step_fn(sim.config, sim.n_pad, sim.n_real, dev))
+    got, want = (f(SimState(st.pos_mass.clone(), st.vel.clone(), st.accel.clone(), st.step), sim.dt, sim.G)
+                 for f in steps)
+    errs = []
+    for a, b in zip((got.pos_mass, got.vel, got.accel), (want.pos_mass, want.vel, want.accel)):
+        scale = float(b.abs().max())
+        errs.append(float((a - b).abs().max()) / scale)
+        check(bool(((a - b).abs() <= 1e-5 * scale + 1e-4 * b.abs()).all()), f"{tag}: step {st.step + 1} from "
+              f"the same state, sharded vs one device within rtol 1e-4, atol 1e-5 of the max")
+    print(f"{tag}: sharded, 1 rank {ms:.4f} ms/step, {base} (one device, this call) {base_ms:.4f} ms/step "
+          f"({ms / base_ms - 1:+.2%}); step {st.step + 1} from the same state, max |diff| / max of pos_mass, vel, "
+          f"accel against one device {[f'{e:.3e}' for e in errs]} ({_card()})", flush=True)
+    return [(f"{tag} one step", lambda: sim.run(1, chunk=1))]
+
+
+def _box_sim(method: str, **cfg):
+    config = SimConfig(method=method, pm_grid=128, p3m_nbr_k=32, boundary="periodic", box_size=BOX_L, **cfg)
+    return lambda **where: Simulation.from_preset("uniform-box", config, n=BOX_N, box_size=BOX_L, **where)
+
+
+def phase_sharded_p3m_box(dev):
+    """18b: 12b's periodic P3M through the sharded step at one rank."""
+    return _sharded_cell(dev, "[18b sharded periodic p3m]", _box_sim("p3m"), "12b",
+                         PERIODIC_MS.get("[12b periodic p3m]", float("nan")), 2, 10)
+
+
+def phase_sharded_pm_box(dev):
+    """18b: 12d's periodic PM through the sharded step at one rank."""
+    return _sharded_cell(dev, "[18b sharded periodic pm]", _box_sim("pm"), "12d",
+                         PERIODIC_MS.get("[12d periodic pm]", float("nan")), 2, 10)
+
+
+def phase_sharded_cosmo(dev):
+    """18c: 15b's comoving EdS P3M through the sharded step at one rank."""
+
+    def build(**where):
+        cfg = _cosmo_config("p3m", "eds", 128, 32, COSMO_L, G=G)
+        sim = Simulation.from_preset("cosmo", cfg, n=COSMO_N1**3, box_size=COSMO_L, velocity="eds", **where)
+        sim.dt = _eds_t_i(float(sim.state.pos_mass[:, 3].double().sum()), G, COSMO_L) / 100
+        return sim
+
+    return _sharded_cell(dev, "[18c sharded comoving eds p3m]", build, "15b",
+                         PERIODIC_MS.get("[15b cosmo eds p3m]", float("nan")), 2, 10)
+
+
+def phase_sharded_p3m(dev):
+    """18d: 8b's isolated P3M (two-galaxy, the heavy split) through the
+    sharded step at one rank."""
+    cfg = SimConfig(method="p3m", pm_grid=128, p3m_nbr_k=32)
+    return _sharded_cell(dev, "[18d sharded p3m]",
+                         lambda **where: Simulation.from_preset("two-galaxy", cfg, n=P3M_N, **where), "8b",
+                         MAIN.get("phase 8b", float("nan")), 2, 10)
+
+
 SHARDED_PATHS = (
     ("phase 17b (sharded ring path, 1 rank)", phase_sharded_ring, ("force_exact",)),
     ("phase 17c (sharded ringsym path, 1 rank)", phase_sharded_ringsym, SYM_FORCE),
     ("phase 17d (sharded gather and 2d paths, 1 rank)", phase_sharded_gather_2d, ("force_exact",)),
+    ("phase 18b (sharded periodic P3M path, 1 rank)", phase_sharded_p3m_box, MESH_KERNELS),
+    ("phase 18b (sharded periodic PM path, 1 rank)", phase_sharded_pm_box, ("mesh_deposit", "mesh_gather")),
+    ("phase 18c (sharded comoving EdS P3M path, 1 rank)", phase_sharded_cosmo, MESH_KERNELS),
+    ("phase 18d (sharded P3M path, 1 rank)", phase_sharded_p3m, MESH_KERNELS),
 )
 
 
@@ -5410,7 +5632,8 @@ PATHS = (
     ("phase 15b (comoving ΛCDM P3M path)", phase_cosmo_p3m_lcdm, MESH_KERNELS),
     ("phase 15b (comoving EdS PM path)", phase_cosmo_pm, ("mesh_deposit", "mesh_gather")),
 )
-PERIODIC_PATHS = tuple(path for path, _, _ in PATHS if path.startswith(("phase 12", "phase 13", "phase 15")))
+PERIODIC_PATHS = tuple(path for path, _, _ in PATHS + SHARDED_PATHS
+                       if path.startswith(("phase 12", "phase 13", "phase 15", "phase 18b", "phase 18c")))
 RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
 SERVE_PATH = "phase 16b (live viewer)", phase_serve, ("force_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
@@ -5460,7 +5683,7 @@ def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
 
 def _periodic_entry(name: str, t: dict, by_path: dict) -> dict:
     """The kernels line's entry for a kernel's periodic form: its launches
-    on the periodic main paths (12b, 12d, 13b, 13c and the comoving 15b;
+    on the periodic main paths (12b, 12d, 13b, 13c, the comoving 15b and the sharded 18b, 18c;
     also counted in the kernel's ``launches``) and its numbers at 12b's shape (13b's for
     ``short_range_bwd``)."""
     return {
@@ -5514,6 +5737,7 @@ def main() -> int:
     if args.kernels_only:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
+    phase_sharded_mesh_replay(dev)
     times = phase_kernel_times(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5524,7 +5748,8 @@ def main() -> int:
         t0 = time.perf_counter()
         with OneRankGroup():
             by_path.update({path: run_window(path, run, ks, dev) for path, run, ks in SHARDED_PATHS})
-        print(f"  17b-17d with the process group's set-up: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"  17b-17d and 18b-18d with the process group's set-up: {time.perf_counter() - t0:.1f} s",
+              flush=True)
         # 16c and 16d: 7b's checkpoint animated, and a traced run.
         run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
         run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)

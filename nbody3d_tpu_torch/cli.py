@@ -21,8 +21,12 @@ Resuming a checkpoint keeps its saved config except for the flags given.
 
 Several devices (``run``, ``bench``): ``--devices N``
 starts N local ranks, one process a device (NCCL on ``--device cuda``, one
-card a rank; gloo on ``--device cpu``), and shards the bodies over them
-with ``--strategy ring|ringsym|gather|2d`` (``parallel/``).
+card a rank; gloo on ``--device cpu``), and shards the bodies over them:
+the direct force with ``--strategy ring|ringsym|gather|2d``, ``--method
+pm`` (one grid sum a step) and ``--method p3m`` (the splitter exchange into
+the Morton order and the halo ring) whatever the strategy, isolated or
+``--boundary periodic`` (``--interlace``, ``--cosmology eds|lcdm``), on
+the 2-D mesh of ``--strategy 2d`` flattened row-major (``parallel/``).
 ``--distributed`` joins a process group that ``torchrun`` started
 (``init_method="env://"``, device ``cuda:$LOCAL_RANK``) and shards over all
 of its ranks.  Only rank 0 prints and writes files.  Rendering a sharded
@@ -43,6 +47,11 @@ these flags.
     python -m nbody3d_tpu_torch.cli run --steps 200 --trace trace_dir
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --backend jnp --n 2048 --steps 20
+    python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --method p3m --pm-grid 32 --n 4096 --steps 10
+    python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --preset cosmo --n 4096 --cosmology eds \
+        --method pm --boundary periodic --box-size 10 --pm-grid 16 --steps 10
+    torchrun --nproc-per-node 8 -m nbody3d_tpu_torch.cli run --distributed --method p3m --boundary periodic \
+        --preset uniform-box --n 2097152 --box-size 10 --interlace --steps 100
     torchrun --nproc-per-node 8 -m nbody3d_tpu_torch.cli run --distributed --strategy ringsym \
         --force-mode sym --preset uniform-sphere --n 262144 --steps 100
 """
@@ -552,6 +561,8 @@ def cmd_info(args) -> int:
         "cuda": torch.version.cuda,
         "cuda_available": torch.cuda.is_available(),
         "devices": [torch.cuda.get_device_name(i) for i in range(n)],
+        # What --devices/--distributed shards: direct by strategy, the mesh methods whatever it is.
+        "sharded": {"direct": ["ring", "ringsym", "gather", "2d"], "pm": "any mesh", "p3m": "any mesh"},
     }
     print(json.dumps(info, indent=2))
     return 0

@@ -49,9 +49,9 @@ class SimConfig:
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
     Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,
     ``grad_precision``, ``seed``, ``size_factor``, and on a mesh
-    (``parallel/``) ``strategy`` and ``mesh_axis``.  ``p3m_halo_tiles``
-    belongs to the sharded P3M step, which is not ported (ROADMAP item
-    11b).
+    (``parallel/``) ``strategy``, ``mesh_axis`` and ``p3m_halo_tiles`` (the
+    sharded P3M step's halo capacity in remote tiles a rank; 0 picks
+    ``max(2·tiles_per, 4·nbr_k, 64)``, as in the JAX package).
     """
 
     # Physics.

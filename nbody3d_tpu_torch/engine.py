@@ -1,8 +1,10 @@
 """Simulation engine: owns the state on one device, steps it in chunks.
 
 With a ``mesh`` (``parallel/mesh.py``) the state is sharded: every rank
-builds the same global state, keeps its rows (``parallel.shard_state``)
-and steps them with the sharded step of ``config.strategy``; diagnostics
+builds the same global state, padded to whole tiles a shard, keeps its
+rows (``parallel.shard_state``) and steps them with the sharded step of
+``config.strategy`` (the mesh methods' own schedules for ``pm`` and
+``p3m``, comoving ones too: ``scale_factor`` is the host mirror); diagnostics
 are the sharded ones, and what needs the global state (``arrays``, the
 Morton re-sort, ``save``) gathers it on every rank, which makes those
 calls collective: every rank makes them, in one order.  Only rank 0

@@ -100,7 +100,13 @@ def heavy_direct(pos_mass: torch.Tensor, hidx: torch.Tensor, eps2: float):
     """Exact softened pairs between the heavy set and every body, per unit
     G: ``(a_from_heavy (N, 3), a_on_heavy (K, 3))`` from the same pair
     terms, so the block is antisymmetric (momentum)."""
-    hp = pos_mass[hidx]  # (K, 4)
+    return heavy_pairs(pos_mass, pos_mass[hidx], eps2)
+
+
+def heavy_pairs(pos_mass: torch.Tensor, hp: torch.Tensor, eps2: float):
+    """:func:`heavy_direct` against the heavy rows ``hp (K, 4)`` themselves:
+    a shard's rows against the whole heavy set, whose ``a_on_heavy`` parts
+    the sharded step sums over the ranks."""
     d = hp[None, :, :3] - pos_mass[:, None, :3]  # (N, K, 3), toward heavy
     r2 = torch.sum(d * d, dim=-1)
     inv_s = torch.rsqrt(r2 + eps2)
@@ -200,14 +206,15 @@ def k_short(r2: torch.Tensor, eps2: float, sigma: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------ neighbour selection
-def _sorted_aabbs(ps: torch.Tensor, n_real: int, block: int):
+def _sorted_aabbs(ps: torch.Tensor, n_real: int, block: int, row0: int = 0):
     """Per-tile bounding boxes ``(lo (nb, 3), hi (nb, 3))`` over the real
     rows; after the stable Morton sort the padding rows are the tail, and
-    an all-padding tile has lo = +inf, hi = -inf."""
+    an all-padding tile has lo = +inf, hi = -inf.  ``row0``: the global
+    sorted row of ``ps``' first (a rank's slice of the sorted layout)."""
     n = ps.shape[0]
     nb = n // block
     xyz = ps[:, :3].reshape(nb, block, 3)
-    valid = (torch.arange(n, device=ps.device) < n_real).reshape(nb, block, 1)
+    valid = (torch.arange(row0, row0 + n, device=ps.device) < n_real).reshape(nb, block, 1)
     lo = torch.amin(torch.where(valid, xyz, math.inf), dim=1)
     hi = torch.amax(torch.where(valid, xyz, -math.inf), dim=1)
     return lo, hi
@@ -276,14 +283,16 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _select_flat(lo_b, hi_b, h, k, L=None):
-    """Top-``k`` nearest tiles per row over all ``nb`` candidates, in row
-    chunks.  ``(kth (nb,), neg (nb, k), idx (nb, k))``."""
+def _select_flat(lo_b, hi_b, h, k, L=None, row0=0, nrows=None):
+    """Top-``k`` nearest tiles for the rows ``row0 .. row0 + nrows`` (all
+    ``nb`` by default) over all ``nb`` candidates, in row chunks.  ``(kth
+    (nrows,), neg (nrows, k), idx (nrows, k))``."""
     nb = lo_b.shape[0]
+    nrows = nb - row0 if nrows is None else nrows
     cols = torch.arange(nb, device=lo_b.device)
     negs, idxs = [], []
-    for r0 in range(0, nb, _NBR_ROW_CHUNK):
-        rows = cols[r0 : r0 + _NBR_ROW_CHUNK]
+    for r0 in range(row0, row0 + nrows, _NBR_ROW_CHUNK):
+        rows = cols[r0 : min(r0 + _NBR_ROW_CHUNK, row0 + nrows)]
         d2 = _add_jitter(_aabb_dist2(lo_b[rows], hi_b[rows], lo_b, hi_b, L), rows[:, None], cols[None, :], h)
         d2 = _prefer_self(d2, rows[:, None], cols[None, :])
         neg, idx = _top_k(-d2, k)
@@ -293,27 +302,33 @@ def _select_flat(lo_b, hi_b, h, k, L=None):
     return -neg[:, -1], neg, idx
 
 
-def _select_neighbors(lo_b, hi_b, h, nbr_k, L=None):
-    """Top-``nbr_k`` nearest source tiles of every tile, by jittered AABB
-    distance: ``(kth (nb,), neg (nb, k), nbr_idx (nb, k))`` with ``neg``
-    the negated distances (descending) and ``kth`` each row's k-th smallest.
-    Flat up to ``_FLAT_MAX_TILES`` tiles, two-level past it.  ``L``: the
-    periodic box's gap (:func:`_gap_dist2`)."""
+def _select_neighbors(lo_b, hi_b, h, nbr_k, L=None, *, row0=0, nrows=None):
+    """Top-``nbr_k`` nearest source tiles of the target tiles ``row0 ..
+    row0 + nrows`` (every tile by default; a rank's own tiles in the
+    sharded step), by jittered AABB distance over all ``nb`` tiles:
+    ``(kth (nrows,), neg (nrows, k), nbr_idx (nrows, k))`` with ``neg`` the
+    negated distances (descending), ``kth`` each row's k-th smallest and
+    global tile ids.  Flat up to ``_FLAT_MAX_TILES`` tiles, two-level past
+    it.  ``L``: the periodic box's gap (:func:`_gap_dist2`)."""
     if lo_b.shape[0] > _FLAT_MAX_TILES:
-        return _select_neighbors_hier(lo_b, hi_b, h, nbr_k, L=L)
-    return _select_flat(lo_b, hi_b, h, nbr_k, L)
+        return _select_neighbors_hier(lo_b, hi_b, h, nbr_k, L=L, row0=row0, nrows=nrows)
+    return _select_flat(lo_b, hi_b, h, nbr_k, L, row0, nrows)
 
 
-def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K, L=None):
+def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K, L=None, *, row0=0, nrows=None):
     """The two-level selection of ``nbody3d_tpu``'s ``_select_neighbors_hier``:
     super-tiles of ``sup`` consecutive tiles take their ``k_s`` nearest
-    supers, a super pair is admitted only mutually, and each tile takes its
-    top-``nbr_k`` among the admitted supers' tiles (others at +1e30).  At
-    odd ``nb`` (2M bodies: 8,193 tiles) ``sup`` is 1."""
+    supers, a super pair is admitted only mutually, and each target tile
+    takes its top-``nbr_k`` among the admitted supers' tiles (others at
+    +1e30).  ``sup`` divides ``nb`` and the row count (at odd ``nb``, 2M
+    bodies: 8,193 tiles, it is 1), and ``row0`` is a multiple of it."""
     nb = lo_b.shape[0]
+    nrows = nb - row0 if nrows is None else nrows
     sup = _SUPER
-    while sup > 1 and nb % sup != 0:
+    while sup > 1 and (nb % sup != 0 or nrows % sup != 0):
         sup //= 2
+    if row0 % sup:
+        raise ValueError(f"target rows from {row0} do not start a super-tile of {sup}")
     nsup = nb // sup
     k_s = min(max(sup_k, -(-nbr_k // sup) + 2), nsup)
     nbr_k = min(nbr_k, k_s * sup)
@@ -327,8 +342,9 @@ def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K, L=None):
     lo_t3, hi_t3 = lo_b.view(nsup, sup, 3), hi_b.view(nsup, sup, 3)
     step = max(1, _FINE_BATCH // (sup * k_s * sup))
     kths, negs, idxs = [], [], []
-    for a0 in range(0, nsup, step):
-        sups = torch.arange(a0, min(a0 + step, nsup), device=lo_b.device)
+    sup0, sup1 = row0 // sup, (row0 + nrows) // sup
+    for a0 in range(sup0, sup1, step):
+        sups = torch.arange(a0, min(a0 + step, sup1), device=lo_b.device)
         cand = (sup_idx[sups][:, :, None] * sup + lane).reshape(len(sups), k_s * sup)  # (S, C)
         cmask = sup_ok[sups].repeat_interleave(sup, dim=1)
         d2 = _gap_dist2(lo_t3[sups][:, :, None], hi_t3[sups][:, :, None],
@@ -341,8 +357,8 @@ def _select_neighbors_hier(lo_b, hi_b, h, nbr_k, sup_k=DEFAULT_SUP_K, L=None):
         kths.append(-neg[..., -1])
         negs.append(neg)
         idxs.append(torch.gather(cand[:, None, :].expand(-1, sup, -1), 2, li))
-    return (torch.cat(kths).reshape(nb), torch.cat(negs).reshape(nb, nbr_k),
-            torch.cat(idxs).reshape(nb, nbr_k))
+    return (torch.cat(kths).reshape(nrows), torch.cat(negs).reshape(nrows, nbr_k),
+            torch.cat(idxs).reshape(nrows, nbr_k))
 
 
 def mutual_neighbor_mask(neg_d2s: torch.Tensor, nbr_idx: torch.Tensor, kth_all: torch.Tensor) -> torch.Tensor:
@@ -373,15 +389,16 @@ def min_image(d: torch.Tensor, box: float) -> torch.Tensor:
 
 
 def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box=None) -> torch.Tensor:
-    """Plain twin of ``short_range``: for each target tile a dense pair sum
-    over its neighbour tiles, with the exact ``erfc``.  ``(N, 4)``, w lane
-    0, in sorted order.  Slots that add exactly nothing (mask 0, or a source
-    tile of zero mass) are left out, as are pairs outside the cut; tiles go
-    in batches of about ``_PAIR_BATCH`` pairs, which bounds the
-    temporaries.  ``box``: the periodic box, minimum-image pairs with
-    ``ewald.k_short_periodic``."""
-    nb, k = nbr_idx.shape
-    blocks = ps.view(nb, block, 4)
+    """Plain twin of ``short_range``: for each target tile (the first
+    ``nt`` tiles of ``ps``, one a row of ``nbr_idx (nt, k)``; sources are
+    any tiles of ``ps``) a dense pair sum over its neighbour tiles, with the
+    exact ``erfc``.  ``(nt·block, 4)``, w lane 0, in sorted order.  Slots
+    that add exactly nothing (mask 0, or a source tile of zero mass) are
+    left out, as are pairs outside the cut; tiles go in batches of about
+    ``_PAIR_BATCH`` pairs, which bounds the temporaries.  ``box``: the
+    periodic box, minimum-image pairs with ``ewald.k_short_periodic``."""
+    nt, k = nbr_idx.shape
+    blocks = ps.view(-1, block, 4)
     rcut2 = rcut * rcut
     nbr_idx = nbr_idx.long()
     live_slot = (blocks[:, :, 3].sum(dim=1)[nbr_idx] != 0) & (nbr_mask != 0)
@@ -391,10 +408,10 @@ def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box=None
     k_eff = max(int(live_slot.sum(dim=1).max()), 1)
     slots = torch.gather(nbr_idx, 1, order[:, :k_eff])
     scale = torch.gather(nbr_mask * live_slot, 1, order[:, :k_eff])
-    out = torch.zeros_like(ps)
+    out = ps.new_zeros((nt * block, 4))
     batch = max(1, _PAIR_BATCH // (block * k_eff * block))
-    for t0 in range(0, nb, batch):
-        tiles = slice(t0, min(t0 + batch, nb))
+    for t0 in range(0, nt, batch):
+        tiles = slice(t0, min(t0 + batch, nt))
         tgt = blocks[tiles]  # (T, B, 4)
         src = blocks[slots[tiles]].reshape(tgt.shape[0], k_eff * block, 4)
         m_src = src[:, :, 3] * scale[tiles].repeat_interleave(block, dim=1)
@@ -410,12 +427,20 @@ def _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box=None
     return out
 
 
-def _check_tiles(name: str, block: int, nbr_idx: torch.Tensor, ps: torch.Tensor, *rows: torch.Tensor):
+def _check_tiles(name: str, block: int, nbr_idx: torch.Tensor, ps: torch.Tensor, *rows: torch.Tensor,
+                 nt: int | None = None):
     """The rows' device, once ``nbr_idx``'s tiles of ``block`` rows make
-    ``ps`` (and each of ``rows``, as :func:`check_rows` holds them)."""
+    ``ps`` (and each of ``rows``, as :func:`check_rows` holds them), or with
+    ``nt`` once ``nbr_idx`` has ``nt`` rows and ``ps`` holds at least ``nt``
+    whole tiles (the first ``nt`` the targets)."""
     dev = check_rows(name, ps, *rows)
-    if nbr_idx.shape[0] * block != ps.shape[0] or not 1 <= block <= 1024:
+    if not 1 <= block <= 1024:
+        raise ValueError(f"{name}: tile {block} out of [1, 1024]")
+    if nt is None and nbr_idx.shape[0] * block != ps.shape[0]:
         raise ValueError(f"{name}: {nbr_idx.shape[0]} tiles of {block} rows do not make N={ps.shape[0]}")
+    if nt is not None and (nbr_idx.shape[0] != nt or ps.shape[0] % block or nt * block > ps.shape[0]):
+        raise ValueError(f"{name}: {nt} target tiles of {block} rows with {nbr_idx.shape[0]} neighbour rows "
+                         f"over N={ps.shape[0]}")
     return dev
 
 
@@ -443,11 +468,13 @@ def _dense_slots(ps: torch.Tensor, nbr_idx: torch.Tensor, block: int, rcut: torc
     without their warp votes.  The flag only picks one of two loops that
     give the same bits: a wrong one costs time, not results.  ``|fl(x_s -
     x_t)| <= max(fl(hi_s - lo_t), fl(hi_t - lo_s))`` as rounding is
-    monotone; the 0.9999 covers the rounding of the sums of squares."""
+    monotone; the 0.9999 covers the rounding of the sums of squares.  The
+    targets are the first ``nt`` tiles of ``ps`` (one a row of ``nbr_idx``)."""
     xyz = ps[:, :3].reshape(-1, block, 3)
     lo, hi = torch.amin(xyz, dim=1), torch.amax(xyz, dim=1)
     ids = nbr_idx.long()
-    far = torch.maximum(hi[ids] - lo[:, None], hi[:, None] - lo[ids])
+    nt = ids.shape[0]
+    far = torch.maximum(hi[ids] - lo[:nt, None], hi[:nt, None] - lo[ids])
     return ((far * far).sum(-1) < 0.9999 * (rcut * rcut)).to(torch.uint8)
 
 
@@ -475,26 +502,30 @@ def short_range_tiles(
     backend: str = "auto",
     box: float | None = None,
     dense: torch.Tensor | None = None,
+    nt: int | None = None,
 ) -> torch.Tensor:
     """Masked block-sparse short-range accelerations per unit G of the
     sorted ``ps (N, 4)``: ``(N, 4)``, w lane 0.  ``nbr_idx (nb, k)`` are
-    global tile ids, ``nbr_mask (nb, k)`` the mutual mask.  ``box``: the
-    periodic box size ``L`` (positions in ``[0, L)``): minimum-image pairs
-    with the periodic split's scalar.  ``backend="jnp"`` runs the twin on
-    any device; otherwise the ``short_range`` kernel runs on a CUDA tensor,
-    the twin on a CPU one.  ``dense``: the isolated kernel's slot flags
-    (:func:`_dense_slots`) where the caller has them, else made here."""
+    tile ids of ``ps``, ``nbr_mask (nb, k)`` the mutual mask.  ``nt``: only
+    the first ``nt`` tiles of ``ps`` are targets (``nbr_idx`` and the mask
+    have ``nt`` rows, the result ``nt·block``), the rest sources alone (the
+    sharded step's halo).  ``box``: the periodic box size ``L`` (positions
+    in ``[0, L)``): minimum-image pairs with the periodic split's scalar.
+    ``backend="jnp"`` runs the twin on any device; otherwise the
+    ``short_range`` kernel runs on a CUDA tensor, the twin on a CPU one.
+    ``dense``: the isolated kernel's slot flags (:func:`_dense_slots`) where
+    the caller has them, else made here."""
     nb, k = nbr_idx.shape
     if nbr_mask is None:
         nbr_mask = torch.ones((nb, k), dtype=torch.float32, device=ps.device)
     if box is not None and not box > 0:
         raise ValueError(f"short_range: box must be > 0, got {box}")
-    dev = _check_tiles("short_range", block, nbr_idx, ps)
+    dev = _check_tiles("short_range", block, nbr_idx, ps, nt=nt)
     if backend == "jnp" or dev.type == "cpu":
         return _short_range_tiles(ps, nbr_idx, eps2, sigma, rcut, block, nbr_mask, box)
     ids, msk, scal = _kernel_operands("short_range", dev, nbr_idx, nbr_mask, sigma, rcut)
     dense = _slot_flags("short_range", ps, ids, block, rcut, box, dense)
-    out = torch.empty_like(ps)
+    out = ps.new_empty((nb * block, 4))
     launch("short_range", dev, lib().nb_short_range, ps, ids, msk, dense, scal, out, nb, k, block, float(eps2),
            float(box or 0.0))
     return out

@@ -63,8 +63,10 @@ def _box(pos_real: torch.Tensor, grid: int) -> tuple[torch.Tensor, torch.Tensor]
 def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: ``torch.clamp``'s values, with JAX's gradient, which a
     ``maximum`` and a ``minimum`` split in half at a bound (a body exactly
-    on a cell face has ``f = 0``)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    on a cell face has ``f = 0``).  The bounds are filled on ``x``'s device
+    (a copy from the host would wait for the device)."""
+    return torch.minimum(torch.maximum(x, torch.full((), lo, dtype=x.dtype, device=x.device)),
+                         torch.full((), hi, dtype=x.dtype, device=x.device))
 
 
 def _cic_cells(pos: torch.Tensor, lo: torch.Tensor, h: torch.Tensor, grid: int, periodic: bool = False):

@@ -33,6 +33,35 @@ def random_bodies(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     return pm, v
 
 
+def clustered_bodies(seed: int, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """``tests/test_p3m_distributed.py``'s ``_clustered`` bodies: eight
+    clumps (centres N(0, 16), spread 0.4), masses U(1, 50) and one 1e7 body,
+    velocities N(0, 0.1)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(8, 3)) * 4
+    pos = centers[rng.integers(0, 8, size=n)] + rng.normal(size=(n, 3)) * 0.4
+    m = rng.uniform(1, 50, size=(n, 1))
+    m[0, 0] = 1e7
+    pm = np.concatenate([pos, m], axis=1).astype(np.float32)
+    v = np.concatenate([rng.normal(size=(n, 3)) * 0.1, np.zeros((n, 1))], axis=1).astype(np.float32)
+    return pm, v
+
+
+def case_bodies(case: dict) -> tuple[np.ndarray, np.ndarray]:
+    """A case's bodies: ``"random"`` (:func:`random_bodies`, the default),
+    ``"clustered"`` (:func:`clustered_bodies`) or ``"zeldovich"`` (the
+    port's ``zeldovich_box`` of ``case["n1"]``³ bodies in ``case["box"]``,
+    EdS velocities, ``tests/test_expansion.py``'s amplitude 0.02)."""
+    kind = case.get("bodies", "random")
+    if kind == "zeldovich":
+        from nbody3d_tpu_torch.models.cosmo import zeldovich_box
+
+        pm, v, _ = zeldovich_box(case["n1"], case["box"], amp=0.02, velocity="eds", G=case["G"],
+                                 rng=np.random.default_rng(case["seed"]))
+        return pm, v
+    return (clustered_bodies if kind == "clustered" else random_bodies)(case["seed"], case["n"])
+
+
 def _mesh(spec):
     """``"x"``: the 1-D mesh; ``(rows, cols)``: the grid mesh (``(None,
     None)``: its default shape)."""
@@ -47,8 +76,9 @@ def _step_case(mesh, case: dict):
     """``steps`` sharded steps of :func:`random_bodies` (padded to
     ``n_pad``); the gathered state."""
     cfg = SimConfig(**case["config"])
-    n, n_pad = case["n"], case.get("n_pad", case["n"])
-    pm, v = random_bodies(case["seed"], n)
+    pm, v = case_bodies(case)
+    n = pm.shape[0]
+    n_pad = case.get("n_pad", n)
     state = sharded.shard_state(init_state(pm, v, n_pad=n_pad, device="cpu"), mesh)
     step = sharded.make_sharded_step(cfg, n_pad, n, mesh, src_chunks=case.get("src_chunks"))
     for _ in range(case.get("steps", 1)):
@@ -147,18 +177,60 @@ def _mesh_errors_case(mesh, case: dict):
     return out
 
 
-CASES = {"step": _step_case, "diag": _diag_case, "order": _order_case, "engine": _engine_case,
+def _mesh_force(mesh, case: dict):
+    """The sharded mesh force of the case's config and the rank's group."""
+    from nbody3d_tpu_torch.ops.step import resolve_backend
+    from nbody3d_tpu_torch.parallel.mesh_force import ShardedP3M, ShardedPM
+
+    cfg = SimConfig(**case["config"])
+    pm, _ = case_bodies(case)
+    n_pad = case.get("n_pad", pm.shape[0])
+    full = init_state(pm, np.zeros_like(pm), n_pad=n_pad, device="cpu").pos_mass
+    force = (ShardedP3M if cfg.method == "p3m" else ShardedPM)(cfg, n_pad, pm.shape[0], mesh.size,
+                                                              resolve_backend(cfg, mesh.device))
+    return force, full, full.view(mesh.size, -1, 4)
+
+
+def _p3m_stages_case(mesh, case: dict):
+    """Every rank's integer stages of one sharded P3M force evaluation: the
+    splitters, its rows' destinations, its sorted slice's gids, its halo's
+    tiles, its rows' global neighbour lists and the final mask."""
+    from nbody3d_tpu_torch.parallel.exchange import DistGroup
+
+    force, _, shards = _mesh_force(mesh, case)
+    trace: dict = {}
+    force.accel(DistGroup(mesh.rank, mesh.size), [shards[mesh.rank]], case.get("G", 1e-4), trace)
+    sr = trace["short_range"][0]
+    return {"K": trace["splitters"][0].numpy(), "Gs": trace["splitters"][1].numpy(),
+            "dest": trace["dest"][0].numpy(), "gid_s": trace["gid_s"][0].numpy(),
+            "halo_ids": trace["halo_ids"][0].numpy(), "nbr_idx": sr["nbr_global"].numpy(),
+            "final_mask": sr["nbr_mask"].numpy(), "demand": int(sr["demand"])}
+
+
+def _replay_case(mesh, case: dict):
+    """The sharded force of the ranks, gathered, and (rank 0) the same
+    D-rank force replayed in this one process (``ReplayGroup``)."""
+    from nbody3d_tpu_torch.parallel.exchange import DistGroup, ReplayGroup
+
+    force, full, shards = _mesh_force(mesh, case)
+    g = case.get("G", 1e-4)
+    got = sharded.gather_rows(force.accel(DistGroup(mesh.rank, mesh.size), [shards[mesh.rank]], g)[0], mesh)
+    replay = torch.cat(force.accel(ReplayGroup(mesh.size), list(shards), g)) if mesh.rank == 0 else None
+    return {"ranks": got.numpy(), "replay": None if replay is None else replay.numpy()}
+
+
+CASES = {"step": _step_case, "p3m_stages": _p3m_stages_case, "replay": _replay_case, "diag": _diag_case, "order": _order_case, "engine": _engine_case,
          "mesh": _mesh_case, "mesh_errors": _mesh_errors_case}
 
 
 def run_cases(rank: int, world: int, cases: list[dict]):
     """Run ``cases`` (each ``{"kind": ..., "mesh": "x" | (rows, cols),
     ...}``) in order; rank 0 returns their results, and every rank the
-    mesh cases' (each rank's view)."""
+    mesh and P3M stage cases' (each rank's view)."""
     out = []
     for case in cases:
         res = CASES[case["kind"]](_mesh(case.get("mesh", "x")), case)
-        out.append(res if rank == 0 or case["kind"] == "mesh" else None)
+        out.append(res if rank == 0 or case["kind"] in ("mesh", "p3m_stages") else None)
     if any(m.split(".")[0] == "nbody3d_tpu" for m in sys.modules):
         raise RuntimeError("a rank of the port imported the JAX package")
     return out

@@ -34,10 +34,17 @@ and ``pair_sym`` for ringsym, or on the plain route (``backend="jnp"``)
 a D-rank run in one process (``chip_smoke.py`` phase 17a) calls them with
 slices of one state in place of the collectives.
 
-Mesh methods (``pm``, ``p3m``) are ROADMAP item 11b and raise
-``NotImplementedError``; so does a comoving background, which needs them.
-The sharded steps have no gradient (the kernels refuse tensors that
-require grad).
+Mesh methods (``pm``, ``p3m``) take their own schedules whatever the
+strategy, their bodies sharded over every rank of the mesh (a 2-D mesh's
+ranks row-major): :func:`make_pm_sharded_step` (one grid sum a force
+evaluation) and :func:`make_p3m_sharded_step` (the splitter exchange into
+the Morton-sorted layout, the grid sum, the halo ring and the inverse
+exchange, ``parallel/exchange.py``), whose forces ``parallel/mesh_force.py``
+writes over a :class:`~nbody3d_tpu_torch.parallel.exchange.RankGroup`.
+Their integrator tail, :func:`_finish_mesh_step`, runs the static
+integrators or, with a comoving background, ``ops/expansion.py``'s
+kick-drift with ``rho_bar`` from the summed mass.  The sharded steps have
+no gradient (the kernels refuse tensors that require grad).
 """
 
 from __future__ import annotations
@@ -262,12 +269,13 @@ def make_sharded_step(
     if config.cosmology != "none":
         from nbody3d_tpu_torch.ops.expansion import validate_cosmo_config
 
-        validate_cosmo_config(config)  # a comoving run needs a mesh method, below
-    if config.method in ("pm", "p3m"):
-        raise NotImplementedError(
-            f"method={config.method!r} on a mesh: the sharded PM/P3M steps (the splitter exchange, "
-            "parallel/exchange.py) are ROADMAP item 11b, not ported yet; run it on one device"
-        )
+        validate_cosmo_config(config)  # a comoving run needs a mesh method: direct fails here
+    if config.method == "pm":
+        # The grid replaces the pairwise exchange: one grid sum a force
+        # evaluation, whatever the strategy says.
+        return make_pm_sharded_step(config, n_pad, n_real, mesh)
+    if config.method == "p3m":
+        return make_p3m_sharded_step(config, n_pad, n_real, mesh)
     if n_pad % mesh.size:
         raise ValueError(f"n_pad={n_pad} not divisible by mesh size {mesh.size}")
     if config.strategy == "2d":
@@ -375,6 +383,64 @@ def make_grid2d_step(config: SimConfig, n_pad: int, n_real: int, mesh: Mesh) -> 
     return _integrated(config, accum, n_pad, n_real, mesh)
 
 
+def _finish_mesh_step(config: SimConfig, accum: Callable, group, n_pad: int, n_real: int, mesh: Mesh) -> StepFn:
+    """The integrator tail of the sharded mesh steps: the static
+    integrators over ``accum(pos_mass, G)``, or with a comoving background
+    ``ops/expansion.py``'s kick-drift, its ``rho_bar`` from the mass summed
+    over the ranks (``group.sum``: the same bits on every rank)."""
+    if config.cosmology == "none":
+        return _integrated(config, accum, n_pad, n_real, mesh)
+    from nbody3d_tpu_torch.ops.expansion import _Windows, comoving_update
+
+    shard = n_pad // mesh.size
+    valid = _valid(shard, mesh.rank * shard, n_real, mesh.device) if n_real < n_pad else None
+    inv_vol = 1.0 / float(config.box_size) ** 3
+    windows = _Windows(config)
+
+    def step(state: SimState, dt: float, G: float) -> SimState:
+        dt, G = float(dt), float(G)
+        rho_bar = group.sum([torch.sum(state.pos_mass[:, 3])]) * inv_vol
+        new_p, new_w, g = comoving_update(config, accum(state.pos_mass, G), state.pos_mass, state.vel, state.step,
+                                          dt, G, rho_bar, valid, windows)
+        return SimState(new_p, new_w, g, state.step + 1)
+
+    return step
+
+
+def make_pm_sharded_step(config: SimConfig, n_pad: int, n_real: int, mesh: Mesh) -> StepFn:
+    """Sharded particle mesh (``config.method == "pm"``): each rank
+    CIC-deposits its rows onto the whole grid, the grids are summed over
+    the ranks (4·M³ bytes a rank, whatever N), every rank solves the same
+    problem and gathers at its rows (``mesh_force.ShardedPM``).  Any mesh
+    shape: the bodies shard over all ranks."""
+    from nbody3d_tpu_torch.parallel.mesh_force import ShardedPM
+
+    return _mesh_step(ShardedPM, config, n_pad, n_real, mesh)
+
+
+def make_p3m_sharded_step(config: SimConfig, n_pad: int, n_real: int, mesh: Mesh) -> StepFn:
+    """Sharded P3M (``config.method == "p3m"``, ``mesh_force.ShardedP3M``):
+    a rank's live buffers are O(N/D + halo).  Each force evaluation keys
+    the rank's rows, moves them to their slice of the global Morton order
+    (``exchange.select_splitters``/``exchange_to_sorted``), runs the mesh
+    leg on that slice with one grid sum, the short range over the slice
+    and a halo of remote tiles filled by the ring, and sends the results
+    home (``exchange.inverse_exchange``).  On the torus: the fixed box, the
+    wrapped keys, no heavy split, and ``rcut < L/2``."""
+    from nbody3d_tpu_torch.parallel.mesh_force import ShardedP3M
+
+    return _mesh_step(ShardedP3M, config, n_pad, n_real, mesh)
+
+
+def _mesh_step(force_cls, config: SimConfig, n_pad: int, n_real: int, mesh: Mesh) -> StepFn:
+    """The step of a ``mesh_force`` force on this rank of the process group."""
+    from nbody3d_tpu_torch.parallel.exchange import DistGroup
+
+    force = force_cls(config, n_pad, n_real, mesh.size, resolve_backend(config, mesh.device))
+    group = DistGroup(mesh.rank, mesh.size)
+    return _finish_mesh_step(config, lambda pm, G: force.accel(group, [pm], G)[0], group, n_pad, n_real, mesh)
+
+
 # ----------------------------------------------------------- diagnostics
 def make_sharded_diagnostics(config: SimConfig, n_pad: int, mesh: Mesh) -> Callable:
     """``compute(state, G) -> Diagnostics`` of a sharded state, the same
@@ -384,7 +450,9 @@ def make_sharded_diagnostics(config: SimConfig, n_pad: int, mesh: Mesh) -> Calla
     by one ``all_reduce`` (``ops/diagnostics.py``'s precision)."""
     shard = n_pad // mesh.size
     row0 = mesh.rank * shard
-    chunk = fit_block(shard, min(1024, max(8, (1 << 28) // max(n_pad, 1))))
+    # Rows a pair block, (rows, n_pad) at most 2^28 pairs: a power of two,
+    # which fit_block halves to a divisor of any shard of whole granules.
+    chunk = fit_block(shard, 1 << (min(1024, max(8, (1 << 28) // max(n_pad, 1))).bit_length() - 1))
 
     def compute(state: SimState, G: float) -> diag.Diagnostics:
         pm, vel = state.pos_mass, state.vel

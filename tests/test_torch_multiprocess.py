@@ -194,10 +194,32 @@ def test_cli_run_devices_matches_jax_cli(tmp_path, capsys):
     assert sorted(p.name for p in (tmp_path / "t").iterdir()) == sorted(p.name for p in (tmp_path / "j").iterdir())
 
 
+def test_cli_run_devices_p3m_matches_jax_cli(tmp_path):
+    """``run --devices 4 --device cpu --method p3m`` (the splitter exchange,
+    the halo ring) against the JAX CLI's ``run --devices 4 --method p3m``
+    on its virtual mesh: the final checkpoint and a mid-run one, 4 steps
+    with diagnostics (P3M's bounds: positions rtol 1e-5, velocities 1e-4 of
+    the max)."""
+    flags = ["--preset", "two-galaxy", "--n", "1000", "--steps", "4", "--log-every", "2", "--diagnostics",
+             "--checkpoint-every", "2", "--backend", "jnp", "--devices", "4", "--method", "p3m", "--pm-grid", "32",
+             "--p3m-nbr-k", "16"]
+    assert cli.main(["run", *flags, "--device", "cpu", "--outdir", str(tmp_path / "t")]) == 0
+    assert jax_cli.main(["run", *flags, "--outdir", str(tmp_path / "j")]) == 0
+    for name in ("final.npz", "ckpt_00000002.npz"):
+        t, j = np.load(tmp_path / "t" / name), np.load(tmp_path / "j" / name)
+        assert int(t["step"]) == int(j["step"])
+        np.testing.assert_allclose(t["pos_mass"], j["pos_mass"], rtol=1e-5, atol=1e-6)
+        assert np.abs(t["vel"] - j["vel"]).max() <= 1e-4 * np.abs(j["vel"]).max()
+        saved = json.loads(bytes(t["config_json"]).decode())
+        assert saved["method"] == "p3m" and saved["pm_grid"] == 32
+    assert sorted(p.name for p in (tmp_path / "t").iterdir()) == sorted(p.name for p in (tmp_path / "j").iterdir())
+
+
 def test_cli_info_reports_the_mesh(capsys):
     assert cli.main(["info"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert {"platform", "n_devices", "device_kind", "process_index", "process_count", "torch"} <= set(info)
+    assert set(info["sharded"]) == {"direct", "pm", "p3m"}
 
 
 # ------------------------------------------------------------ refusals
@@ -214,14 +236,24 @@ def test_ringsym_refuses_exact_mode_on_the_kernel_route():
 
 
 @pytest.mark.parametrize("method", ["pm", "p3m"])
-def test_mesh_methods_name_their_roadmap_item(method):
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_sharded_step(SimConfig(method=method), 1024, 1024, _fake_mesh())
-    cosmo = SimConfig(method=method, boundary="periodic", box_size=1.0, cosmology="eds")
-    with pytest.raises(NotImplementedError, match="11b"):
-        make_sharded_step(cosmo, 1024, 1024, _fake_mesh())
+def test_mesh_methods_build_sharded_steps(method):
+    """PM and P3M build their sharded steps (isolated, periodic,
+    interlaced, comoving; on the 1-D mesh and the 2 x 2 grid, whatever the
+    strategy) without a collective; a comoving run needs a mesh method and
+    the periodic box, as in the JAX package."""
+    box = dict(boundary="periodic", box_size=1.0)
+    for cfg in (SimConfig(method=method), SimConfig(method=method, **box, mesh_interlace=True),
+                SimConfig(method=method, **box, cosmology="eds"), SimConfig(method=method, strategy="ringsym")):
+        assert callable(make_sharded_step(cfg, 1024, 1000, _fake_mesh()))
+    for strategy in ("2d", "ring"):
+        cfg = SimConfig(method=method, strategy=strategy, **box, cosmology="lcdm")
+        assert callable(make_sharded_step(cfg, 1024, 1024, _fake_mesh((2, 2), ("row", "col"))))
+    with pytest.raises(ValueError, match="mesh solver"):
+        make_sharded_step(SimConfig(cosmology="eds", **box), 1024, 1024, _fake_mesh())
     with pytest.raises(ValueError, match="periodic"):
-        make_sharded_step(SimConfig(cosmology="eds"), 1024, 1024, _fake_mesh())
+        make_sharded_step(SimConfig(method=method, cosmology="eds"), 1024, 1024, _fake_mesh())
+    with pytest.raises(ValueError, match="not divisible"):
+        make_sharded_step(SimConfig(method=method), 1000, 1000, _fake_mesh((3,)))
 
 
 def test_strategies_check_the_mesh_shape():
