@@ -378,15 +378,35 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    step within rtol 1e-4, atol 1e-5 of the max (not bit for bit: the
    deposit's atomics).  Phase 18's lines carry the card's name and power
    limit.
+19. the sharded render (``render/sharded.py``): (a, after 18a, not in
+   ``--kernels-only``) D = 2, 4 and 8 ranks replayed in one process
+   (``ReplayGroup``), each rank's prep and ``splat_resolve`` on its shard
+   of the state padded as a D-rank engine pads it (the padding in the last
+   shard), one ``amin`` of the flipped words, bit-equal to one launch on the
+   real rows, at two-galaxy N = 40,002 960x720 and N = 500,010 1920x1080;
+   at 1080p, D = 8, a rank's frame, the replayed merge and one device's
+   frame by CUDA events; (b) ``Simulation(mesh=default_mesh(1))`` (NCCL,
+   one rank) after a Morton re-sort and after a sharded P3M step:
+   ``render_frame`` with ``auto``, ``host`` and ``device`` and each one's
+   begin/finish around a chunk, the padding at the tail, no host sync in
+   the ``auto`` begin (``set_sync_debug_mode("warn")``), its window the
+   mesh's calls alone; after the window each frame bit-equal to one
+   device's frame of the same rows, and the sharded frame's time beside one
+   device's; (c) 16b's serve loop on the one-rank mesh (its op records over
+   the gloo side group), its frame interval beside 16b's from the same
+   call, then the viewer's pipelined frame on the mesh and on one device in
+   turns; (d) ``dryrun_multichip(1, "cuda")`` in a spawned NCCL rank, the
+   kernels it launched.  Phase 19's lines carry the card's name and power
+   limit.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
-12d, 13b (twice), 13c, 14b, 15b (three times), 16b, 17b-17d and 18b-18d (the main paths) and 6c,
-6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d, 15c, 16c and 16d each
+12d, 13b (twice), 13c, 14b, 15b (three times), 16b, 17b-17d, 18b-18d, 19b and 19c (the main paths)
+and 6c, 6d, 8c, 8e, 9d, 10d, 10e, 11d, 12c, 13d, 14d, 15c, 16c, 16d and 19d each
 run with the launch counts set to 0
 just before and read just after; each must launch every kernel it runs and no other, and
 the SM clock, power draw and temperature are printed after each.  One
 profiled rollout of 6a and 6b each, one profiled frame of 7b, one profiled
-step of 8b, 8d, 10b (yoshida4), 12b (each), 12d, 14b and 15b (each), one pipelined frame of 16b and one profiled gradient rollout of 9b, 9c,
+step of 8b, 8d, 10b (yoshida4), 12b (each), 12d, 14b and 15b (each), one pipelined frame of 16b and 19c and one profiled gradient rollout of 9b, 9c,
 13b (each) and 13c (device busy time, idle share, largest kernels; for the
 gradients the share of each stage; 6a's ``vjp_combine`` and 10b's
 ``sym_combine`` device time a launch, their inputs as their paths leave
@@ -419,6 +439,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -5108,7 +5129,7 @@ def phase_serve(dev):
         a = sample()
         time.sleep(2.0)
         b = sample()
-        interval_ms = (b[3] - a[3]) / max(b[2] - a[2], 1) * 1e3
+        interval_ms = SERVE_MS["16b"] = (b[3] - a[3]) / max(b[2] - a[2], 1) * 1e3
         check(b[1] > a[1] and b[0] - a[0] == SERVE_K * (b[1] - a[1]),
               f"[16b] {b[1] - a[1]} pipelined frames in {b[3] - a[3]:.3f} s advanced {b[0] - a[0]} steps")
         stats = json.loads(_http(port, "/stats")[1])
@@ -5566,6 +5587,314 @@ def phase_sharded_p3m(dev):
                          MAIN.get("phase 8b", float("nan")), 2, 10)
 
 
+# ------------------------------------------------------ 19: sharded render
+RENDER_D = (2, 4, 8)
+SERVE_MS: dict[str, float] = {}  # 16b's and 19c's frame intervals, host clock, this call
+
+
+def render_frames() -> dict:
+    """19a's frames: two-galaxy N = 40,002 at serve's 960x720 and 16a's
+    N = 500,010 at 1920x1080: (pos_mass, vel, camera, width, height)."""
+    cfg = SimConfig()
+    pm, vel, target = make_preset("two-galaxy", seed=cfg.seed, G=cfg.G, size_factor=cfg.size_factor)
+    return {"two-galaxy N=40,002 960x720": (pm, vel, Camera(target=target), SERVE_W, SERVE_H),
+            "N=500,010 1920x1080": (*render_scene(500_010, 0), Camera(target=np.zeros(3), radius=5.0), 1920, 1080)}
+
+
+def phase_sharded_render_replay(dev) -> None:
+    """19a: the sharded render of D = 2, 4 and 8 ranks replayed in one
+    process (``ReplayGroup``): each rank's prep and ``splat_resolve`` on its
+    shard of the state padded as a D-rank engine pads it (the padding rows
+    in the last shard), one ``amin`` of the flipped words; the merged words
+    bit-equal to one launch on the whole state's real rows.  At 1080p, D =
+    8, a rank's frame (prep + resolve of its shard), the replayed merge
+    (D - 1 minima of 8 B/px and the flips, on one card) and one device's
+    frame, by CUDA events."""
+    from nbody3d_tpu_torch.render.sharded import make_sharded_render, merge_words, shard_words
+
+    print(f"[19a sharded render replay] D = 2, 4, 8 ranks' splat_resolve and the amin merge ({_card()})", flush=True)
+    t0 = time.perf_counter()
+    for name, (pm_np, vel_np, cam, w, h) in render_frames().items():
+        n = pm_np.shape[0]
+        pm, vel = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm_np, vel_np))
+        prep = rasterize.prep_device(pm, vel, cam, w, h)
+        want = resolve.splat_resolve(*prep, width=w, height=h)
+        lit = int((want != resolve.MISS).sum())
+        for d in RENDER_D:
+            n_pad = pad_count(n, PAD_GRANULE * d)
+            st = init_state(pm_np, vel_np, n_pad=n_pad, device=dev)
+            shards = list(st.pos_mass.view(d, -1, 4)), list(st.vel.view(d, -1, 4))
+            render = make_sharded_render(ReplayGroup(d), n_pad, n, width=w, height=h)
+            got = render.words(*shards, cam)
+            shard = n_pad // d
+            check(torch.equal(got, want) and lit > 0,
+                  f"[19a] {name} D={d}: n_pad {n_pad}, shard {shard}, the last shard's {n_pad - n} padding rows "
+                  f"masked; the merged words bit-equal to one launch on the {n} real rows ({lit} px lit)")
+        if w != 1920:
+            continue
+        d = 8
+        n_pad = pad_count(n, PAD_GRANULE * d)
+        st = init_state(pm_np, vel_np, n_pad=n_pad, device=dev)
+        group = ReplayGroup(d)
+        preps = [rasterize.prep_device(p, v, cam, w, h) for p, v in zip(st.pos_mass.view(d, -1, 4), st.vel.view(d, -1, 4))]
+        words = [shard_words(p, r, n, width=w, height=h) for r, p in enumerate(preps)]
+        reps = 10
+        rank_ms = [cuda_ms(lambda r=r: shard_words(rasterize.prep_device(st.pos_mass.view(d, -1, 4)[r],
+                                                                          st.vel.view(d, -1, 4)[r], cam, w, h),
+                                                   r, n, width=w, height=h), reps) for r in range(d)]
+        merge_ms = cuda_ms(lambda: merge_words(group, words), reps)
+        one_ms = cuda_ms(lambda: resolve.splat_resolve(*rasterize.prep_device(pm, vel, cam, w, h), width=w, height=h),
+                         reps)
+        mean_rank = statistics.mean(rank_ms)
+        print(f"  [19a] {name} D=8, CUDA events, mean of {reps}: a rank's frame (prep + splat_resolve of its "
+              f"{n_pad // d} rows) {min(rank_ms):.4f}-{max(rank_ms):.4f} ms (mean {mean_rank:.4f}); the replayed "
+              f"merge ({d - 1} minima of {w * h * 8:,} B and the flips, one card) {merge_ms:.4f} ms, "
+              f"{merge_ms / (mean_rank + merge_ms):.4f} of a rank's frame + merge; one device's frame of the "
+              f"{n} rows {one_ms:.4f} ms ({_card()})", flush=True)
+    print(f"  19a: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def host_syncs(fn) -> list[str]:
+    """The host syncs ``fn()`` makes, as ``torch.cuda.set_sync_debug_mode
+    ("warn")`` names them."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+
+
+def phase_sharded_render_engine(dev):
+    """19b: ``Simulation(mesh=default_mesh(1))`` (NCCL, one rank) on the
+    two-galaxy state at 960x720, after a Morton re-sort (2 steps,
+    ``morton_every=1``) and after a sharded P3M step (grid 128, k = 32):
+    ``render_frame`` with ``auto`` (the sharded render: the rank's
+    ``splat_resolve`` and the all-reduce), ``host`` and ``device`` (the
+    gathered rows), and each resolve's begin, a chunk after it and its
+    finish; the padding rows' mass 0 before and after the chunk; no host
+    sync in the ``auto`` begin (``set_sync_debug_mode("warn")``).  The
+    window holds the mesh's calls alone.  After it: each frame bit-equal to
+    one device's frame of the same rows, one device's begin without a host
+    sync, the sharded frame's time beside one device's, and its stages."""
+    from nbody3d_tpu_torch.render.rasterize import RESOLVES
+
+    cfg0 = SimConfig()
+    pm_np, vel_np, target = make_preset("two-galaxy", seed=cfg0.seed, G=cfg0.G, size_factor=cfg0.size_factor)
+    cam, frame = Camera(target=target), dict(width=SERVE_W, height=SERVE_H)
+    cases = []
+    for label, cfg, steps in (("after a Morton re-sort", SimConfig(morton_every=1), 2),
+                              ("after a sharded P3M step", SimConfig(method="p3m", pm_grid=128, p3m_nbr_k=32), 1)):
+        sim = Simulation(cfg, pm_np, vel_np, mesh=SHARDED["x"])
+        sim.run(steps, chunk=1)
+        arrays = sim.arrays()
+        pad = float(sim.global_state().pos_mass[sim.n_real:, 3].abs().max())
+        got = {res: sim.render_frame(camera=cam, resolve=res, **frame) for res in RESOLVES}
+        handles = {res: sim.render_frame_begin(cam, resolve=res, **frame) for res in RESOLVES}
+        token = sim.run_async(1)
+        piped = {res: sim.render_frame_finish(handles[res]) for res in RESOLVES}
+        sim.wait_chunk(token)
+        pad_after = float(sim.global_state().pos_mass[sim.n_real:, 3].abs().max())
+        check(pad == 0.0 and pad_after == 0.0 and sim.step_count == steps + 1,
+              f"[19b] {label}: the {sim.n_pad - sim.n_real} padding rows stay at the tail (mass {pad}, {pad_after})")
+        cases.append((label, cfg, arrays, got, piped))
+    begun = []
+    syncs = host_syncs(lambda: begun.append(sim.render_frame_begin(cam, **frame)))
+    sim.render_frame_finish(begun[0])
+    check(not syncs, f"[19b] render_frame_begin('auto') on the mesh makes no host sync: {syncs or 'none'}")
+
+    def against_one_device():
+        """One device's frames of the rows each case rendered, its begin's
+        syncs, and the frames' times and stages."""
+        for label, cfg, arrays, got, piped in cases:
+            one = Simulation(cfg, *arrays, device=dev)
+            for res in RESOLVES:
+                want = one.render_frame(camera=cam, resolve=res, **frame)
+                check(np.array_equal(got[res], want) and want.any(),
+                      f"[19b] {label}: render_frame(resolve={res!r}) on the 1-rank mesh == one device's, bit for bit")
+                check(np.array_equal(piped[res], want),
+                      f"[19b] {label}: begin({res!r}), a chunk enqueued after it, finish == one device's frame")
+        one.render_frame_finish(one.render_frame_begin(cam, **frame))
+        syncs_one = host_syncs(lambda: begun.append(one.render_frame_begin(cam, **frame)))
+        one.render_frame_finish(begun[1])
+        check(not syncs_one, f"[19b] render_frame_begin('auto') on one device makes no host sync: "
+                             f"{syncs_one or 'none'}")
+        ms = {}
+        for who, s in (("mesh", sim), ("one", one), ("mesh", sim), ("one", one)):  # in turns
+            ms.setdefault(who, []).append(statistics.median(host_ms(lambda: s.render_frame(camera=cam, **frame))
+                                                            for _ in range(3)))
+        print(f"  [19b] the 960x720 auto frame, host clock, synced, median of 3, in turns: sharded (1 rank: prep, "
+              f"splat_resolve, the all-reduce of {SERVE_W * SERVE_H * 8:,} B) {ms['mesh']} ms, one device "
+              f"{ms['one']} ms ({_card()})", flush=True)
+        # The sharded frame's stages alone, host clock, synced, median of 5.
+        from nbody3d_tpu_torch.render.sharded import merge_words, shard_words
+
+        group = exchange.DistGroup(0, 1)
+        pm, vel = sim.state.pos_mass, sim.state.vel
+        prep = rasterize.prep_device(pm, vel, cam, SERVE_W, SERVE_H)
+        words = shard_words(prep, 0, sim.n_real, width=SERVE_W, height=SERVE_H)
+        merged = merge_words(group, [words])
+        stage = {
+            "prep": lambda: rasterize.prep_device(pm, vel, cam, SERVE_W, SERVE_H),
+            "mask + splat_resolve": lambda: shard_words(prep, 0, sim.n_real, width=SERVE_W, height=SERVE_H),
+            "merge (flips + all_reduce MIN)": lambda: merge_words(group, [words]),
+            "all_reduce MIN alone": lambda: dist.all_reduce(words.clone(), op=dist.ReduceOp.MIN),
+            "image + copy to host": lambda: resolve.buffer_image(merged, width=SERVE_W, height=SERVE_H).cpu(),
+        }
+        took = {k: statistics.median(host_ms(f) for _ in range(5)) for k, f in stage.items()}
+        print("  [19b] the sharded frame's stages, host clock, synced, median of 5: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in took.items()) + f" ({_card()})", flush=True)
+
+    return [against_one_device]
+
+
+def phase_sharded_serve(dev):
+    """19c: ``LiveViewer`` on ``Simulation(mesh=default_mesh(1))`` (NCCL,
+    one rank; the op records over the gloo side group to no follower) on
+    16b's configuration, on an ephemeral port in this process, every HTTP
+    call with a timeout: ten pipelined frames, /frame.jpg, /stats, pause and
+    the paused frame against the encode of ``render_frame`` at the same
+    camera, export then import (bit-equal), the imported sim set running,
+    2 s of frames (the interval beside 16b's from this call), regenerate,
+    stop; after the window a profiled frame, the viewer's pipelined frame
+    on the mesh and on one device in turns (no loop thread), the host's
+    enqueue of a chunk on each, and an op record's broadcast."""
+    from nbody3d_tpu_torch import viewer as viewer_mod
+    from nbody3d_tpu_torch.render.jpeg import encode_jpeg
+    from nbody3d_tpu_torch.viewer import LiveViewer, control_group
+
+    sim = Simulation.from_preset("two-galaxy", SimConfig(), mesh=SHARDED["x"])
+    v = LiveViewer(sim, width=SERVE_W, height=SERVE_H, steps_per_frame=SERVE_K, side=control_group())
+    server = v.make_server("127.0.0.1", 0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    print(f"[19c sharded serve] LiveViewer on a 1-rank mesh, two-galaxy N={sim.n_real}, {SERVE_W}x{SERVE_H}, "
+          f"{SERVE_K} steps a frame, http://127.0.0.1:{port}/", flush=True)
+
+    def sample():
+        with v._sim_lock:
+            return v.sim.step_count, v.chunks_done, v._frames_done, time.perf_counter()
+
+    try:
+        v.start()
+        check(_until(lambda: v.chunks_done >= 10), f"[19c] ten pipelined frames ({v.chunks_done})")
+        st, body = _http(port, "/frame.jpg")
+        stats = json.loads(_http(port, "/stats")[1])
+        check(st == 200 and _jpeg_ok(body) and _jpeg_size(body) == (SERVE_W, SERVE_H) and stats["n"] == 40_002,
+              f"[19c] /frame.jpg {st}, {_jpeg_size(body)}, {len(body):,} B; /stats n {stats['n']}")
+        check(_http(port, "/control?pause=1")[0] == 204 and v.sim.paused, "[19c] /control?pause=1")
+        frames = v._frames_done
+        _until(lambda: v._frames_done >= frames + 2)
+        cam, w, h = v._snapshot()
+        st, served = _http(port, "/frame.jpg")
+        with v._sim_lock:
+            want = encode_jpeg(v.sim.render_frame(camera=cam, width=w, height=h), v.quality)
+        check(st == 200 and served == want, "[19c] paused /frame.jpg == encode_jpeg(render_frame(same camera))")
+        st, npz = _http(port, "/export.npz")
+        st2, _ = _http(port, "/import.npz", npz)
+        with np.load(io.BytesIO(npz)) as z, v._sim_lock:
+            same = all(np.array_equal(z[k], a) for k, a in zip(("pos_mass", "vel", "accel"), v.sim.arrays()))
+            same &= int(z["step"]) == v.sim.step_count and v.sim.mesh is SHARDED["x"]
+        check(st == 200 and st2 == 204 and same, f"[19c] /export.npz ({len(npz):,} B) then POST /import.npz: the "
+                                                 "imported sharded state equals the exported one bit for bit")
+        check(_http(port, "/control?logdt=-3.8")[0] == 204 and not v.sim.paused, "[19c] the imported sim runs")
+        c0 = v.chunks_done
+        _until(lambda: v.chunks_done >= c0 + 2)
+        a = sample()
+        time.sleep(2.0)
+        b = sample()
+        interval = SERVE_MS["19c"] = (b[3] - a[3]) / max(b[2] - a[2], 1) * 1e3
+        check(b[1] > a[1] and b[0] - a[0] == SERVE_K * (b[1] - a[1]),
+              f"[19c] {b[1] - a[1]} pipelined frames in {b[3] - a[3]:.3f} s advanced {b[0] - a[0]} steps")
+        check(_http(port, "/control?regenerate=1")[0] == 204 and v.sim.n_real == 40_002 and v.sim.mesh is not None,
+              f"[19c] /control?regenerate=1: N={v.sim.n_real} on the mesh")
+        c0 = v.chunks_done
+        check(_until(lambda: v.chunks_done >= c0 + 3, 30), f"[19c] the regenerated sim steps ({v.sim.step_count})")
+    finally:
+        v.stop()
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=10)
+    check(v.error is None and not v._thread.is_alive() and not v._followers,
+          f"[19c] loop and server stopped, the stop op sent, no loop error ({v.error!r})")
+    base = SERVE_MS.get("16b", float("nan"))
+    print(f"  [19c] frame interval on the 1-rank mesh {interval:.3f} ms vs one device (16b, this call) {base:.3f} ms "
+          f"({interval / base - 1:+.2%}); host clock, 2 s of pipelined frames ({_card()})", flush=True)
+    s = v.sim
+
+    def frame():
+        handle = s.render_frame_begin(cam, width=SERVE_W, height=SERVE_H)
+        token = s.run_async(SERVE_K)
+        s.render_frame_finish(handle)
+        s.wait_chunk(token)
+
+    def in_turns(rounds: int = 3, frames: int = 10):
+        """The viewer's own pipelined frame (``LiveViewer.pipelined_frame``:
+        the op record on the mesh, begin, chunk, finish, JPEG, wait), no loop
+        thread and no server, on the mesh and on one device in turns."""
+        one = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+        viewers = {"mesh": LiveViewer(s, width=SERVE_W, height=SERVE_H, steps_per_frame=SERVE_K,
+                                      side=control_group()),
+                   "one device": LiveViewer(one, width=SERVE_W, height=SERVE_H, steps_per_frame=SERVE_K)}
+        ms: dict[str, list[float]] = {k: [] for k in viewers}
+        for _ in range(rounds):
+            for k, viewer in viewers.items():
+                viewer.pipelined_frame()
+                t0 = time.perf_counter()
+                for _ in range(frames):
+                    viewer.pipelined_frame()
+                ms[k].append((time.perf_counter() - t0) / frames * 1e3)
+        m, o = statistics.median(ms["mesh"]), statistics.median(ms["one device"])
+        print(f"  [19c] the viewer's pipelined frame in turns ({rounds} rounds of {frames}, host clock, no loop "
+              f"thread): 1-rank mesh {[round(x, 3) for x in ms['mesh']]} ms, one device "
+              f"{[round(x, 3) for x in ms['one device']]} ms; medians {m:.3f} vs {o:.3f} ({m / o - 1:+.2%}) "
+              f"({_card()})", flush=True)
+
+        def enqueue_ms(sim) -> float:
+            """The host's time to enqueue a chunk (``run_async``), the stream idle before it."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            token = sim.run_async(SERVE_K)
+            t = (time.perf_counter() - t0) * 1e3
+            sim.wait_chunk(token)
+            return t
+
+        enq = {k: [] for k in viewers}
+        for _ in range(5):
+            for k, viewer in viewers.items():
+                enq[k].append(enqueue_ms(viewer.sim))
+        record = {"op": "frame", "runtime": (s.dt, s.G, None), "camera": cam.to_dict(), "width": SERVE_W,
+                  "height": SERVE_H, "resolve": "auto", "k": SERVE_K, "diagnostics": False}
+        side = viewers["mesh"]._side
+        announce = statistics.median(host_ms(lambda: viewer_mod._broadcast(record, side)) for _ in range(5))
+        print(f"  [19c] the host's enqueue of a chunk of {SERVE_K} steps, in turns, median of 5: 1-rank mesh "
+              f"{statistics.median(enq['mesh']):.3f} ms, one device {statistics.median(enq['one device']):.3f} ms; "
+              f"an op record's broadcast over the gloo side group (1 rank) {announce:.3f} ms ({_card()})", flush=True)
+
+    return [(f"19c one pipelined frame on the 1-rank mesh ({SERVE_W}x{SERVE_H}, {SERVE_K} steps)", frame), in_turns]
+
+
+def phase_dryrun(dev) -> None:
+    """19d: ``dryrun_multichip(1, "cuda")``: one spawned NCCL rank runs one
+    sharded step of the JAX dryrun's configurations (the 2-D one needs 4
+    ranks) and the sharded render at 96x64; the kernels that rank launched.
+    This process launches none."""
+    from nbody3d_tpu_torch.parallel.dryrun import configs, dryrun_multichip
+
+    t0 = time.perf_counter()
+    report = dryrun_multichip(1, "cuda")
+    launched = report["launches_by_rank"][0]
+    want = {"force_exact", "mesh_deposit", "mesh_gather", "short_range", "splat_resolve"}
+    check(report["steps"] == {name: 1 for name in configs(1)} and report["frame"]["shape"] == [64, 96]
+          and report["frame"]["n_uncovered"] == 0 and want <= set(launched),
+          f"[19d] dryrun_multichip(1, 'cuda') in {time.perf_counter() - t0:.1f} s: steps {report['steps']}, frame "
+          f"{report['frame']}; the rank launched {json.dumps(launched)}")
+
+
 SHARDED_PATHS = (
     ("phase 17b (sharded ring path, 1 rank)", phase_sharded_ring, ("force_exact",)),
     ("phase 17c (sharded ringsym path, 1 rank)", phase_sharded_ringsym, SYM_FORCE),
@@ -5574,6 +5903,9 @@ SHARDED_PATHS = (
     ("phase 18b (sharded periodic PM path, 1 rank)", phase_sharded_pm_box, ("mesh_deposit", "mesh_gather")),
     ("phase 18c (sharded comoving EdS P3M path, 1 rank)", phase_sharded_cosmo, MESH_KERNELS),
     ("phase 18d (sharded P3M path, 1 rank)", phase_sharded_p3m, MESH_KERNELS),
+    ("phase 19b (sharded render path, 1 rank)", phase_sharded_render_engine,
+     ("force_exact", "splat_resolve") + MESH_KERNELS),
+    ("phase 19c (sharded serve loop, 1 rank)", phase_sharded_serve, ("force_exact", "splat_resolve")),
 )
 
 
@@ -5738,6 +6070,7 @@ def main() -> int:
         print(f"kernels-only: {len(FAILURES)} failures", flush=True)
         return 1 if FAILURES else 0
     phase_sharded_mesh_replay(dev)
+    phase_sharded_render_replay(dev)
     times = phase_kernel_times(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -5748,11 +6081,12 @@ def main() -> int:
         t0 = time.perf_counter()
         with OneRankGroup():
             by_path.update({path: run_window(path, run, ks, dev) for path, run, ks in SHARDED_PATHS})
-        print(f"  17b-17d and 18b-18d with the process group's set-up: {time.perf_counter() - t0:.1f} s",
+        print(f"  17b-17d, 18b-18d, 19b and 19c with the process group's set-up: {time.perf_counter() - t0:.1f} s",
               flush=True)
-        # 16c and 16d: 7b's checkpoint animated, and a traced run.
+        # 16c and 16d: 7b's checkpoint animated, and a traced run; 19d: the dryrun in a spawned rank.
         run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
         run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)
+        run_window("phase 19d (dryrun_multichip(1, 'cuda'), a spawned rank)", phase_dryrun, (), dev)
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))

@@ -19,7 +19,7 @@ device (default ``cuda``, which raises where there is no card).  dt and G
 take linear values (``--dt 1e-4``) or log-slider values (``--log-dt -4``).
 Resuming a checkpoint keeps its saved config except for the flags given.
 
-Several devices (``run``, ``bench``): ``--devices N``
+Several devices (``run``, ``bench``, ``serve``): ``--devices N``
 starts N local ranks, one process a device (NCCL on ``--device cuda``, one
 card a rank; gloo on ``--device cpu``), and shards the bodies over them:
 the direct force with ``--strategy ring|ringsym|gather|2d``, ``--method
@@ -29,9 +29,13 @@ the Morton order and the halo ring) whatever the strategy, isolated or
 the 2-D mesh of ``--strategy 2d`` flattened row-major (``parallel/``).
 ``--distributed`` joins a process group that ``torchrun`` started
 (``init_method="env://"``, device ``cuda:$LOCAL_RANK``) and shards over all
-of its ranks.  Only rank 0 prints and writes files.  Rendering a sharded
-run is not ported yet (ROADMAP item 11c): ``animate`` and ``serve`` refuse
-these flags.
+of its ranks.  Only rank 0 prints and writes files.  A sharded run's
+frames render where the rows live (``render/sharded.py``: each rank's
+resolve, one ``amin`` of the frames), so ``run --render-every`` writes rank
+0's frames and ``serve`` serves the mesh: rank 0 owns the HTTP server and
+the loop, the other ranks follow its op records (``viewer.py``).
+``animate`` loads its checkpoint on one device, as the JAX package's does,
+so ``--devices`` leaves it there and ``--distributed`` is refused.
 
     python -m nbody3d_tpu_torch.cli run --preset two-galaxy --steps 2000 --diagnostics \
         --checkpoint-every 500 --render-every 500 --outdir out
@@ -50,6 +54,8 @@ these flags.
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --method p3m --pm-grid 32 --n 4096 --steps 10
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --preset cosmo --n 4096 --cosmology eds \
         --method pm --boundary periodic --box-size 10 --pm-grid 16 --steps 10
+    python -m nbody3d_tpu_torch.cli serve --devices 2 --device cpu --preset plummer --n 4096 --port 8000
+    torchrun --nproc-per-node 4 -m nbody3d_tpu_torch.cli serve --distributed --preset two-galaxy --port 8000
     torchrun --nproc-per-node 8 -m nbody3d_tpu_torch.cli run --distributed --method p3m --boundary periodic \
         --preset uniform-box --n 2097152 --box-size 10 --interlace --steps 100
     torchrun --nproc-per-node 8 -m nbody3d_tpu_torch.cli run --distributed --strategy ringsym \
@@ -108,7 +114,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "it has no effect on the port's kernels")
     p.add_argument("--devices", type=int, default=1,
                    help=">1 shards the bodies over this many local ranks, one process a device "
-                        "(run, bench; animate and serve refuse it: ROADMAP item 11c)")
+                        "(run, bench, serve; animate loads on one device)")
     p.add_argument("--strategy", default=None, choices=["ring", "ringsym", "gather", "2d"],
                    help="the sharded force's exchange: ring (sources round the ring), ringsym (Newton-3 "
                         "half ring), gather (all-gather the sources), 2d (the grid decomposition)")
@@ -266,10 +272,14 @@ def cmd_run(args) -> int:
 
 
 def _save_frame(args, sim, frame_idx: int) -> str:
+    """A frame of the state, on every rank of a mesh (collective); one
+    device or rank 0 writes it."""
     from nbody3d_tpu_torch.render.image import save_png
 
     path = os.path.join(args.outdir, f"frame_{frame_idx:06d}.png")
-    save_png(path, sim.render_frame())
+    img = sim.render_frame()
+    if _primary(sim):
+        save_png(path, img)
     return path
 
 
@@ -367,6 +377,9 @@ def cmd_animate(args) -> int:
     from nbody3d_tpu_torch.render.image import save_animation, save_png
     from nbody3d_tpu_torch.utils.camera import ROT_SPEED, Camera
 
+    if args.distributed:
+        raise ValueError("animate loads its checkpoint on one device, as the JAX package's does: --distributed "
+                         "would join a process group that no rank of it uses")
     sim = _load_sim(args.checkpoint, args)
     cam = Camera(target=sim.camera_target)
     os.makedirs(args.outdir, exist_ok=True)
@@ -393,16 +406,32 @@ SERVE_RESOLVES = {"auto": "auto", "host": "host", "device": "device", "pallas": 
 
 def cmd_serve(args) -> int:
     """The live interactive viewer (``viewer.py``): the simulation advances
-    on the device while the server streams frames and takes the controls."""
-    from nbody3d_tpu_torch.engine import Simulation
-    from nbody3d_tpu_torch.viewer import LiveViewer
+    on the device while the server streams frames and takes the controls.
+    On a mesh rank 0 serves and the other ranks follow its op records; a
+    Ctrl-C reaches every rank of the terminal's process group, and only
+    rank 0 acts on it: its stop ends the followers, so every rank exits 0."""
+    import signal
 
+    from nbody3d_tpu_torch.engine import Simulation
+    from nbody3d_tpu_torch.viewer import LiveViewer, control_group, follow
+
+    mesh = _build_mesh(args)
     if args.checkpoint:
-        sim = _load_sim(args.checkpoint, args)
+        sim = _load_sim(args.checkpoint, args, mesh)
     else:
-        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n, device=args.device)
+        sim = Simulation.from_preset(args.preset, _build_config(args), n=args.n,
+                                     device=None if mesh else args.device, mesh=mesh)
+    side = None
+    if mesh is not None:
+        side = control_group()
+        if mesh.rank != 0:
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            follow(sim, side)
+            return 0
+        # The spawning parent ignores SIGINT, and its ranks inherit that.
+        signal.signal(signal.SIGINT, signal.default_int_handler)
     viewer = LiveViewer(sim, width=args.width, height=args.height, steps_per_frame=args.steps_per_frame,
-                        diagnostics_every=args.diagnostics_every, resolve=SERVE_RESOLVES[args.resolve])
+                        diagnostics_every=args.diagnostics_every, resolve=SERVE_RESOLVES[args.resolve], side=side)
     viewer.serve_forever(args.host, args.port)
     return 0
 
@@ -561,8 +590,11 @@ def cmd_info(args) -> int:
         "cuda": torch.version.cuda,
         "cuda_available": torch.cuda.is_available(),
         "devices": [torch.cuda.get_device_name(i) for i in range(n)],
-        # What --devices/--distributed shards: direct by strategy, the mesh methods whatever it is.
-        "sharded": {"direct": ["ring", "ringsym", "gather", "2d"], "pm": "any mesh", "p3m": "any mesh"},
+        # What --devices/--distributed shards: direct by strategy, the mesh methods whatever it is, and
+        # the frames of run --render-every and serve by resolve.
+        "sharded": {"direct": ["ring", "ringsym", "gather", "2d"], "pm": "any mesh", "p3m": "any mesh",
+                    "render": {"auto": "each rank's rows, one amin of the frames", "host": "gathered rows",
+                               "device": "gathered rows"}},
     }
     print(json.dumps(info, indent=2))
     return 0
@@ -695,9 +727,9 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_info)
 
     args = parser.parse_args(argv)
-    if args.fn in (cmd_animate, cmd_serve) and (args.devices > 1 or args.distributed):
-        raise NotImplementedError(f"{args.cmd} on a mesh renders a sharded state: ROADMAP item 11c, not ported yet")
     if args.fn in MESH_COMMANDS and args.devices > 1 and not args.distributed:
+        import signal
+
         import torch
         import torch.distributed as dist
 
@@ -706,13 +738,20 @@ def main(argv=None) -> int:
 
             kind = torch.device(args.device).type
             threads = max(1, torch.get_num_threads() // args.devices)
-            spawn(_rank_main, args.devices, args, device=kind, timeout=None, threads=threads)
+            # A served mesh stops from its rank 0 (cmd_serve), not by the
+            # parent stopping the ranks.
+            old = signal.signal(signal.SIGINT, signal.SIG_IGN) if args.fn is cmd_serve else None
+            try:
+                spawn(_rank_main, args.devices, args, device=kind, timeout=None, threads=threads)
+            finally:
+                if old is not None:
+                    signal.signal(signal.SIGINT, old)
             return 0
     return args.fn(args)
 
 
-# The subcommands that step a simulation on a mesh with --devices/--distributed.
-MESH_COMMANDS = (cmd_run, cmd_bench)
+# The subcommands that run a simulation on a mesh with --devices/--distributed.
+MESH_COMMANDS = (cmd_run, cmd_bench, cmd_serve)
 
 
 def _rank_main(rank: int, world: int, args) -> int:

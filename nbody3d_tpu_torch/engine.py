@@ -8,7 +8,11 @@ rows (``parallel.shard_state``) and steps them with the sharded step of
 are the sharded ones, and what needs the global state (``arrays``, the
 Morton re-sort, ``save``) gathers it on every rank, which makes those
 calls collective: every rank makes them, in one order.  Only rank 0
-writes a checkpoint.  Rendering a sharded state is ROADMAP item 11c.
+writes a checkpoint.  A frame of a sharded state is collective too and the
+same on every rank: ``resolve="auto"`` renders where the rows live
+(``render/sharded.py``: each rank's ``splat_resolve``, one ``amin`` of the
+frames), ``"host"`` and ``"device"`` gather the rows and render them as one
+device does.
 
 The host sees the state at chunk boundaries only (logging, diagnostics,
 Morton re-sorts, checkpoints, frames).  Each chunk is timed on the host
@@ -50,6 +54,11 @@ from nbody3d_tpu_torch.ops.step import (
 from nbody3d_tpu_torch.parallel import sharded
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count, unpad
 from nbody3d_tpu_torch.utils.profiling import Ema, StepStats
+
+
+def draw_seed() -> int:
+    """A fresh seed from the OS's entropy (the regenerate button's)."""
+    return int(np.random.SeedSequence().generate_state(1)[0]) & 0x7FFFFFFF
 
 
 def _resolve_sim_device(device, mesh) -> torch.device:
@@ -132,6 +141,8 @@ class Simulation:
         # and the stream that fetches a quantized frame's large splats.
         self._pinned: dict[tuple, torch.Tensor] = {}
         self._side_stream = None
+        # A mesh's sharded renders, by (width, height, colour mode).
+        self._sharded_renders: dict[tuple, object] = {}
 
     @classmethod
     def from_preset(
@@ -169,7 +180,10 @@ class Simulation:
             base = kw if name == "reference-random" else {}
             name, n, kw = "reference-random", None, {**base, **settings}
         if seed is None:
-            seed = int(np.random.SeedSequence().generate_state(1)[0]) & 0x7FFFFFFF
+            seed = draw_seed()
+            if self.mesh is not None:
+                # Rank 0's draw on every rank, or each would build its own state.
+                seed = sharded.broadcast_int(seed, self.mesh)
         dt_live = self._old_dt if self._old_dt is not None else self.dt
         config = self.config.replace(seed=seed, G=self.G, dt=dt_live)
         return Simulation.from_preset(name, config, n=n, device=self.device, mesh=self.mesh, **kw)
@@ -478,36 +492,75 @@ class Simulation:
         padding would still splat through the minimum-size clamp.
         ``"host"`` is the JAX package's default f64 host frame, ``"device"``
         its quantized resolve (``render/resolve.py``).  The camera defaults
-        to one orbiting ``camera_target``.
+        to one orbiting ``camera_target``.  With a mesh the call is
+        collective and every rank gets the same image (the module's
+        docstring).
         """
         from nbody3d_tpu_torch.render.rasterize import render_points
         from nbody3d_tpu_torch.utils.camera import Camera
 
-        self._check_unsharded()
         if camera is None:
             camera = Camera(target=self.camera_target)
         t0 = time.perf_counter()
-        img = render_points(
-            self.state.pos_mass[: self.n_real].detach(),
-            self.state.vel[: self.n_real].detach(),
-            camera,
-            width=width,
-            height=height,
-            size_factor=self.config.size_factor,
-            color_mode=color_mode,
-            resolve=resolve,
-        )
+        if self.mesh is not None and resolve == "auto":
+            img = self._sharded_image(camera, width, height, color_mode).cpu().numpy()
+        else:
+            pm, vel = self._frame_rows()
+            img = render_points(pm, vel, camera, width=width, height=height, size_factor=self.config.size_factor,
+                                color_mode=color_mode, resolve=resolve)
         # The image is on the host, so the device's work is done.
         self.last_render_ms = (time.perf_counter() - t0) * 1e3
         self.last_render_info = f"{width}x{height} {camera.describe()}"
         return img
 
-    def _check_unsharded(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "rendering a sharded simulation: the min-merge sharded render (render/sharded.py) is "
-                "ROADMAP item 11c, not ported yet"
-            )
+    def _frame_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The real rows a one-device frame renders: this state's, or a
+        sharded one's gathered on every rank (collective)."""
+        state = self.global_state()
+        return state.pos_mass[: self.n_real].detach(), state.vel[: self.n_real].detach()
+
+    def _sharded_words(self, camera, width: int, height: int, color_mode: str) -> torch.Tensor:
+        """The merged ``(H * W,)`` framebuffer of the sharded render
+        (collective), on this rank's device; the render is cached by frame
+        size and colour mode, as the JAX engine's ``_sharded_render``."""
+        from nbody3d_tpu_torch.parallel.exchange import DistGroup
+        from nbody3d_tpu_torch.render.sharded import make_sharded_render
+
+        key = (width, height, color_mode)
+        render = self._sharded_renders.get(key)
+        if render is None:
+            render = self._sharded_renders[key] = make_sharded_render(
+                DistGroup(self.mesh.rank, self.mesh.size), self.n_pad, self.n_real, width=width, height=height,
+                size_factor=self.config.size_factor, color_mode=color_mode)
+        return render.words([self.state.pos_mass.detach()], [self.state.vel.detach()], camera)
+
+    def _sharded_image(self, camera, width: int, height: int, color_mode: str) -> torch.Tensor:
+        """The ``(H, W, 3)`` uint8 image of the sharded render (collective),
+        on this rank's device."""
+        from nbody3d_tpu_torch.render.resolve import buffer_image
+
+        words = self._sharded_words(camera, width, height, color_mode)
+        return buffer_image(words, width=width, height=height)
+
+    def render_frame_collective(
+        self, camera=None, *, width: int = 1024, height: int = 768, color_mode: str = "magnitude",
+        resolve: str = "auto",
+    ) -> None:
+        """A mesh rank's share of a frame whose image it does not keep (a
+        served mesh's follower, ``viewer.py``): the collective calls of
+        :meth:`render_frame` and :meth:`render_frame_begin` alone, in their
+        order (the sharded render's prep, resolve and all-reduce for
+        ``"auto"``, else the rows' gather), with no image, no copy to the
+        host and no host render."""
+        from nbody3d_tpu_torch.render.rasterize import RESOLVES
+        from nbody3d_tpu_torch.utils.camera import Camera
+
+        if resolve not in RESOLVES:
+            raise ValueError(f"unknown resolve {resolve!r} ({', '.join(RESOLVES)})")
+        if resolve == "auto":
+            self._sharded_words(camera or Camera(target=self.camera_target), width, height, color_mode)
+        else:
+            self._frame_rows()
 
     def _to_pinned(self, t: torch.Tensor) -> torch.Tensor:
         """A non-blocking copy of ``t`` into this sim's pinned host buffer of
@@ -537,20 +590,27 @@ class Simulation:
         the device's current stream with a non-blocking copy of the image
         (or the quantized buffer) into a pinned host buffer and an event
         after it, with no host sync; a chunk enqueued next runs after them.
-        ``"host"`` copies the state to the host here.  Returns the handle of
-        :meth:`render_frame_finish`."""
+        ``"host"`` copies the state to the host here.  With a mesh the call
+        is collective: ``"auto"`` enqueues the sharded render (each rank's
+        prep and resolve, the frames' all-reduce) the same way, with no host
+        sync, and the other resolves gather the rows first.  Returns the
+        handle of :meth:`render_frame_finish`."""
         from nbody3d_tpu_torch.render import rasterize, resolve as rs
         from nbody3d_tpu_torch.utils.camera import Camera
 
         if resolve not in rasterize.RESOLVES:
             raise ValueError(f"unknown resolve {resolve!r} ({', '.join(rasterize.RESOLVES)})")
-        self._check_unsharded()
         if camera is None:
             camera = Camera(target=self.camera_target)
         t0 = time.perf_counter()
-        pm, vel = self.state.pos_mass[: self.n_real].detach(), self.state.vel[: self.n_real].detach()
         handle = {"camera": camera, "width": width, "height": height, "color_mode": color_mode,
                   "resolve": resolve}
+        if self.mesh is not None and resolve == "auto":
+            handle["host"] = self._to_pinned(self._sharded_image(camera, width, height, color_mode))
+            handle["event"] = self._event()
+            handle["begin_ms"] = (time.perf_counter() - t0) * 1e3
+            return handle
+        pm, vel = self._frame_rows()
         if resolve == "host":
             handle["src"] = (pm.cpu().numpy(), vel.cpu().numpy())
         else:

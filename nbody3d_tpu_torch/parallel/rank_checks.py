@@ -124,10 +124,21 @@ def _order_case(mesh, case: dict):
     return spy.log
 
 
+FRAME = dict(width=96, height=64)
+
+
+def frame_camera(radius: float = 5.0):
+    """The camera of the rank cases' frames (the tests render one device's
+    frames with it too)."""
+    from nbody3d_tpu_torch.utils.camera import Camera
+
+    return Camera(target=np.zeros(3), radius=radius)
+
+
 def _engine_case(mesh, case: dict):
     """``Simulation(mesh=...)``: a preset run with Morton re-sorts, the
     diagnostics, a checkpoint saved and loaded back sharded (npz and
-    JSON), and a refused frame."""
+    JSON), and the loaded state's frame (the sharded render)."""
     from nbody3d_tpu_torch.engine import Simulation
 
     cfg = SimConfig(**case["config"])
@@ -142,11 +153,154 @@ def _engine_case(mesh, case: dict):
         dist.barrier()  # rank 0 has written the file
         back = Simulation.load(path + suffix, mesh=mesh)
         out["loaded" + suffix] = back.arrays()
-    try:
-        sim.render_frame()
-    except NotImplementedError as e:
-        out["render_error"] = str(e)
+        out["frame" + suffix] = back.render_frame(camera=frame_camera(), **FRAME)
     return out
+
+
+def _render_case(mesh, case: dict):
+    """The frames of a sharded ``Simulation`` after its run (Morton re-sorts,
+    or a P3M step): ``render_frame`` by each resolve, and each resolve's
+    pipelined begin, a chunk of one step enqueued after it, and its finish;
+    with the gathered state the frames render from and its padding rows'
+    largest mass."""
+    from nbody3d_tpu_torch.engine import Simulation
+    from nbody3d_tpu_torch.render.rasterize import RESOLVES
+
+    sim = Simulation.from_preset(case["preset"], SimConfig(**case["config"]), n=case["n"], mesh=mesh)
+    sim.run(case["steps"], chunk=case["chunk"])
+    cam = frame_camera()
+    state = sim.global_state()
+    out = {"arrays": sim.arrays(), "pad_mass": float(state.pos_mass[sim.n_real:, 3].abs().max()),
+           "step": sim.step_count}
+    for res in RESOLVES:
+        out[res] = sim.render_frame(camera=cam, resolve=res, **FRAME)
+    handles = {res: sim.render_frame_begin(cam, resolve=res, **FRAME) for res in RESOLVES}
+    token = sim.run_async(1)
+    for res in RESOLVES:
+        out["pipelined " + res] = sim.render_frame_finish(handles[res])
+    sim.wait_chunk(token)
+    out["step_after"] = sim.step_count
+    return out
+
+
+def _regenerate_case(mesh, case: dict):
+    """``regenerate()`` with no seed on a mesh: the seed each rank ends with,
+    its shard and the gathered state."""
+    from nbody3d_tpu_torch.engine import Simulation
+
+    sim = Simulation.from_preset(case["preset"], SimConfig(**case.get("config", {})), n=case["n"], mesh=mesh)
+    new = sim.regenerate()
+    return {"seed": new.config.seed, "shard": new.state.pos_mass.numpy().copy(), "arrays": new.arrays(),
+            "n_pad": new.n_pad}
+
+
+def _serve_case(mesh, case: dict):
+    """A served mesh without HTTP: rank 0's ``LiveViewer`` driven through
+    pipelined frames, a dt change, pause and unpause, regenerate, export
+    and import, and a pause with paused frames, then stopped; the other
+    ranks in ``viewer.follow``.  Every rank logs the op records it sends or
+    takes; every rank returns its log, runtime, step and seed, and the
+    gathered state (after the stop: a collective outside the protocol);
+    rank 0 also its last JPEG and the camera it was rendered with."""
+    import time
+
+    from nbody3d_tpu_torch import viewer
+    from nbody3d_tpu_torch.engine import Simulation
+
+    log = []
+    broadcast = viewer._broadcast
+
+    def logged(record, side):
+        got = broadcast(record, side)
+        log.append((got["op"], got.get("runtime"), got.get("k"), got.get("seed")))
+        return got
+
+    viewer._broadcast = logged
+    try:
+        side = viewer.control_group()
+        sim = Simulation.from_preset(case["preset"], SimConfig(**case.get("config", {})), n=case["n"], mesh=mesh)
+        if mesh.rank != 0:
+            sim = viewer.follow(sim, side)
+            frame = cam = None
+        else:
+            v = viewer.LiveViewer(sim, steps_per_frame=2, diagnostics_every=3, side=side, **FRAME)
+
+            def until(pred, what):
+                deadline = time.monotonic() + 60
+                while not pred():
+                    if v.error is not None or time.monotonic() > deadline:
+                        raise RuntimeError(f"serve case: {what} ({v.error!r})")
+                    time.sleep(0.01)
+
+            def frames(k):
+                n = v.chunks_done
+                until(lambda: v.chunks_done >= n + k, f"{k} pipelined frames")
+
+            def paused_frames(k):
+                n = v._frames_done
+                until(lambda: v._frames_done >= n + k, f"{k} paused frames")
+
+            v.start()
+            frames(3)
+            v.control({"logdt": ["-3.8"], "orbit": ["30,5"]})
+            frames(2)
+            v.control({"pause": ["1"]})
+            paused_frames(2)
+            v.control({"pause": ["1"]})
+            frames(2)
+            v.regenerate()
+            frames(2)
+            v.import_state(v.export_state(".npz"), ".npz")
+            frames(2)
+            v.control({"pause": ["1"]})
+            paused_frames(2)
+            v.stop()
+            if v.error is not None:
+                raise RuntimeError("the viewer's loop failed") from v.error
+            sim, frame, cam = v.sim, v._frame, v.camera.to_dict()
+        return {"log": log, "runtime": (sim._dt, sim._G, sim._old_dt), "step": sim.step_count,
+                "seed": sim.config.seed, "arrays": sim.arrays(), "frame": frame, "camera": cam}
+    finally:
+        viewer._broadcast = broadcast
+
+
+def _serve_import_fails_case(mesh, case: dict):
+    """A served mesh whose import fails on rank 1 alone (its copy of the
+    checkpoint cannot be read): rank 0's ``LiveViewer``, no loop thread,
+    exports at step 0, makes a pipelined frame, imports the export, makes
+    another frame and stops; the other ranks in ``viewer.follow``.  Every
+    rank returns its step and gathered state, rank 0 also what its import
+    raised."""
+    from nbody3d_tpu_torch import viewer
+    from nbody3d_tpu_torch.engine import Simulation
+
+    load = viewer._load_bytes
+
+    def unreadable(old, data, suffix):
+        raise OSError(f"rank {mesh.rank} cannot read its copy of the checkpoint")
+
+    if mesh.rank == 1:
+        viewer._load_bytes = unreadable
+    try:
+        side = viewer.control_group()
+        sim = Simulation.from_preset(case["preset"], SimConfig(**case.get("config", {})), n=case["n"], mesh=mesh)
+        raised = None
+        if mesh.rank != 0:
+            sim = viewer.follow(sim, side)
+        else:
+            v = viewer.LiveViewer(sim, steps_per_frame=2, side=side, **FRAME)
+            data = v.export_state(".npz")
+            v.pipelined_frame()
+            try:
+                v.import_state(data, ".npz")
+            except RuntimeError as e:
+                raised = str(e)
+            v.pipelined_frame()
+            v.stop()
+            sim = v.sim
+        return {"step": sim.step_count, "arrays": sim.arrays(), "raised": raised}
+    finally:
+        viewer._load_bytes = load
 
 
 def _mesh_case(mesh, case: dict):
@@ -219,18 +373,22 @@ def _replay_case(mesh, case: dict):
     return {"ranks": got.numpy(), "replay": None if replay is None else replay.numpy()}
 
 
-CASES = {"step": _step_case, "p3m_stages": _p3m_stages_case, "replay": _replay_case, "diag": _diag_case, "order": _order_case, "engine": _engine_case,
-         "mesh": _mesh_case, "mesh_errors": _mesh_errors_case}
+CASES = {"step": _step_case, "p3m_stages": _p3m_stages_case, "replay": _replay_case, "diag": _diag_case,
+         "order": _order_case, "engine": _engine_case, "render": _render_case, "regenerate": _regenerate_case,
+         "serve": _serve_case, "serve_import_fails": _serve_import_fails_case, "mesh": _mesh_case,
+         "mesh_errors": _mesh_errors_case}
+# The cases whose every rank's result comes back (each rank's view).
+EVERY_RANK = ("mesh", "p3m_stages", "render", "regenerate", "serve", "serve_import_fails")
 
 
 def run_cases(rank: int, world: int, cases: list[dict]):
     """Run ``cases`` (each ``{"kind": ..., "mesh": "x" | (rows, cols),
-    ...}``) in order; rank 0 returns their results, and every rank the
-    mesh and P3M stage cases' (each rank's view)."""
+    ...}``) in order; rank 0 returns their results, and every rank
+    those of the :data:`EVERY_RANK` cases."""
     out = []
     for case in cases:
         res = CASES[case["kind"]](_mesh(case.get("mesh", "x")), case)
-        out.append(res if rank == 0 or case["kind"] in ("mesh", "p3m_stages") else None)
+        out.append(res if rank == 0 or case["kind"] in EVERY_RANK else None)
     if any(m.split(".")[0] == "nbody3d_tpu" for m in sys.modules):
         raise RuntimeError("a rank of the port imported the JAX package")
     return out

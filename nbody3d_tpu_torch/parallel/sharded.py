@@ -95,6 +95,13 @@ def gather_state(state: SimState, mesh: Mesh) -> SimState:
     return SimState(*(gather_rows(t, mesh) for t in (state.pos_mass, state.vel, state.accel)), state.step)
 
 
+def broadcast_int(value: int, mesh: Mesh) -> int:
+    """Rank 0's ``value`` on every rank (collective; a host sync)."""
+    t = torch.tensor([value], dtype=torch.int64, device=mesh.device)
+    dist.broadcast(t, 0)
+    return int(t.item())
+
+
 # ------------------------------------------------------ one rank's hops
 def _partial(tgt: torch.Tensor, src: torch.Tensor, G: float, diag_, eps2: float) -> torch.Tensor:
     """The plain route's hop: ``accel_partial`` on the source rows

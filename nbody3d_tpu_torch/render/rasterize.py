@@ -151,10 +151,13 @@ def prep_device(
     Returns per-body ``(cx, cy, depth_bits, rgb24, r, visible)`` in input
     order: int32 centre pixels, the int32 bit pattern of the clipped [0, 1]
     depth, int32 rgb24, float32 radius in pixels and a bool mask."""
-    dev = pos_mass.device
     vp, f = camera.view_proj(width / height)
     vp = [[float(v) for v in row] for row in vp]  # float32 values, exact as floats
-    campos = torch.tensor(camera.position, dtype=torch.float32, device=dev)
+    campos = torch.from_numpy(np.asarray(camera.position, dtype=np.float32))
+    if pos_mass.is_cuda:
+        # From pinned memory, non-blocking: a pageable copy would make the
+        # host wait for the device's stream.
+        campos = campos.pin_memory().to(pos_mass.device, non_blocking=True)
     x, y, z, m = (pos_mass[:, c] for c in range(4))
     # clip = [x, y, z, 1] @ vp.T, as float32 multiply-adds in the matmul's order.
     clip = [x * row[0] + y * row[1] + z * row[2] + row[3] for row in vp]

@@ -187,7 +187,7 @@ def buffer_planes(buf: torch.Tensor, *, width: int, height: int) -> tuple[torch.
     hit = buf != MISS
     rgb = torch.where(hit, buf & 0xFFFFFF, 0xFFFFFFFF)
     depth = (buf >> 32).to(torch.int32).view(torch.float32)
-    depth = torch.where(hit, depth, torch.tensor(float("inf"), device=buf.device))
+    depth = torch.where(hit, depth, float("inf"))
     return rgb.view(height, width), depth.view(height, width)
 
 
@@ -195,11 +195,13 @@ def buffer_image(
     buf: torch.Tensor, *, width: int, height: int, background: tuple[int, int, int] = (0, 0, 0)
 ) -> torch.Tensor:
     """The ``(H, W, 3)`` uint8 image of a framebuffer, on its device."""
-    hit = (buf != MISS)[:, None]
-    shifts = torch.tensor([16, 8, 0], dtype=torch.int64, device=buf.device)
-    rgb = ((buf[:, None] >> shifts) & 0xFF).to(torch.uint8)
-    bg = torch.tensor(background, dtype=torch.uint8, device=buf.device)
-    return torch.where(hit, rgb, bg).view(height, width, 3)
+    r, g, b = (int(c) for c in background)
+    # The background's rgb24 word where missed, then each word's low three
+    # bytes (little-endian: b, g, r) reversed.  Three launches, and no small
+    # tensor copied to the device, which would make the host wait for the
+    # device's stream.
+    words = torch.where(buf != MISS, buf, (r << 16) | (g << 8) | b)
+    return words.view(torch.uint8).view(-1, 8)[:, :3].flip(1).view(height, width, 3)
 
 
 # ------------------------------------------------------ the quantized resolve

@@ -30,10 +30,24 @@ Endpoints (as the JAX package's):
 dt and G are runtime scalars of the step, so a slider move changes no
 compiled code.  Held keys move the camera every frame tick with the
 reference's per-frame speeds (``nbody3d.js:445-449``, ``camera.js:6-9``).
+
+On a mesh (one process a rank) only rank 0 owns the server and the loop;
+every other rank runs :func:`follow`.  Each op of rank 0's viewer that
+makes a collective call (a frame, a paused frame, export, import,
+regenerate) is made under ``_sim_lock`` right after rank 0 broadcasts one
+small op record over a gloo side group (:func:`control_group`, so the
+control traffic never sits on the NCCL stream): the op, its arguments, and
+the runtime dt, G and paused dt that rank 0's simulation holds.  Every
+rank then makes the op through :func:`apply_op`, the one place the
+protocol is written, so every rank keeps one state.  On a mesh the dt, G
+and pause controls also take ``_sim_lock``, so they change the simulation
+between ops.  :meth:`LiveViewer.stop` sends the last op, ``stop``, which
+ends the followers.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
 import math
 import os
@@ -188,8 +202,132 @@ setInterval(async () => {
 </script></body></html>"""
 
 
+# The controls that change the simulation (on a mesh, between ops).
+SIM_CONTROLS = ("logdt", "dt", "logG", "G", "pause")
+
+
+def control_group():
+    """The gloo group that carries a served mesh's op records from rank 0
+    (collective: every rank creates it, in one order).  A follower waits in
+    it for as long as the server runs."""
+    import torch.distributed as dist
+
+    return dist.new_group(backend="gloo", timeout=datetime.timedelta(days=1))
+
+
+def _broadcast(record, side) -> dict:
+    """Rank 0's ``record`` on every rank of ``side``."""
+    import torch.distributed as dist
+
+    box = [record]
+    dist.broadcast_object_list(box, src=0, group=side)
+    return box[0]
+
+
+def _load_bytes(old, data: bytes, suffix: str):
+    """A Simulation from an uploaded checkpoint's bytes, on ``old``'s device
+    (or sharded over its mesh, each rank from its own copy of the bytes)
+    with ``old``'s config; the file's dt and G and ``old``'s preset."""
+    from nbody3d_tpu_torch.engine import Simulation
+    from nbody3d_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "import" + suffix)
+        with open(path, "wb") as f:
+            f.write(data)
+        new = Simulation.load(path, old.config, device=old.device, mesh=old.mesh)
+        saved = checkpoint.peek_config(path)  # None for .json
+    if saved is not None:
+        # past the cosmology guard: the saved values made the checkpoint's history
+        new._set_runtime(dt=saved.dt, G=saved.G)
+    new._preset = old._preset  # regenerate keeps working
+    return new
+
+
+def _agree(ok: bool, side) -> bool:
+    """Whether every rank of ``side`` is ``ok`` (collective over ``side``)."""
+    import torch
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(ok)])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=side)
+    return bool(flag.item())
+
+
+def apply_op(sim, op: dict, side=None, publish=None):
+    """Make ``op``'s calls on ``sim``: the protocol of a served mesh, written
+    once.  Rank 0's viewer calls it right after it broadcasts ``op`` over
+    ``side`` (or alone, on one device), with ``publish``, which takes each
+    frame's image; a follower calls it on each record it takes, with no
+    ``publish``.  So every rank makes the same collective calls in one
+    order.  A follower takes rank 0's runtime (dt, G, paused dt) from the
+    record, and makes only a frame's collective part
+    (``Simulation.render_frame_collective``: no image, no host render).
+
+    An import or a regenerate builds the new simulation on each rank with
+    no collective call, then the ranks agree over ``side``: if any rank
+    failed, every rank keeps ``sim`` and rank 0 raises.  Returns ``(sim,
+    out)``: the simulation after the op and, on rank 0, a frame's
+    ``(ran_a_chunk, energy or None)`` or an export's bytes."""
+    kind = op["op"]
+    lead = publish is not None
+    if not lead:
+        sim._dt, sim._G, sim._old_dt = op["runtime"]
+    if kind in ("frame", "render"):
+        cam = Camera.from_dict(op["camera"])
+        frame = dict(width=op["width"], height=op["height"], resolve=op["resolve"])
+        if kind == "render":
+            if lead:
+                publish(sim.render_frame(camera=cam, **frame))
+            else:
+                sim.render_frame_collective(cam, **frame)
+            return sim, None
+        handle = sim.render_frame_begin(cam, **frame) if lead else sim.render_frame_collective(cam, **frame)
+        token = sim.run_async(op["k"])
+        if lead:
+            publish(sim.render_frame_finish(handle))
+        sim.wait_chunk(token)
+        energy = float(sim.diagnostics().total_energy) if op["diagnostics"] else None
+        return sim, (token is not None, energy)
+    if kind == "export":
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "export" + op["suffix"])
+            sim.save(path)  # collective: every rank gathers, rank 0 writes
+            if not lead:
+                return sim, None
+            with open(path, "rb") as f:
+                return sim, f.read()
+    if kind in ("import", "regenerate"):
+        try:
+            if kind == "import":
+                new, err = _load_bytes(sim, op["data"], op["suffix"]), None
+            else:
+                new, err = sim.regenerate(seed=op["seed"], **op["settings"]), None
+        except Exception as e:  # noqa: BLE001 - the ranks agree below; rank 0 raises
+            new, err = sim, e
+        if side is not None and not _agree(err is None, side) and err is None:
+            new, err = sim, RuntimeError(f"{kind} failed on another rank: every rank keeps the running simulation")
+        if err is not None and lead:
+            raise err
+        return new, None
+    raise ValueError(f"unknown op {kind!r}")
+
+
+def follow(sim, side):
+    """A served mesh's rank other than 0: take rank 0's op records from
+    ``side`` and :func:`apply_op` each on ``sim`` until ``stop``.  Returns
+    the simulation it ends with (an import or a regenerate swaps it)."""
+    while True:
+        op = _broadcast(None, side)
+        if op["op"] == "stop":
+            return sim
+        sim, _ = apply_op(sim, op, side)
+
+
 class LiveViewer:
-    """The sim loop thread, the latest frame, and the controls."""
+    """The sim loop thread, the latest frame, and the controls.  ``side``
+    (a served mesh's rank 0): the group of :func:`control_group`, over which
+    the followers get each collective op first."""
 
     def __init__(
         self,
@@ -201,8 +339,11 @@ class LiveViewer:
         diagnostics_every: int = 0,
         quality: int = 85,
         resolve: str = "auto",
+        side=None,
     ):
         self.sim = sim
+        self._side = side
+        self._followers = side is not None  # until the stop op
         self.width, self.height = width, height
         self.steps_per_frame = max(1, steps_per_frame)
         self.diagnostics_every = diagnostics_every
@@ -238,8 +379,30 @@ class LiveViewer:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the loop, and on a mesh the followers (the ``stop`` op)."""
         self._stop.set()
-        self._thread.join(timeout=10)
+        if self._thread.ident is not None:  # started
+            self._thread.join(timeout=10)
+        if self._side is not None:
+            with self._sim_lock:
+                if self._followers:
+                    _broadcast({"op": "stop"}, self._side)
+                    self._followers = False
+
+    def _do(self, op: str, **fields):
+        """Rank 0's ``op``: on a mesh its record to the followers first (the
+        caller holds ``_sim_lock``), then :func:`apply_op`.  Returns the op's
+        output; an import or a regenerate swaps ``self.sim``."""
+        sim = self.sim
+        record = {"op": op, "runtime": (sim._dt, sim._G, sim._old_dt), **fields}  # live dt, G and paused dt
+        if self._side is not None:
+            if not self._followers:
+                raise RuntimeError("the viewer has stopped its followers: no collective call is left to make")
+            _broadcast(record, self._side)
+        new, out = apply_op(sim, record, self._side, publish=self._publish_jpeg)
+        if new is not sim:
+            self.sim = new
+        return out
 
     def _loop(self) -> None:
         try:
@@ -287,20 +450,24 @@ class LiveViewer:
         the publish while the chunk runs, and last the chunk's wait."""
         with self._sim_lock:
             cam, w, h = self._snapshot()
-            handle = self.sim.render_frame_begin(cam, width=w, height=h, resolve=self.resolve)
-            token = self.sim.run_async(self.steps_per_frame)
-            img = self.sim.render_frame_finish(handle)
-            self._publish_jpeg(img)
-            self.sim.wait_chunk(token)
-            self.chunks_done += token is not None
-            if self.diagnostics_every and self._frames_done % self.diagnostics_every == 0:
-                self._energy = float(self.sim.diagnostics().total_energy)
+            diagnostics = bool(self.diagnostics_every and self._frames_done % self.diagnostics_every == 0)
+            ran, energy = self._do("frame", camera=cam.to_dict(), width=w, height=h, resolve=self.resolve,
+                                   k=self.steps_per_frame, diagnostics=diagnostics)
+            self.chunks_done += ran
+            if energy is not None:
+                self._energy = energy
 
     def _render_frame(self) -> None:
-        # The camera is copied under the lock and the frame rendered outside
-        # it: a large frame must not hold up /control.
-        cam, w, h = self._snapshot()
-        self._publish_jpeg(self.sim.render_frame(camera=cam, width=w, height=h, resolve=self.resolve))
+        # The camera is copied under the lock and, on one device, the frame
+        # rendered outside it: a large frame must not hold up /control.  On
+        # a mesh the frame is a collective op, made under _sim_lock.
+        if self._side is None:
+            cam, w, h = self._snapshot()
+            self._do("render", camera=cam.to_dict(), width=w, height=h, resolve=self.resolve)
+            return
+        with self._sim_lock:
+            cam, w, h = self._snapshot()
+            self._do("render", camera=cam.to_dict(), width=w, height=h, resolve=self.resolve)
 
     def _publish_jpeg(self, img) -> None:
         t0 = time.perf_counter()
@@ -312,6 +479,13 @@ class LiveViewer:
 
     # ------------------------------------------------------------- controls
     def control(self, q: dict) -> None:
+        if self._side is not None and any(k in q for k in SIM_CONTROLS):
+            with self._sim_lock:  # between ops, so every rank's op sees one runtime
+                self._control(q)
+        else:
+            self._control(q)
+
+    def _control(self, q: dict) -> None:
         sim, cam = self.sim, self.camera
         with self._lock:
             try:
@@ -365,35 +539,19 @@ class LiveViewer:
     def export_state(self, suffix: str) -> bytes:
         """The state as a checkpoint in ``suffix``'s format (the reference's
         export button, ``util.js:160-208``), at a chunk boundary."""
-        with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, "export" + suffix)
-            with self._sim_lock:
-                self.sim.save(path)
-            with open(path, "rb") as f:
-                return f.read()
+        with self._sim_lock:
+            return self._do("export", suffix=suffix)
 
     def import_state(self, data: bytes, suffix: str) -> None:
         """Load an uploaded checkpoint into the running viewer (the
         reference's import button, ``util.js:217-263``): the Simulation is
-        rebuilt on the same device with the running config, so any N loads;
-        the file's physics (state, G, dt) and camera pose are restored."""
-        from nbody3d_tpu_torch.engine import Simulation
-        from nbody3d_tpu_torch.utils import checkpoint
-
-        with tempfile.TemporaryDirectory() as td:
-            path = os.path.join(td, "import" + suffix)
-            with open(path, "wb") as f:
-                f.write(data)
-            with self._sim_lock:
-                old = self.sim
-                new = Simulation.load(path, old.config, device=old.device)
-                saved = checkpoint.peek_config(path)  # None for .json
-                if saved is not None:
-                    # past the cosmology guard: the saved values made the
-                    # checkpoint's history
-                    new._set_runtime(dt=saved.dt, G=saved.G)
-                new._preset = old._preset  # regenerate keeps working
-                self.sim = new
+        rebuilt on the same device (or mesh: the followers get the bytes,
+        no shared file system assumed) with the running config, so any N
+        loads; the file's physics (state, G, dt) and camera pose are
+        restored."""
+        with self._sim_lock:
+            self._do("import", data=data, suffix=suffix)
+            new = self.sim
         if new.loaded_camera is not None:
             with self._lock:
                 self.camera = new.loaded_camera
@@ -403,8 +561,12 @@ class LiveViewer:
         reference's regenerate button, ``util.js:69-75``); the camera
         targets the new system as a fresh run's does (``nbody3d.js:126``).
         ``settings``: the galaxy panel (``index.html:68-75``)."""
+        from nbody3d_tpu_torch.engine import draw_seed
+
         with self._sim_lock:
-            self.sim = self.sim.regenerate(**settings)
+            # On a mesh rank 0 draws the seed, and the record carries it.
+            seed = draw_seed() if self._side is not None else None
+            self._do("regenerate", seed=seed, settings=settings)
             target = self.sim.camera_target
         with self._lock:
             self.camera = Camera(target=target)

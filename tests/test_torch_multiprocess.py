@@ -1,11 +1,19 @@
 """Multi-rank plumbing of the port: the spawn helper (results, a rank
 that raises, a rank that hangs), the mesh constructors, the engine on a
-mesh (Morton re-sorts, diagnostics, checkpoints, the refused frame),
-``cli run --devices 4 --device cpu`` against the JAX package's
-``cli run --devices 4``, and the refusals of what is not ported."""
+mesh (Morton re-sorts, diagnostics, checkpoints, ``regenerate``, frames by
+every resolve bit-equal to one device's), the served mesh (rank 0's
+viewer and its followers), ``dryrun_multichip``, ``cli run --devices 4
+--device cpu`` against the JAX package's ``cli run --devices 4``, ``serve``
+and ``animate`` with the mesh flags, and the refusals."""
 
 import json
+import os
+import select
+import signal
+import subprocess
+import sys
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -45,8 +53,19 @@ def d4(tmp_path_factory):
              path=str(tmp / "b"), **ENGINE),
         dict(kind="order", config=dict(backend="jnp", strategy="ring"), n=256, seed=0),
         dict(kind="order", config=dict(strategy="ring"), n=256, seed=0),
+        dict(kind="render", config=dict(backend="jnp", morton_every=2), preset="plummer", n=600, steps=4, chunk=2),
+        dict(kind="render", config=dict(method="p3m", pm_grid=32, p3m_nbr_k=16), preset="two-galaxy", n=1000,
+             steps=1, chunk=1),
+        dict(kind="regenerate", preset="plummer", n=600),
     ]
     return spawn(rank_checks.run_cases, 4, cases, device="cpu", timeout=240)
+
+
+def one_device_frame(arrays, resolve="auto"):
+    """The one-device frame of the real rows ``arrays`` (pos_mass, vel,
+    accel) at the rank cases' camera and size."""
+    one = Simulation(SimConfig(backend="jnp"), *arrays, device="cpu")
+    return one.render_frame(camera=rank_checks.frame_camera(), resolve=resolve, **rank_checks.FRAME)
 
 
 # ------------------------------------------------------ the spawn helper
@@ -148,13 +167,51 @@ def test_engine_on_a_mesh_matches_jax(d4):
 @pytest.mark.parametrize("which", [3, 4])
 def test_engine_checkpoints_round_trip_and_refuse_to_render(d4, which):
     """Saved by rank 0 from the gathered state, loaded on every rank and
-    sharded again: bit for bit (npz, and the JSON's float32 reprs); a frame
-    of a sharded state names ROADMAP item 11c."""
+    sharded again: bit for bit (npz, and the JSON's float32 reprs); the
+    loaded sharded state's frame (the sharded render) equals one device's
+    frame of the same rows, bit for bit."""
     out = d4[0][which]
     for suffix in (".npz", ".json"):
         for a, b in zip(out["arrays"], out["loaded" + suffix]):
             np.testing.assert_array_equal(a, b)
-    assert "11c" in out["render_error"]
+        frame = out["frame" + suffix]
+        assert frame.shape == (64, 96, 3) and frame.any()
+        np.testing.assert_array_equal(frame, one_device_frame(out["loaded" + suffix]))
+
+
+@pytest.mark.parametrize("which", [7, 8], ids=["after_morton", "after_p3m_step"])
+def test_sharded_frames_equal_one_devices(d4, which):
+    """4 gloo ranks, after Morton re-sorts (plain route) or a sharded P3M
+    step (kernel route): ``render_frame`` with ``auto`` (the sharded render),
+    ``host`` and ``device`` (the gathered rows), and each resolve's
+    begin/finish around a chunk, equal on every rank and bit-equal to one
+    device's frames of the gathered state; the padding stays at the tail."""
+    outs = [r[which] for r in d4]
+    want = {res: one_device_frame(outs[0]["arrays"], res) for res in ("auto", "host", "device")}
+    assert want["auto"].any()
+    for out in outs:
+        assert out["pad_mass"] == 0.0 and out["step_after"] == out["step"] + 1
+        for res in ("auto", "host", "device"):
+            np.testing.assert_array_equal(out[res], want[res])
+            np.testing.assert_array_equal(out["pipelined " + res], want[res])
+        for a, b in zip(out["arrays"], outs[0]["arrays"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_regenerate_on_a_mesh_builds_one_state(d4):
+    """``regenerate()`` with no seed: rank 0 draws the seed and every rank
+    takes it, so the shards are the rows of one global state, the one a
+    device builds from that seed."""
+    outs = [r[9] for r in d4]
+    seeds = {o["seed"] for o in outs}
+    assert len(seeds) == 1
+    one = Simulation.from_preset("plummer", SimConfig(seed=seeds.pop()), n=600, device="cpu")
+    assert outs[0]["n_pad"] % 4 == 0
+    full = np.concatenate([o["shard"] for o in outs])
+    np.testing.assert_array_equal(full[:600], one.arrays()[0])
+    assert not full[600:].any()
+    for o in outs:
+        np.testing.assert_array_equal(o["arrays"][0], one.arrays()[0])
 
 
 def test_engine_ringsym_on_kernel_route_matches_one_device(d4):
@@ -219,7 +276,8 @@ def test_cli_info_reports_the_mesh(capsys):
     assert cli.main(["info"]) == 0
     info = json.loads(capsys.readouterr().out)
     assert {"platform", "n_devices", "device_kind", "process_index", "process_count", "torch"} <= set(info)
-    assert set(info["sharded"]) == {"direct", "pm", "p3m"}
+    assert set(info["sharded"]) == {"direct", "pm", "p3m", "render"}
+    assert set(info["sharded"]["render"]) == {"auto", "host", "device"}
 
 
 # ------------------------------------------------------------ refusals
@@ -265,25 +323,214 @@ def test_strategies_check_the_mesh_shape():
         make_sharded_step(SimConfig(strategy="gather"), 1000, 1000, _fake_mesh((3,)))
 
 
-def test_sharded_simulation_refuses_to_render():
+class _OneRankGroup:
+    """A gloo process group of this one process (a ``file://`` store), for a
+    one-rank mesh in the test process; destroyed on exit."""
+
+    def __init__(self, tmp):
+        self.store = f"file://{tmp}/store"
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method=self.store, rank=0, world_size=1)
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
+def test_sharded_simulation_refuses_to_render(tmp_path):
+    """A one-rank mesh (a gloo group of this process): ``render_frame`` and
+    ``render_frame_begin``/``finish`` by every resolve equal one device's
+    frames of the same state, bit for bit."""
     pm, v = rank_checks.random_bodies(0, 64)
-    sim = Simulation(SimConfig(backend="jnp"), pm, v, mesh=_fake_mesh((1,)))
-    assert sim.device == torch.device("cpu") and sim.n_pad == 64
-    for render in (sim.render_frame, sim.render_frame_begin):
-        with pytest.raises(NotImplementedError, match="11c"):
-            render()
+    one = Simulation(SimConfig(backend="jnp"), pm, v, device="cpu")
+    cam, frame = rank_checks.frame_camera(), rank_checks.FRAME
+    with _OneRankGroup(tmp_path):
+        sim = Simulation(SimConfig(backend="jnp"), pm, v, mesh=_fake_mesh((1,)))
+        assert sim.device == torch.device("cpu") and sim.n_pad == 64
+        for res in ("auto", "host", "device"):
+            want = one.render_frame(camera=cam, resolve=res, **frame)
+            assert want.any()
+            np.testing.assert_array_equal(sim.render_frame(camera=cam, resolve=res, **frame), want)
+            handle = sim.render_frame_begin(cam, resolve=res, **frame)
+            np.testing.assert_array_equal(sim.render_frame_finish(handle), want)
     with pytest.raises(TypeError, match="device"):
         Simulation(SimConfig(), pm, v)
+
+
+SERVE_FLAGS = ["--device", "cpu", "--preset", "plummer", "--n", "256", "--backend", "jnp", "--port", "0",
+               "--width", "96", "--height", "64", "--steps-per-frame", "2"]
+
+
+def _url_of(proc, deadline: float) -> str | None:
+    """The viewer's URL from ``live viewer at ...`` on ``proc``'s stdout."""
+    buf = b""
+    while time.monotonic() < deadline and proc.poll() is None:
+        ready, _, _ = select.select([proc.stdout], [], [], 0.5)
+        if ready:
+            chunk = os.read(proc.stdout.fileno(), 4096)
+            buf += chunk
+            for line in buf.decode(errors="replace").splitlines():
+                if line.startswith("live viewer at "):
+                    return line.split()[3]
+    return None
+
+
+def _serve_mesh(flag, tmp_path):
+    """``serve`` on two gloo ranks: ``--devices 2`` (one command, which spawns
+    the ranks) or ``--distributed`` (two processes as ``torchrun`` starts
+    them, a free localhost port, taken again on an address-in-use failure).
+    Waits for rank 0's URL, fetches ``/frame.jpg`` and ``/stats`` (timeouts
+    on every call), then sends SIGINT to every process, as a terminal's
+    Ctrl-C does.  Returns (frame, stats, exit codes, stderr)."""
+    import socket
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = [sys.executable, "-m", "nbody3d_tpu_torch.cli", "serve", *SERVE_FLAGS]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    for _ in range(4):
+        if flag == "--devices":
+            cmds = [(base + ["--devices", "2"], env)]
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            cmds = [(base + ["--distributed"], dict(env, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK=str(r),
+                                                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+                    for r in range(2)]
+        procs = [subprocess.Popen(c, cwd=root, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  start_new_session=True) for c, e in cmds]
+        frame = stats = None
+        try:
+            url = _url_of(procs[0], time.monotonic() + 120)
+            if url is not None:
+                with urllib.request.urlopen(url + "frame.jpg", timeout=30) as r:
+                    frame = r.read()
+                with urllib.request.urlopen(url + "stats", timeout=30) as r:
+                    stats = json.loads(r.read())
+            for p in procs:
+                os.killpg(p.pid, signal.SIGINT)
+            errs = [p.communicate(timeout=60)[1].decode(errors="replace") for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait(10)
+        codes = [p.returncode for p in procs]
+        if url is not None or not any("address already in use" in e.lower() for e in errs):
+            return frame, stats, codes, errs
+    return frame, stats, codes, errs
+
+
+def _checkpoint(tmp_path) -> str:
+    assert cli.main(["run", "--preset", "plummer", "--n", "256", "--steps", "2", "--log-every", "2", "--backend",
+                     "jnp", "--device", "cpu", "--outdir", str(tmp_path / "ck")]) == 0
+    return str(tmp_path / "ck" / "final.npz")
 
 
 @pytest.mark.parametrize("command", ["animate", "serve"])
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--distributed"]])
 def test_cli_rendering_commands_refuse_a_mesh(tmp_path, command, flag):
-    """``animate`` and ``serve`` render, which a sharded state cannot yet:
-    they refuse the mesh flags before any rank starts."""
-    args = [str(tmp_path / "missing.npz")] if command == "animate" else []
-    with pytest.raises(NotImplementedError, match="11c"):
-        cli.main([command, *args, *flag, "--device", "cpu"])
+    """``serve`` serves a mesh with either flag: rank 0 answers
+    ``/frame.jpg`` (a JPEG of the frame's size) and ``/stats``, and a
+    Ctrl-C stops every rank with exit code 0.  ``animate`` loads on one
+    device, as the JAX package's does: ``--devices 2`` writes the frames it
+    writes without the flag, and ``--distributed`` is refused with a
+    ``ValueError`` before anything loads."""
+    if command == "serve":
+        frame, stats, codes, errs = _serve_mesh(flag[0], tmp_path)
+        assert codes == [0] * len(codes), [e[-2000:] for e in errs]
+        assert frame[:2] == b"\xff\xd8" and frame[-2:] == b"\xff\xd9"
+        assert stats["n"] == 256 and stats["resolution"] == "96x64"
+        return
+    if flag == ["--distributed"]:
+        with pytest.raises(ValueError, match="one device"):
+            cli.main([command, str(tmp_path / "missing.npz"), *flag, "--device", "cpu"])
+        return
+    ckpt = _checkpoint(tmp_path)
+    anim = ["animate", ckpt, "--frames", "3", "--steps-per-frame", "1", "--width", "96", "--height", "64",
+            "--device", "cpu"]
+    assert cli.main([*anim, *flag, "--outdir", str(tmp_path / "mesh")]) == 0
+    assert cli.main([*anim, "--outdir", str(tmp_path / "one")]) == 0
+    names = sorted(os.listdir(tmp_path / "one"))
+    assert names == sorted(os.listdir(tmp_path / "mesh")) and len(names) == 3
+    for name in names:
+        assert (tmp_path / "mesh" / name).read_bytes() == (tmp_path / "one" / name).read_bytes()
+
+
+def test_cli_run_devices_writes_rank0_frames(tmp_path):
+    """``run --devices 2 --device cpu --render-every``: rank 0 writes the
+    frames (the sharded render, every rank rendering), and frame 0 is
+    bit-equal to the one-device run's."""
+    from nbody3d_tpu_torch.render.image import read_png
+
+    flags = ["run", "--preset", "plummer", "--n", "256", "--steps", "2", "--log-every", "2", "--render-every", "2",
+             "--backend", "jnp", "--device", "cpu"]
+    assert cli.main([*flags, "--devices", "2", "--outdir", str(tmp_path / "mesh")]) == 0
+    assert cli.main([*flags, "--outdir", str(tmp_path / "one")]) == 0
+    frames = sorted(p for p in os.listdir(tmp_path / "mesh") if p.startswith("frame_"))
+    assert frames == ["frame_000000.png", "frame_000001.png"]
+    got, want = (read_png(str(tmp_path / d / "frame_000000.png")) for d in ("mesh", "one"))
+    assert got.any()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_serve_on_a_mesh_keeps_one_state(tmp_path):
+    """Two gloo ranks: rank 0's ``LiveViewer`` driven through pipelined
+    frames, a dt change, pause and unpause, regenerate, export and import
+    and a last pause, then stopped; rank 1 in ``viewer.follow``.  Both
+    ranks took the same op records (the same ops, runtimes, step counts
+    and regenerate seed, ``stop`` last), end with the same step, runtime,
+    seed and gathered state, and rank 0's last JPEG is the encode of one
+    device's frame of that state at its camera."""
+    from nbody3d_tpu_torch.render.jpeg import encode_jpeg
+    from nbody3d_tpu_torch.utils.camera import Camera
+
+    case = dict(kind="serve", preset="plummer", n=256, config=dict(backend="jnp"))
+    r0, r1 = (r[0] for r in spawn(rank_checks.run_cases, 2, [case], device="cpu", timeout=240))
+    assert r0["log"] == r1["log"]
+    ops = [op for op, *_ in r0["log"]]
+    assert ops[-1] == "stop" and ops.count("stop") == 1
+    assert {"frame", "render", "regenerate", "export", "import"} <= set(ops)
+    assert any(rt is not None and abs(rt[0] - 10 ** -3.8) < 1e-15 for _, rt, _, _ in r0["log"])
+    assert all(seed is not None for op, _, _, seed in r0["log"] if op == "regenerate")
+    for key in ("runtime", "step", "seed"):
+        assert r0[key] == r1[key], key
+    for a, b in zip(r0["arrays"], r1["arrays"]):
+        np.testing.assert_array_equal(a, b)
+    assert r0["runtime"][2] is not None  # paused at the end
+    one = Simulation(SimConfig(backend="jnp"), *r0["arrays"], device="cpu")
+    img = one.render_frame(camera=Camera.from_dict(r0["camera"]), **rank_checks.FRAME)
+    assert img.any() and r0["frame"] == encode_jpeg(img, 85)
+
+
+def test_serve_on_a_mesh_keeps_one_state_when_a_followers_import_fails():
+    """Two gloo ranks, rank 1's import of an uploaded checkpoint fails
+    alone: the ranks agree on it, so both keep the running simulation (the
+    frame after the import steps on from the frame before it, not from the
+    checkpoint's step 0), rank 0's import raises and names the other rank,
+    and both end with one state."""
+    case = dict(kind="serve_import_fails", preset="plummer", n=256, config=dict(backend="jnp"))
+    r0, r1 = (r[0] for r in spawn(rank_checks.run_cases, 2, [case], device="cpu", timeout=240))
+    assert r0["raised"] is not None and "another rank" in r0["raised"]
+    assert r0["step"] == r1["step"] == 4
+    for a, b in zip(r0["arrays"], r1["arrays"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dryrun_multichip_on_four_gloo_ranks():
+    """``dryrun_multichip(4, "cpu")``: one sharded step of each of the JAX
+    dryrun's seven configurations (the 2-D grid among them at D = 4) and the
+    sharded render at 96x64."""
+    from nbody3d_tpu_torch.parallel.dryrun import configs, dryrun_multichip
+
+    report = dryrun_multichip(4, "cpu")
+    assert report["steps"] == {name: 1 for name in configs(4)} and len(report["steps"]) == 7
+    assert report["frame"]["shape"] == [64, 96] and report["frame"]["n_uncovered"] == 0
+    assert report["frame"]["lit"] > 0 and len(report["launches_by_rank"]) == 4
 
 
 def _distributed_run(flags, out):
