@@ -398,6 +398,20 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    turns; (d) ``dryrun_multichip(1, "cuda")`` in a spawned NCCL rank, the
    kernels it launched.  Phase 19's lines carry the card's name and power
    limit.
+20. the host C modules (``nbody3d_tpu_torch/native/``, built with ``cc`` at
+   first use; after 19d, not in ``--kernels-only``; no CUDA kernel of
+   their own): (a) 16a's quantized frame (N = 500,010, 1920x1080) with its
+   large splats stamped by ``_raster.c`` bit-equal to the ``_stamp_large``
+   twin's on the same words and splats, the large-splat count, the frame
+   time with either stamp (host clock, median of 3, in turns); the ``host``
+   frame (``_raster.c`` over every splat) at 7c's N = 500,010 1920x1080 and
+   serve's two-galaxy N = 40,002 960x720 bit-equal to ``resolve_keys_plain``,
+   with both times; (b) 8d's PM state (N = 2,097,152) saved and loaded
+   through ``_fastjson.c``: the round trip bit-equal (arrays, the "G"
+   string, dt, step, camera), ``json.loads`` of the file giving the same
+   float32 arrays, save and load seconds and the file's MB, beside the
+   ``json.dump`` writer at N = 500,000.  Its lines carry the card's name
+   and power limit; every time in it is the card machine's host's.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
 12d, 13b (twice), 13c, 14b, 15b (three times), 16b, 17b-17d, 18b-18d, 19b and 19c (the main paths)
@@ -5989,6 +6003,120 @@ FULL_ROUTE = SIDE[0][0]
 LAUNCHES_FROM = {"vjp_full": FULL_ROUTE, "sym_diag": "phase 10e (uncentred sym route)"}
 
 
+# --------------------------------------------------- 20: the host C modules
+def _in_turns(fns: dict, rounds: int = 2, reps: int = 3) -> dict[str, list[float]]:
+    """name: the medians of ``reps`` host-clock calls (ms, synced), one a
+    round, the functions called in turns."""
+    ms: dict[str, list[float]] = {}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            ms.setdefault(name, []).append(round(statistics.median(host_ms(fn) for _ in range(reps)), 3))
+    return ms
+
+
+def phase_native_raster(dev) -> None:
+    """20a: ``native/_raster.c`` on its two paths.  The quantized frame's
+    large splats at 16a's N = 500,010 1920x1080 (bit-equal to the
+    ``_stamp_large`` twin on the same words and splats, then the frame with
+    either stamp in turns), and the ``host`` frame at 7c's N = 500,010
+    1920x1080 and serve's two-galaxy 960x720 (bit-equal to
+    ``resolve_keys_plain`` on the same host prep, both times)."""
+    print(f"[20a host disc stamp] native/_raster.c ({_card()}; host clock on the card machine's host)", flush=True)
+    frames = render_frames()
+    pm, vel, cam, w, h = frames["N=500,010 1920x1080"]
+    prep = _prep(pm, vel, cam, dict(width=w, height=h), dev)
+    words = resolve.quantized_scatter(*prep, width=w, height=h).cpu()
+    large = resolve.quantized_large(*prep)
+    n_large = large[0].shape[0]
+    got = resolve.quantized_frame(words, large, width=w, height=h)
+    want = resolve.quantized_frame_plain(words, large, width=w, height=h)
+    check(torch.equal(got, want) and n_large > 0,
+          f"[20a] quantized N=500,010 1920x1080: the C stamp's frame == _stamp_large's ({n_large} large splats)")
+    stamp = _in_turns({"C": lambda: resolve.quantized_frame(words, large, width=w, height=h),
+                       "twin": lambda: resolve.quantized_frame_plain(words, large, width=w, height=h)})
+    pm_d, vel_d = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pm, vel))
+    c_frame = resolve.quantized_frame
+
+    def frame_with(fn):
+        resolve.quantized_frame = fn
+        try:
+            return rasterize.render_points(pm_d, vel_d, cam, width=w, height=h, resolve="device")
+        finally:
+            resolve.quantized_frame = c_frame
+
+    check(np.array_equal(frame_with(c_frame), frame_with(resolve.quantized_frame_plain)),
+          "[20a] render_points(resolve='device') with either stamp: the same image")
+    frame = _in_turns({"C": lambda: frame_with(c_frame), "twin": lambda: frame_with(resolve.quantized_frame_plain)})
+    print(f"  [20a] quantized N=500,010 1920x1080, {n_large} large splats, median of 3 a round, in turns: "
+          f"frame with the C stamp {frame['C']} ms, with the _stamp_large twin {frame['twin']} ms; the stamp alone "
+          f"{stamp['C']} ms (C) vs {stamp['twin']} ms (twin)", flush=True)
+    for name, sf in (("N=500,010 1920x1080", 1000.0), ("two-galaxy N=40,002 960x720", SimConfig().size_factor)):
+        pm, vel, cam, w, h = frames[name]
+        t0 = time.perf_counter()
+        cx, cy, keys, r = rasterize._prep_host(pm, vel, cam, w, h, sf, 64, "magnitude")
+        prep_ms = (time.perf_counter() - t0) * 1e3
+        twin_in = [torch.from_numpy(a) for a in (cx, cy, keys.view(np.int64), r)]
+        check(torch.equal(rasterize.resolve_host(cx, cy, keys, r, width=w, height=h),
+                          resolve.resolve_keys_plain(*twin_in, width=w, height=h)),
+              f"[20a] host resolve {name} ({cx.shape[0]} visible splats): C == resolve_keys_plain")
+        ms = _in_turns({"C": lambda: rasterize.resolve_host(cx, cy, keys, r, width=w, height=h),
+                        "twin": lambda: resolve.resolve_keys_plain(*twin_in, width=w, height=h),
+                        "frame": lambda: rasterize.render_points(pm, vel, cam, width=w, height=h, size_factor=sf,
+                                                                 resolve="host")},
+                       reps=1 if cx.shape[0] > 100_000 else 3)
+        print(f"  [20a] host frame {name}: the f64 prep {prep_ms:.1f} ms; the resolve in turns: C {ms['C']} ms, "
+              f"resolve_keys_plain {ms['twin']} ms; render_points(resolve='host') {ms['frame']} ms", flush=True)
+
+
+def phase_native_json(dev) -> None:
+    """20b: reference-JSON checkpoints through ``native/_fastjson.c`` at
+    8d's PM state (N = 2,097,152): save, load, the round trip bit for bit,
+    ``json.loads`` of the file, and the ``json.dump`` writer at 500,000."""
+    from nbody3d_tpu_torch.utils import checkpoint
+
+    print(f"[20b float32 JSON codec] native/_fastjson.c ({_card()}; host clock on the card machine's host)",
+          flush=True)
+    sim = MESH_SIMS["pm"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "pm.json"
+        save_s = host_ms(lambda: sim.save(str(path))) / 1e3
+        mb = path.stat().st_size / 1e6
+        box = []
+        load_s = host_ms(lambda: box.append(Simulation.load(str(path), sim.config, device=dev))) / 1e3
+        back = box[0]
+        same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32)) for a, b in zip(back.arrays(), sim.arrays()))
+        raw = path.read_bytes()
+        meta = json.loads(b"{" + raw[raw.rindex(b', "camera": ') + 2:])  # the keys after the arrays
+        cam = Camera(target=sim.camera_target).to_dict()
+        meta_ok = (meta["G"] == f"{np.log10(sim.G):.2f}" and back.G == 10.0 ** float(meta["G"])
+                   and meta["dt"] == back.dt == sim.dt and meta["step"] == back.step_count == sim.step_count
+                   and meta["nBodies"] == back.n_real == sim.n_real
+                   and meta["camera"] == back.loaded_camera.to_dict() == cam)
+        check(same and meta_ok, f"[20b] N={sim.n_real:,} .json round trip: arrays bit-equal, G string "
+                                f"{meta['G']!r}, dt, step {back.step_count}, camera")
+        t0 = time.perf_counter()
+        doc = json.loads(raw)
+        loads_same = all(np.array_equal(np.asarray(doc[k], np.float32).reshape(-1, 4).view(np.uint32),
+                                        a.view(np.uint32)) for k, a in zip(("bodies", "vel", "accel"), sim.arrays()))
+        loads_s = time.perf_counter() - t0
+        del doc
+        check(loads_same, f"[20b] json.loads of the file: the same float32 arrays ({loads_s:.2f} s)")
+        del raw, back, box
+        small = Simulation(SimConfig(), *(a[:500_000] for a in sim.arrays()), device="cpu")
+        small.dt, small.G = sim.dt, sim.G
+        c_s = host_ms(lambda: checkpoint.save_reference_json(str(path), small)) / 1e3
+        c_mb = path.stat().st_size / 1e6
+        t0 = time.perf_counter()
+        data = {k: [float(v) for v in a.reshape(-1)] for k, a in zip(("bodies", "vel", "accel"), small.arrays())}
+        with open(path, "w") as f:
+            json.dump({**data, **{k: meta[k] for k in ("camera", "G", "dt", "step")}, "nBodies": small.n_real}, f)
+        dump_s, dump_mb = time.perf_counter() - t0, path.stat().st_size / 1e6
+        del data
+    print(f"  [20b] N={sim.n_real:,}: save {save_s:.3f} s, load {load_s:.3f} s (to the card), {mb:.1f} MB; "
+          f"N=500,000: the C codec's save {c_s:.3f} s ({c_mb:.1f} MB), the json.dump writer "
+          f"{dump_s:.3f} s ({dump_mb:.1f} MB)", flush=True)
+
+
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
     """``run(dev)`` with the counts set to 0 just before and read just
     after; it must launch every kernel of ``kernels_of_path`` and no other.
@@ -6087,6 +6215,8 @@ def main() -> int:
         run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
         run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)
         run_window("phase 19d (dryrun_multichip(1, 'cuda'), a spawned rank)", phase_dryrun, (), dev)
+    run_window("phase 20a (the host disc stamp)", phase_native_raster, (), dev)
+    run_window("phase 20b (the float32 JSON codec)", phase_native_json, (), dev)
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))

@@ -10,7 +10,8 @@ first kernel launch builds.  A missing ``nvcc`` or a failed build raises
 with the compiler's output; nothing falls back to the plain versions.
 
 ``load_host_library(name)`` does the same for a host C file of
-``native/`` (the friends-of-friends core), built with the host compiler
+``native/`` (the friends-of-friends core, the JPEG/GIF cores, the disc
+stamp, the float32 JSON codec), built with the host compiler
 (``$CC``, default ``cc``) into ``_build/<key>/lib<name>.so`` at first use.
 """
 

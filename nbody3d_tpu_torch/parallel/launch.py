@@ -45,6 +45,11 @@ def _rank_main(rank: int, world: int, device: str, tmp: str, threads: int, fn, a
         )
         try:
             out = fn(rank, world, *args)
+            # No rank leaves the group before every rank is done with it: a
+            # rank that tore its side down at once could close a connection
+            # that a slower peer was still making in init_process_group
+            # (gloo: "connectFullMesh failed ... Connection closed by peer").
+            dist.barrier()
         finally:
             dist.destroy_process_group()
         if "jax" in sys.modules:

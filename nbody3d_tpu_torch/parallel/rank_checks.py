@@ -414,3 +414,26 @@ def env_of(rank: int, world: int):
     """What a rank sees of its process: whether jax is loaded, its threads."""
     return {"jax": "jax" in sys.modules, "threads": torch.get_num_threads(), "pid": os.getpid(),
             "rank": dist.get_rank(), "world": dist.get_world_size(), "backend": dist.get_backend()}
+
+
+def peers_running_after(rank: int, world: int, delay: float):
+    """Rank 0 waits ``delay`` seconds after every rank has returned and
+    says, rank by rank, whether the others' processes still run: a rank
+    that is done must stay in its group until every rank is done (Linux
+    ``/proc``).  The other ranks return None at once."""
+    import time
+
+    pids = [None] * world
+    dist.all_gather_object(pids, os.getpid())
+    if rank != 0:
+        return None
+    time.sleep(delay)
+    running = []
+    for pid in pids[1:]:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except FileNotFoundError:
+            state = "gone"
+        running.append(state not in ("Z", "X", "gone"))
+    return running

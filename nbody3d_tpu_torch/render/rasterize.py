@@ -24,13 +24,14 @@ A frame is a prep and a resolve:
 
 - ``"auto"``: the device prep and ``splat_resolve`` on the state's device
   (the kernel on a CUDA state, the twin on a CPU state);
-- ``"host"``: the f64 host prep and the twin on CPU tensors, bit for bit
-  the JAX package's default frame (its ``auto``/``native``/``numpy``
-  resolves);
+- ``"host"``: the f64 host prep and one disc stamp in C over every splat
+  (``native/_raster.c``, :func:`resolve_host`), bit for bit the JAX
+  package's default frame (its ``auto``/``native``/``numpy`` resolves);
 - ``"device"``: the device prep and the quantized resolve
   (``resolve.quantized_scatter``: ``scatter_reduce_`` on the state's
-  device for the splats below 2 px, the rest stamped on the host), the
-  JAX package's ``"device"`` contract: 16-bit depth test, rgb565 colour.
+  device for the splats below 2 px, the rest stamped on the host by
+  ``native/_raster.c``), the JAX package's ``"device"`` contract: 16-bit
+  depth test, rgb565 colour.
 
 Nothing falls back: a failed build or launch raises.
 
@@ -45,11 +46,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nbody3d_tpu_torch import native
 from nbody3d_tpu_torch.render.colormap import direction_colormap, velocity_colormap
 from nbody3d_tpu_torch.render.resolve import (
+    MISS,
     buffer_image,
     quantized_image,
-    resolve_keys_plain,
     resolve_quantized,
     splat_resolve,
 )
@@ -223,11 +225,18 @@ def render_buffer(
         return fn(*prep_device(pm, v, *args), width=width, height=height)
     if isinstance(pos_mass, torch.Tensor):
         pos_mass, vel = pos_mass.detach().cpu().numpy(), vel.detach().cpu().numpy()
-    cx, cy, keys, r = _prep_host(pos_mass, vel, *args)
-    return resolve_keys_plain(
-        torch.from_numpy(cx), torch.from_numpy(cy), torch.from_numpy(keys.view(np.int64)),
-        torch.from_numpy(r), width=width, height=height,
-    )
+    return resolve_host(*_prep_host(pos_mass, vel, *args), width=width, height=height)
+
+
+def resolve_host(cx: np.ndarray, cy: np.ndarray, keys: np.ndarray, r: np.ndarray, *, width: int,
+                 height: int) -> torch.Tensor:
+    """The ``host`` resolve of the host prep's splats: one pass of
+    ``native/_raster.c`` over every splat into an all-ones buffer, as the
+    JAX package's ``native`` resolve.  The ``(H * W,)`` int64 framebuffer,
+    bit for bit :func:`resolve.resolve_keys_plain`'s (its twin)."""
+    buf = torch.full((height * width,), MISS, dtype=torch.int64)
+    native.stamp_discs(buf, height, width, cx, cy, r, keys)
+    return buf
 
 
 def render_points(
@@ -250,7 +259,7 @@ def render_points(
     arrays.  ``color_mode``: "magnitude" (``nbody3d.js:380``) or
     "direction" (``nbody3d.js:381``).  ``resolve``: "auto" (the device prep
     and the ``splat_resolve`` kernel on the state's device; its twin for a
-    CPU state), "host" (the f64 host prep and the twin on the CPU: the JAX
+    CPU state), "host" (the f64 host prep and the C disc stamp: the JAX
     package's default frame), or "device" (the device prep and the
     quantized resolve: 16-bit depth, rgb565 colour).
     """

@@ -32,10 +32,10 @@ a second framebuffer: 32-bit words ``depth16 << 16 | rgb565``, where
 min-reduces the small splats (``r < 2`` px) on their device, one
 ``scatter_reduce_(..., "amin")`` for each of :data:`DEVICE_OFFSETS` that
 the radius reaches; :func:`quantized_large` fetches the large ones to the
-host, and :func:`quantized_frame` stamps them there (:func:`_stamp_large`)
-with the same words.  Only the ``(H * W,)`` int32 buffer and the large
-splats leave the device.  :func:`quantized_image` decodes the colour by
-bit replication.
+host, and :func:`quantized_frame` stamps them there with the same words
+in C (``native/_raster.c``; :func:`_stamp_large` is its twin).  Only the
+``(H * W,)`` int32 buffer and the large splats leave the device.
+:func:`quantized_image` decodes the colour by bit replication.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import math
 import numpy as np
 import torch
 
+from nbody3d_tpu_torch import native
 from nbody3d_tpu_torch.ops.launch import launch, lib
 
 MISS = -1  # the all-ones word: no splat reached the pixel
@@ -268,7 +269,17 @@ def quantized_large(
 def quantized_frame(words: torch.Tensor, large, *, width: int, height: int) -> torch.Tensor:
     """The ``(H * W,)`` int64 framebuffer of uint32 words on the host: the
     device buffer ``words`` (int32, less 2^31, on the CPU) with the large
-    splats stamped in."""
+    splats stamped in by ``native/_raster.c`` (the words are below 2^32, so
+    int64 order is theirs; :func:`quantized_frame_plain` is its twin)."""
+    buf = words.to(torch.int64) + _BIAS32
+    cx, cy, key, rs = large
+    native.stamp_discs(buf, height, width, cx, cy, rs, key)
+    return buf
+
+
+def quantized_frame_plain(words: torch.Tensor, large, *, width: int, height: int) -> torch.Tensor:
+    """Plain twin of :func:`quantized_frame`: the large splats stamped one by
+    one by :func:`_stamp_large`."""
     buf = words.to(torch.int64) + _BIAS32
     _stamp_large(buf.view(height, width), *large)
     return buf

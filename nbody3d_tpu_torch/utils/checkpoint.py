@@ -8,9 +8,10 @@ written by either package load in the other, bit for bit.
   (the lagged Verlet makes accel part of the state), an 8-field ``camera``
   dict, and ``G`` as the log10 slider value with 2 decimals
   (``util.js:200``).  The extra keys ``dt``, ``step`` and ``nBodies`` are
-  written too, and ``nBodies`` is checked on load.  Written and read with
-  Python's ``json``: every float32 goes out as the shortest repr of its
-  double, which reads back to the same float32.
+  written too, and ``nBodies`` is checked on load.  The three arrays are
+  written and read by the C codec ``native/_fastjson.c`` (``%.9g``, which
+  gives every float32 back exactly, and ``strtod``), the other keys by
+  Python's ``json``: the file is the JAX package's, byte for byte.
 - **Native .npz**: the arrays, the step, the full config and the camera.
 
 The JAX package's third format, an orbax directory, is JAX-only and not
@@ -24,10 +25,12 @@ import math
 
 import numpy as np
 
+from nbody3d_tpu_torch import native
 from nbody3d_tpu_torch.config import SimConfig
 from nbody3d_tpu_torch.utils.camera import Camera
 
 FORMATS = "'.json' (reference schema) or '.npz' (native)"
+_ARRAYS = ("bodies", "vel", "accel")
 
 
 def check_format(path: str) -> str:
@@ -45,6 +48,8 @@ def check_format(path: str) -> str:
 
 # ------------------------------------------------------------ reference JSON
 def save_reference_json(path: str, sim) -> None:
+    """Write the reference-schema file of ``sim``: the JAX package's
+    ``save_reference_json`` bytes for the same state."""
     pos_mass, vel, accel = sim.arrays()
     if not sim.G > 0:
         raise ValueError(
@@ -52,10 +57,7 @@ def save_reference_json(path: str, sim) -> None:
             f"(util.js:200) and quantizes it to 2 decimals, which requires "
             f"G > 0 (got {sim.G!r}); use the lossless .npz format instead"
         )
-    data = {
-        "bodies": [float(v) for v in pos_mass.reshape(-1)],
-        "vel": [float(v) for v in vel.reshape(-1)],
-        "accel": [float(v) for v in accel.reshape(-1)],
+    meta = {
         "camera": Camera(target=sim.camera_target).to_dict(),
         "G": f"{math.log10(sim.G):.2f}",  # util.js:200 slider-value string
         # Additive fixes for reference gaps (ignored by the WebGPU app):
@@ -63,8 +65,50 @@ def save_reference_json(path: str, sim) -> None:
         "step": sim.step_count,
         "nBodies": sim.n_real,
     }
-    with open(path, "w") as f:
-        json.dump(data, f)
+    arrays = (pos_mass, vel, accel)
+    if not all(np.isfinite(a).all() for a in arrays):
+        # NaN and inf have json.dump's spellings, as in the JAX package.
+        data = {k: [float(v) for v in a.reshape(-1)] for k, a in zip(_ARRAYS, arrays)}
+        with open(path, "w") as f:
+            json.dump({**data, **meta}, f)
+        return
+    chunks = [native.dumps_f32(a) for a in arrays]
+    with open(path, "wb") as f:
+        for i, (k, chunk) in enumerate(zip(_ARRAYS, chunks)):
+            f.write((b"{" if i == 0 else b", ") + json.dumps(k).encode() + b": " + chunk)
+        for k, v in meta.items():
+            f.write(b", " + json.dumps(k).encode() + b": " + json.dumps(v).encode())
+        f.write(b"}")
+
+
+def _parse(raw: bytes) -> tuple[dict, dict]:
+    """The three arrays (float32) and the other keys of a reference-schema
+    document.  Each array is scanned in place by ``native/_fastjson.c`` and
+    the rest, the arrays cut out, parsed by ``json.loads``.  A document the
+    scanner rejects is parsed whole by ``json.loads``, as the JAX package
+    does (``_parse_fast``); a malformed one raises there."""
+    arrays, spans = {}, []
+    for key in _ARRAYS:
+        kpos = raw.find(b'"%s"' % key.encode())
+        start = raw.find(b"[", kpos) if kpos >= 0 else -1
+        got = native.scan_f32(raw, start) if start >= 0 else None
+        if got is None:
+            break
+        arrays[key] = got[0]
+        spans.append((start, got[1]))
+    else:
+        spans.sort()
+        parts, prev = [], 0
+        for s, e in spans:
+            parts.append(raw[prev:s] + b"[]")
+            prev = e
+        parts.append(raw[prev:])
+        try:
+            return arrays, json.loads(b"".join(parts))
+        except ValueError:
+            pass
+    data = json.loads(raw)
+    return {k: np.asarray(data[k], dtype=np.float32) for k in _ARRAYS}, data
 
 
 def load_reference_json(path: str, config: SimConfig | None = None, *, device=None, mesh=None):
@@ -74,10 +118,8 @@ def load_reference_json(path: str, config: SimConfig | None = None, *, device=No
     from nbody3d_tpu_torch.engine import Simulation
 
     with open(path, "rb") as f:
-        data = json.loads(f.read())
-    bodies, vel, accel = (
-        np.asarray(data[k], dtype=np.float32).reshape(-1, 4) for k in ("bodies", "vel", "accel")
-    )
+        arrays, data = _parse(f.read())
+    bodies, vel, accel = (arrays[k].reshape(-1, 4) for k in _ARRAYS)
     n = bodies.shape[0]
     if vel.shape[0] != n or accel.shape[0] != n:
         raise ValueError(

@@ -76,13 +76,14 @@ def test_checkpoint_round_trip_across_packages(sims, tmp_path, fmt, direction):
 
 def test_files_are_the_same(sims, tmp_path):
     """Both writers put the same keys and values in a file: the JSON
-    documents hold the same float32 arrays (spelled with other digits) and
-    the same other keys, the "G" string included; the npz arrays and
-    config/camera strings are equal."""
+    documents are the same bytes (the float32 arrays, the other keys, the
+    "G" string included); the npz arrays and config/camera strings are
+    equal."""
     js, ts = sims
     for fmt in ("json", "npz"):
         js.save(str(tmp_path / f"j.{fmt}"))
         ts.save(str(tmp_path / f"t.{fmt}"))
+    assert (tmp_path / "j.json").read_bytes() == (tmp_path / "t.json").read_bytes()
     j, t = (json.loads((tmp_path / f"{w}.json").read_text()) for w in "jt")
     arrays = ("bodies", "vel", "accel")
     for k in arrays:

@@ -77,6 +77,16 @@ def test_spawn_returns_each_ranks_result():
     assert len({r["pid"] for r in out}) == 3
 
 
+def test_no_rank_leaves_its_group_before_every_rank_is_done():
+    """A rank that returns first waits for the others before it tears its
+    side of the group down.  Without that wait a fast rank could exit while
+    a slow one was still connecting in ``init_process_group``, and the slow
+    one failed ("Gloo connectFullMesh failed ... Connection closed by
+    peer"): rank 0 of ``spawn(env_of, 3)`` did so under a loaded host."""
+    out = spawn(rank_checks.peers_running_after, 3, 3.0, device="cpu", timeout=120)
+    assert out[0] == [True, True] and out[1:] == [None, None]
+
+
 def test_a_rank_that_raises_fails_the_run_at_once():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="fails on purpose"):
