@@ -412,6 +412,25 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    float32 arrays, save and load seconds and the file's MB, beside the
    ``json.dump`` writer at N = 500,000.  Its lines carry the card's name
    and power limit; every time in it is the card machine's host's.
+21. the last pieces of the JAX package (after 20b, not in
+   ``--kernels-only``; plain torch, no kernel of their own): (a) 8d's PM
+   state (N = 2,097,152) saved as a checkpoint directory
+   (``torch.distributed.checkpoint``) and loaded back to the card: the
+   round trip bit for bit (uint32 views), dt, G, step and the camera;
+   save and load seconds and MB beside the ``.npz`` save and load of the
+   same state, in turns; ``peek_config``'s time; then, under a one-rank
+   NCCL group, the same state saved and loaded on ``default_mesh(1)``,
+   each call in a thread that must return within 120 s (no collective
+   waits on a peer), the directory's tensors and the loaded arrays
+   bit-equal to the one-device directory's; (b) the Ewald energy
+   ``ewald_potential_energy`` on the card: float32 at 15a's Zel'dovich
+   lattice scaled to 32^3 = 32,768 bodies in 12b's box (L = 10) within
+   ``ewald.energy_f32_bound`` of the float64 energy on the card, itself
+   held at a 4,096-body subset to the host's ``ewald_potential_energy_f64``
+   (rel 1e-12), both times; at N = 256 in float64, autograd's gradient
+   against ``-m a`` of ``ewald_accel_reference`` (atol 1e-9 of scale,
+   rtol 1e-7, as the CPU test).  Its lines carry the card's name and
+   power limit.
 
 Phases 4, 5, 6a, 6b, 7b, 8b, 8d, 9b, 9c, 10b, 10c, 11b, 11c, 12b (twice),
 12d, 13b (twice), 13c, 14b, 15b (three times), 16b, 17b-17d, 18b-18d, 19b and 19c (the main paths)
@@ -6117,6 +6136,134 @@ def phase_native_json(dev) -> None:
           f"{dump_s:.3f} s ({dump_mb:.1f} MB)", flush=True)
 
 
+# ------------------------------------------ 21: the last pieces of the JAX package
+def _returns(fn, what: str, timeout: float = 120.0):
+    """``fn()`` in a daemon thread: its result, after a check that it
+    returned within ``timeout`` seconds (a collective that waited on a peer
+    would not) and raised nothing."""
+    box: dict = {}
+
+    def target():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # handed to the caller's check
+            box["err"] = e
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    th.join(timeout)
+    sec = time.perf_counter() - t0
+    check(not th.is_alive() and "err" not in box,
+          f"[21a] {what} returned in {sec:.3f} s (limit {timeout:g} s){': ' + repr(box['err']) if 'err' in box else ''}")
+    return box.get("out"), sec
+
+
+def phase_checkpoint_dir(dev) -> None:
+    """21a: the checkpoint directory at 8d's PM state (N = 2,097,152): the
+    round trip to the card bit for bit, dt, G, step and camera; save, load
+    and MB beside ``.npz`` in turns; ``peek_config``; the same state saved
+    and loaded on a one-rank NCCL mesh, bit-equal to one device's
+    directory."""
+    from nbody3d_tpu_torch.utils import checkpoint
+
+    print(f"[21a checkpoint directory] torch.distributed.checkpoint {torch.__version__} ({_card()}; host clock on "
+          f"the card machine's host)", flush=True)
+    sim = MESH_SIMS["pm"]
+    want = sim.arrays()
+    with tempfile.TemporaryDirectory() as tmp:
+        d, z, dm = (pathlib.Path(tmp) / name for name in ("pm_ckpt", "pm.npz", "pm_mesh_ckpt"))
+        loaded: dict = {}
+        ms = _in_turns({
+            "dir save": lambda: sim.save(str(d)),
+            "npz save": lambda: sim.save(str(z)),
+            "dir load": lambda: loaded.__setitem__("dir", Simulation.load(str(d), device=dev)),
+            "npz load": lambda: loaded.__setitem__("npz", Simulation.load(str(z), device=dev)),
+        }, rounds=2, reps=1)
+        peek = _in_turns({"peek": lambda: checkpoint.peek_config(str(d))}, rounds=1, reps=3)["peek"]
+        mb_dir = sum(f.stat().st_size for f in d.iterdir()) / 1e6
+        mb_npz = z.stat().st_size / 1e6
+        back = loaded["dir"]
+        same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32)) for a, b in zip(back.arrays(), want))
+        cam = Camera(target=sim.camera_target).to_dict()
+        meta_ok = (back.dt == sim.dt and back.G == sim.G and back.step_count == sim.step_count
+                   and back.n_real == sim.n_real and back.loaded_camera.to_dict() == cam
+                   and back.state.pos_mass.device == torch.device(dev)
+                   and checkpoint.peek_config(str(d)).to_json() == sim.config.replace(dt=sim.dt, G=sim.G).to_json())
+        check(same and meta_ok, f"[21a] N={sim.n_real:,} directory round trip to the card: arrays bit-equal, dt "
+                                f"{back.dt:g}, G {back.G:g}, step {back.step_count}, camera, peek_config's config")
+        check(all(np.array_equal(a, b) for a, b in zip(loaded["npz"].arrays(), want)), "[21a] the .npz round trip")
+        check(max(peek) < min(ms["dir load"]) / 10,
+              f"[21a] peek_config {peek} ms, under a tenth of a load ({ms['dir load']} ms)")
+        del loaded, back
+        one = checkpoint._read_dir(str(d), checkpoint._DIR_KEYS)
+        with OneRankGroup():
+            mesh = SHARDED["x"]
+            msim = Simulation(sim.config, *want, step=sim.step_count, mesh=mesh, camera_target=sim.camera_target)
+            msim.dt, msim.G = sim.dt, sim.G
+            _, save_s = _returns(lambda: msim.save(str(dm)), "the save on a one-rank NCCL mesh")
+            mback, load_s = _returns(lambda: Simulation.load(str(dm), mesh=mesh), "the load on the one-rank mesh")
+            got = checkpoint._read_dir(str(dm), checkpoint._DIR_KEYS)
+            files_same = sorted(got) == sorted(one) and all(torch.equal(got[k], one[k]) for k in one)
+            arrays_same = mback is not None and all(
+                np.array_equal(a.view(np.uint32), b.view(np.uint32)) for a, b in zip(mback.arrays(), want))
+            check(files_same and arrays_same and mback.step_count == sim.step_count,
+                  f"[21a] one-rank mesh: the directory's tensors == one device's, the loaded arrays bit-equal "
+                  f"(save {save_s:.3f} s, load {load_s:.3f} s)")
+            del msim, mback
+    print(f"  [21a] N={sim.n_real:,} (step {sim.step_count}), one call each a round, in turns: directory save "
+          f"{ms['dir save']} ms, load {ms['dir load']} ms (to the card), {mb_dir:.1f} MB; .npz save "
+          f"{ms['npz save']} ms, load {ms['npz load']} ms, {mb_npz:.1f} MB; peek_config {peek} ms", flush=True)
+
+
+ENERGY_N1 = 32  # 21b: 32^3 = 32,768 bodies, 15a's lattice in 12b's box
+
+
+def phase_ewald_energy(dev) -> None:
+    """21b: ``ewald_potential_energy`` on the card: float32 at 32,768
+    bodies (15a's Zel'dovich lattice, box L = 10) against float64 on the
+    card, which a 4,096-body subset holds to the host's
+    ``ewald_potential_energy_f64``; at N = 256 in float64 autograd's
+    gradient against the oracle's ``-m a``."""
+    L, n = BOX_L, ENERGY_N1**3
+    print(f"[21b Ewald energy] ewald_potential_energy on the card, N={n:,} box {L:g} ({_card()})", flush=True)
+    pm_np, _, _ = make_preset("cosmo", seed=11, G=G, n=n, box_size=L, amp=0.02, velocity="eds")
+    pm32 = torch.from_numpy(pm_np).to(dev)
+    pm64 = pm32.double()
+    out: dict = {}
+    ms = _in_turns({
+        "f32": lambda: out.__setitem__("f32", float(ewald.ewald_potential_energy(pm32, L, chunk=1024))),
+        "f64": lambda: out.__setitem__("f64", float(ewald.ewald_potential_energy(pm64, L, chunk=1024))),
+    }, rounds=2, reps=1)
+    bound = ewald.energy_f32_bound(pm_np, L)
+    err = abs(out["f32"] - out["f64"])
+    check(err <= bound, f"[21b] N={n:,} float32 {out['f32']!r} vs float64 {out['f64']!r} on the card: |diff| "
+                        f"{err:.4e} <= energy_f32_bound {bound:.4e}")
+    sub = pm_np[::8]
+    t0 = time.perf_counter()
+    host = ewald.ewald_potential_energy_f64(sub, L)
+    host_s = time.perf_counter() - t0
+    card = float(ewald.ewald_potential_energy(torch.from_numpy(sub).to(dev).double(), L))
+    rel = abs(card - host) / abs(host)
+    check(rel <= 1e-12, f"[21b] {sub.shape[0]:,}-body subset: float64 on the card {card!r} vs the host's "
+                        f"ewald_potential_energy_f64 {host!r} ({host_s:.2f} s): rel {rel:.3e} <= 1e-12")
+    rng = np.random.default_rng(6)
+    box = np.concatenate([rng.uniform(0, 1.0, (256, 3)), rng.uniform(1.0, 3.0, (256, 1))], axis=1)
+    pm = torch.from_numpy(box).to(dev)
+    sigma = 1.0 / 12.0
+    x = pm[:, :3].clone().requires_grad_(True)
+    u = ewald.ewald_potential_energy(torch.cat([x, pm[:, 3:]], dim=1), 1.0, eps2=1e-9, sigma=sigma, kmax=14)
+    (g,) = torch.autograd.grad(u, x)
+    f = pm[:, 3:] * ewald.ewald_accel_reference(pm, 1.0, sigma, eps2=1e-9, n_images=2, kmax=14)
+    scale = float(f.abs().max())
+    excess = float(((-g - f).abs() / scale - (1e-9 + 1e-7 * f.abs() / scale)).max())
+    check(excess <= 0, f"[21b] N=256 float64: -grad U against m a of ewald_accel_reference: max |diff| / scale "
+                       f"{float((-g - f).abs().max()) / scale:.3e} (atol 1e-9, rtol 1e-7)")
+    print(f"  [21b] N={n:,}, chunk 1,024, one call each a round, in turns: float32 {ms['f32']} ms, float64 "
+          f"{ms['f64']} ms; float32 off float64 by {err:.4e} ({err / abs(out['f64']):.3e} of the energy, "
+          f"{err / bound:.3f} of the bound)", flush=True)
+
+
 def run_window(path: str, run, kernels_of_path, dev) -> dict[str, int]:
     """``run(dev)`` with the counts set to 0 just before and read just
     after; it must launch every kernel of ``kernels_of_path`` and no other.
@@ -6217,6 +6364,8 @@ def main() -> int:
         run_window("phase 19d (dryrun_multichip(1, 'cuda'), a spawned rank)", phase_dryrun, (), dev)
     run_window("phase 20a (the host disc stamp)", phase_native_raster, (), dev)
     run_window("phase 20b (the float32 JSON codec)", phase_native_json, (), dev)
+    run_window("phase 21a (the checkpoint directory)", phase_checkpoint_dir, (), dev)
+    run_window("phase 21b (the Ewald energy)", phase_ewald_energy, (), dev)
     times.update(phase_mesh_times(dev))
     times.update(phase_mesh_grad_times(dev))
     times.update(phase_unfused_times(dev))

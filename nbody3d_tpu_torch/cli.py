@@ -8,7 +8,8 @@
 - ``animate``  an orbiting-camera frame sequence of a checkpoint, and an
                APNG/GIF (or, with ffmpeg, MP4/WebM) of it.
 - ``serve``    the live interactive viewer over HTTP (MJPEG + controls).
-- ``convert``  convert checkpoints between reference JSON and native npz.
+- ``convert``  convert checkpoints between reference JSON, native npz and
+               a checkpoint directory (any path with neither suffix).
 - ``analyze``  physics report of a checkpoint: COM frame, conservation
                norms, Lagrangian radii, profiles, virial ratio, and with
                ``--fof`` the friends-of-friends catalog, with
@@ -50,6 +51,7 @@ so ``--devices`` leaves it there and ``--distributed`` is refused.
     python -m nbody3d_tpu_torch.cli serve --preset two-galaxy --port 8000
     python -m nbody3d_tpu_torch.cli run --steps 200 --trace trace_dir
     python -m nbody3d_tpu_torch.cli convert out/final.npz final.json
+    python -m nbody3d_tpu_torch.cli convert out/final.npz ckpt_dir
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --backend jnp --n 2048 --steps 20
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --method p3m --pm-grid 32 --n 4096 --steps 10
     python -m nbody3d_tpu_torch.cli run --devices 4 --device cpu --preset cosmo --n 4096 --cosmology eds \
@@ -437,9 +439,6 @@ def cmd_serve(args) -> int:
 
 
 def cmd_convert(args) -> int:
-    from nbody3d_tpu_torch.utils.checkpoint import check_format
-
-    check_format(args.output)  # before any work
     sim = _load_sim(args.input, args)
     sim.save(args.output)
     print(f"{args.input} -> {args.output} (N={sim.n_real}, step={sim.step_count})")
@@ -607,7 +606,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("run", help="run a simulation")
     p.add_argument("--preset", default="two-galaxy")
-    p.add_argument("--checkpoint", default=None, help="resume from a .npz/.json checkpoint instead of a preset")
+    p.add_argument("--checkpoint", default=None, help="resume from a .npz/.json checkpoint or a checkpoint directory instead of a preset")
     p.add_argument("--n", type=int, default=None, help="body count override")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--log-every", type=int, default=100)
@@ -717,7 +716,7 @@ def main(argv=None) -> int:
     _add_common(p)
     p.set_defaults(fn=cmd_analyze)
 
-    p = sub.add_parser("convert", help="convert checkpoint formats (.json <-> .npz)")
+    p = sub.add_parser("convert", help="convert checkpoint formats (.json, .npz, a directory)")
     p.add_argument("input")
     p.add_argument("output")
     _add_common(p)

@@ -448,32 +448,29 @@ class Simulation:
     # ---------------------------------------------------------- checkpoint
     def save(self, path: str) -> None:
         """Save a checkpoint; format by suffix: ``.json`` = reference
-        schema, ``.npz`` = native (``utils/checkpoint.py``).  With a mesh
-        every rank calls it (the state is gathered) and rank 0 writes."""
+        schema, ``.npz`` = native, anything else = a checkpoint directory
+        (``utils/checkpoint.py``).  With a mesh every rank calls it (the
+        state is gathered) and rank 0 writes."""
         from nbody3d_tpu_torch.utils import checkpoint
 
-        fmt = checkpoint.check_format(path)
         if self.mesh is not None and self.mesh.rank != 0:
             self.arrays()  # the gather that rank 0's save makes
             return
-        if fmt == "json":
-            checkpoint.save_reference_json(path, self)
-        else:
-            checkpoint.save_npz(path, self)
+        save = {"json": checkpoint.save_reference_json, "npz": checkpoint.save_npz, "dir": checkpoint.save_dir}
+        save[checkpoint.check_format(path)](path, self)
 
     @classmethod
     def load(
         cls, path: str, config: SimConfig | None = None, *, device: torch.device | str | None = None, mesh=None
     ) -> "Simulation":
         """A Simulation on ``device`` (or sharded over ``mesh``: every rank
-        reads the file and keeps its rows) from a ``.json`` or ``.npz``
-        checkpoint.  ``config=None`` takes the file's (npz) or the defaults
-        with the file's G and dt (JSON)."""
+        reads the checkpoint and keeps its rows) from a ``.json``, ``.npz``
+        or directory checkpoint.  ``config=None`` takes the saved one (npz,
+        directory) or the defaults with the file's G and dt (JSON)."""
         from nbody3d_tpu_torch.utils import checkpoint
 
-        if checkpoint.check_format(path) == "json":
-            return checkpoint.load_reference_json(path, config, device=device, mesh=mesh)
-        return checkpoint.load_npz(path, config, device=device, mesh=mesh)
+        load = {"json": checkpoint.load_reference_json, "npz": checkpoint.load_npz, "dir": checkpoint.load_dir}
+        return load[checkpoint.check_format(path)](path, config, device=device, mesh=mesh)
 
     # -------------------------------------------------------------- render
     def render_frame(

@@ -11,10 +11,12 @@ the neutralising background that makes a periodic potential finite.
 
 :func:`ewald_accel_reference` is the brute-force oracle (real-space sum
 over image boxes plus a direct sum over reciprocal modes, independent of
-``sigma``) and :func:`ewald_potential_energy_f64` the conserved energy of
-the periodic motion in float64 on the host, the form the engine's
-periodic diagnostics use.  Accelerations are per unit G, mass in the
-``w`` lane of ``pos_mass``.
+``sigma``).  :func:`ewald_potential_energy` is the conserved energy of the
+periodic motion in torch, on the input's device and in its dtype, and
+differentiable: autograd through it gives ``-m a``, the Ewald force.
+:func:`ewald_potential_energy_f64` is the same energy in float64 numpy on
+the host, the form the engine's periodic diagnostics use.  Accelerations
+are per unit G, mass in the ``w`` lane of ``pos_mass``.
 """
 
 from __future__ import annotations
@@ -131,6 +133,98 @@ def k_modes(kmax: int) -> np.ndarray:
     return n[pos].astype(np.float64)
 
 
+_DEFAULT_KMAX = 16
+_SIGMA_PER_BOX = 16.0  # sigma defaults to L / 16
+
+
+def _self_and_background(m2sum, msum, sigma, L3):
+    """The Gaussian self-energy removal ``½ Σm² sqrt(2/π) / σ`` and the
+    neutralising background ``π σ² (Σm)² / L³`` from ``Σm²``, ``Σm``, σ and
+    ``L³`` (floats or tensors)."""
+    return 0.5 * m2sum * math.sqrt(2.0 / math.pi) / sigma, math.pi * sigma * sigma * msum * msum / L3
+
+
+def ewald_potential_energy(
+    pos_mass: torch.Tensor,
+    L,
+    *,
+    eps2: float = 1e-4,
+    sigma=None,
+    kmax: int | None = None,
+    chunk: int | None = None,
+) -> torch.Tensor:
+    """Potential energy per unit G of the periodised softened interaction,
+    a 0-d tensor in ``pos_mass``'s dtype on its device: the terms of
+    :func:`ewald_potential_energy_f64` (``nbody3d_tpu/ops/ewald.py::
+    ewald_potential_energy``'s), in plain torch ops, so autograd by
+    ``pos_mass`` gives ``-m a`` (:func:`ewald_accel_reference` times the
+    masses; the constants drop out).  ``sigma`` defaults to ``L / 16``,
+    ``kmax`` to 16.  ``chunk`` (which must divide N) bounds the pair
+    temporaries to ``(chunk, N)`` and the structure factors' to ``(chunk,
+    K)`` for the ``K`` modes of :func:`k_modes`: the sums then go chunk by
+    chunk.
+
+    In float32 the terms, each ~1e7-1e8 on a uniform box, cancel to a total
+    ~1e2, so the result carries rounding noise of ~1e-7 of the largest term
+    (float64 resolves a 1e-5 position change)."""
+    x, m = pos_mass[:, :3], pos_mass[:, 3]
+    dt, dev = x.dtype, x.device
+    L = torch.as_tensor(L, dtype=dt, device=dev)
+    sigma = L / _SIGMA_PER_BOX if sigma is None else torch.as_tensor(sigma, dtype=dt, device=dev)
+    kmax = _DEFAULT_KMAX if kmax is None else kmax
+    n = x.shape[0]
+    if chunk is None or chunk >= n:
+        chunk = n
+    elif n % chunk != 0:
+        raise ValueError(f"chunk {chunk} must divide N {n}")
+    eps2_t = torch.as_tensor(eps2, dtype=dt, device=dev)
+
+    def chunk_real(xt, mt):
+        # the minimum image, i != j; half of it is the sum over i < j
+        d = x[None, :, :] - xt[:, None, :]
+        d = d - L * torch.round(d / L)
+        r2 = torch.sum(d * d, dim=-1)
+        mask = r2 > 0
+        r2s = torch.where(mask, r2, 1.0)
+        inv_r = torch.rsqrt(r2s)
+        u = (r2s * inv_r) / (_SQRT2 * sigma)
+        psi_s = -torch.rsqrt(r2s + eps2_t) + torch.special.erf(u) * inv_r
+        return torch.sum(torch.where(mask, psi_s, 0.0) * m[None, :] * mt[:, None])
+
+    kvec = (2.0 * math.pi / L) * torch.from_numpy(k_modes(kmax)).to(dtype=dt, device=dev)
+    k2 = torch.sum(kvec * kvec, dim=1)
+    damp = torch.exp(-0.5 * k2 * sigma * sigma) / k2
+    u_real = 0.0
+    sc = ss = 0.0
+    for s0 in range(0, n, chunk):
+        xt, mt = x[s0 : s0 + chunk], m[s0 : s0 + chunk]
+        u_real = u_real + chunk_real(xt, mt)
+        phase = xt @ kvec.T
+        sc = sc + mt @ torch.cos(phase)
+        ss = ss + mt @ torch.sin(phase)
+    u_real = 0.5 * u_real
+    u_k = -(4.0 * math.pi / (L * L * L)) * torch.sum(damp * (sc * sc + ss * ss))
+
+    u_self, u_bg = _self_and_background(torch.sum(m * m), torch.sum(m), sigma, L * L * L)
+    return u_real + u_k + u_self + u_bg
+
+
+def energy_f32_bound(pos_mass, L: float, *, sigma: float | None = None, kmax: int | None = None) -> float:
+    """The rounding bound of :func:`ewald_potential_energy` in float32 (the
+    CPU tests' and the card's): ``2 (6π kmax) 2^-24 (u_self + u_bg)``.  A
+    phase ``k·x = 2π n·x / L`` reaches ``6π kmax`` rad in the box, so its
+    float32 rounding moves each structure factor by up to that many units
+    of 2^-24 of its terms and ``|S(k)|²`` by twice that; the reciprocal sum
+    is of the size of the self and background terms it cancels against
+    (3.6e-5 of them at the default kmax = 16)."""
+    m = np.asarray(pos_mass[:, 3], np.float64)
+    L = float(L)
+    sigma = L / _SIGMA_PER_BOX if sigma is None else float(sigma)
+    kmax = _DEFAULT_KMAX if kmax is None else kmax
+    u_self, u_bg = _self_and_background(float(np.sum(m * m)), float(np.sum(m)), sigma, L**3)
+    return 2.0 * (6.0 * math.pi * kmax) * 2.0**-24 * (u_self + u_bg)
+
+
 def ewald_potential_energy_f64(
     pos_mass, L: float, *, eps2: float = 1e-4, sigma: float | None = None, kmax: int | None = None
 ) -> float:
@@ -149,10 +243,8 @@ def ewald_potential_energy_f64(
     x = np.asarray(pos_mass[:, :3], np.float64)
     m = np.asarray(pos_mass[:, 3], np.float64)
     L = float(L)
-    if sigma is None:
-        sigma = L / 16.0
-    sigma = float(sigma)
-    kmax = 16 if kmax is None else kmax
+    sigma = L / _SIGMA_PER_BOX if sigma is None else float(sigma)
+    kmax = _DEFAULT_KMAX if kmax is None else kmax
     n = x.shape[0]
 
     chunk = max(1, (1 << 25) // max(n, 1))
@@ -181,9 +273,7 @@ def ewald_potential_energy_f64(
         ss += m[s0 : s0 + pchunk] @ np.sin(phase)
     u_k = -(4.0 * np.pi / L**3) * float(np.sum(damp * (sc * sc + ss * ss)))
 
-    u_self = 0.5 * float(np.sum(m * m)) * np.sqrt(2.0 / np.pi) / sigma
-    msum = float(np.sum(m))
-    u_bg = np.pi * sigma * sigma * msum * msum / L**3
+    u_self, u_bg = _self_and_background(float(np.sum(m * m)), float(np.sum(m)), sigma, L**3)
     return u_real + u_k + u_self + u_bg
 
 

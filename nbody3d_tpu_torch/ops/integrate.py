@@ -71,6 +71,34 @@ def valid_mask(n_pad: int, n_real: int | None, device) -> torch.Tensor | None:
     return torch.arange(n_pad, device=device)[:, None] < n_real
 
 
+def _step(kind: str, state: SimState, accel_new: torch.Tensor, dt, n_real: int | None) -> SimState:
+    p, v, a = apply_integrator(
+        kind, state.pos_mass, state.vel, state.accel, accel_new, dt,
+        valid_mask(state.n_pad, n_real, state.device),
+    )
+    return SimState(p, v, a, state.step + 1)
+
+
+def verlet_step(
+    state: SimState, accel_new: torch.Tensor, dt: float | torch.Tensor, *, n_real: int | None = None
+) -> SimState:
+    """One frame-shifted velocity-Verlet update of ``state`` given the
+    accelerations at ``state.pos_mass``; rows from ``n_real`` on stay
+    frozen.  The step count goes up by one."""
+    return _step("verlet", state, accel_new, dt, n_real)
+
+
+def euler_step(
+    state: SimState, accel_new: torch.Tensor, dt: float | torch.Tensor, *, n_real: int | None = None
+) -> SimState:
+    """One semi-implicit Euler update (``v += a dt; x += v dt``), as
+    :func:`verlet_step`."""
+    return _step("euler", state, accel_new, dt, n_real)
+
+
+INTEGRATORS = {"verlet": verlet_step, "euler": euler_step}
+
+
 # Yoshida (1990) 4th-order triple-jump coefficients.
 _CBRT2 = 2.0 ** (1.0 / 3.0)
 _Y4_W1 = 1.0 / (2.0 - _CBRT2)

@@ -157,6 +157,21 @@ def _engine_case(mesh, case: dict):
     return out
 
 
+def _checkpoint_dir_case(mesh, case: dict):
+    """A sharded run saved as one checkpoint directory (rank 0 writes the
+    gathered state) and loaded back on the mesh: the gathered arrays before
+    and after, and this rank's rows of the loaded state."""
+    from nbody3d_tpu_torch.engine import Simulation
+
+    sim = Simulation(SimConfig(**case["config"]), *case_bodies(case), mesh=mesh)
+    sim.run(case["steps"], chunk=case["steps"])
+    arrays = sim.arrays()
+    sim.save(case["path"])
+    dist.barrier()  # rank 0 has written the directory
+    back = Simulation.load(case["path"], mesh=mesh)
+    return {"arrays": arrays, "loaded": back.arrays(), "shard": back.state.pos_mass.numpy().copy()}
+
+
 def _render_case(mesh, case: dict):
     """The frames of a sharded ``Simulation`` after its run (Morton re-sorts,
     or a P3M step): ``render_frame`` by each resolve, and each resolve's
@@ -376,9 +391,10 @@ def _replay_case(mesh, case: dict):
 CASES = {"step": _step_case, "p3m_stages": _p3m_stages_case, "replay": _replay_case, "diag": _diag_case,
          "order": _order_case, "engine": _engine_case, "render": _render_case, "regenerate": _regenerate_case,
          "serve": _serve_case, "serve_import_fails": _serve_import_fails_case, "mesh": _mesh_case,
-         "mesh_errors": _mesh_errors_case}
+         "mesh_errors": _mesh_errors_case,
+         "checkpoint_dir": _checkpoint_dir_case}
 # The cases whose every rank's result comes back (each rank's view).
-EVERY_RANK = ("mesh", "p3m_stages", "render", "regenerate", "serve", "serve_import_fails")
+EVERY_RANK = ("mesh", "p3m_stages", "render", "regenerate", "serve", "serve_import_fails", "checkpoint_dir")
 
 
 def run_cases(rank: int, world: int, cases: list[dict]):

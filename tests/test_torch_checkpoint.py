@@ -4,9 +4,10 @@ render + checkpoint path, on the CPU.
 Files written by one package load in the other bit for bit: the arrays,
 the step, the camera dict and the config (npz); the arrays, the step, the
 camera and the "G" slider string (reference JSON).  The run's frames and
-checkpoints, ``render`` and ``convert`` follow ``nbody3d_tpu/cli.py``, the
-resume semantics included (the file's config wins except for the flags
-given)."""
+checkpoints, ``render`` and ``convert`` (to and from a checkpoint
+directory too: ``tests/test_torch_checkpoint_dir.py``) follow
+``nbody3d_tpu/cli.py``, the resume semantics included (the file's config
+wins except for the flags given)."""
 
 import json
 
@@ -105,11 +106,17 @@ def test_bad_files_raise(sims, tmp_path):
         Simulation.load(str(tmp_path / "bad.json"), device="cpu")
     with pytest.raises(ValueError, match="nBodies"):
         JaxSimulation.load(str(tmp_path / "bad.json"), platform="cpu")
-    for bad in ("ckpt_dir", "c.orbax"):
-        with pytest.raises(ValueError, match="orbax"):
-            ts.save(str(tmp_path / bad))
-        with pytest.raises(ValueError, match=".npz"):
-            Simulation.load(str(tmp_path / bad), device="cpu")
+    for name in ("ckpt_dir", "c.orbax"):  # neither suffix: a checkpoint directory
+        path = str(tmp_path / name)
+        with pytest.raises(ValueError, match="not a checkpoint directory"):
+            Simulation.load(path, device="cpu")
+        ts.save(path)
+        assert checkpoint.check_format(path) == "dir" and (tmp_path / name / ".metadata").is_file()
+        back = Simulation.load(path, device="cpu")
+        for x, y in zip(back.arrays(), ts.arrays()):
+            np.testing.assert_array_equal(x, y)
+        assert (back.step_count, back.dt, back.G) == (ts.step_count, ts.dt, ts.G)
+        assert checkpoint.peek_config(path).to_json() == back.config.to_json()
     assert checkpoint.peek_config(str(tmp_path / "c.json")) is None
     ts.G = 0.0
     try:
@@ -159,8 +166,11 @@ def test_cli_run_render_convert(tmp_path, capsys):
     with np.load(out / "final.npz") as a, np.load(tmp_path / "y.npz") as b:
         for k in ("pos_mass", "vel", "accel", "step"):
             np.testing.assert_array_equal(a[k], b[k])
-    with pytest.raises(ValueError, match="orbax"):
-        cli.main(["convert", str(out / "final.npz"), str(tmp_path / "dir"), "--device", "cpu"])
+    assert cli.main(["convert", str(out / "final.npz"), str(tmp_path / "dir"), "--device", "cpu"]) == 0
+    assert cli.main(["convert", str(tmp_path / "dir"), str(tmp_path / "z.npz"), "--device", "cpu"]) == 0
+    with np.load(out / "final.npz") as a, np.load(tmp_path / "z.npz") as b:
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k])
 
 
 def test_cli_resume_semantics(tmp_path):
