@@ -53,7 +53,7 @@ from nbody3d_tpu_torch.ops.step import (
 )
 from nbody3d_tpu_torch.parallel import sharded
 from nbody3d_tpu_torch.state import SimState, init_state, pad_count, unpad
-from nbody3d_tpu_torch.utils.profiling import Ema, StepStats
+from nbody3d_tpu_torch.utils.profiling import Ema, StepStats, span
 
 
 def draw_seed() -> int:
@@ -267,7 +267,8 @@ class Simulation:
             k = min(chunk, remaining)
             t0 = time.perf_counter()
             self.state = run_chunk(self._step_fn, self.state, self.dt, self.G, k)
-            self._sync()
+            with span("nbody3d.engine.wait"):
+                self._sync()
             elapsed = time.perf_counter() - t0
             self.stats.update(k, elapsed, self.pair_interactions_per_step)
             if self.metrics_path:
@@ -306,10 +307,11 @@ class Simulation:
         if token is None:
             return
         k, t0, ev = token
-        if ev is not None:
-            ev.synchronize()
-        elapsed = time.perf_counter() - t0
-        self.stats.update(k, elapsed, self.pair_interactions_per_step)
+        with span("nbody3d.engine.wait"):
+            if ev is not None:
+                ev.synchronize()
+            elapsed = time.perf_counter() - t0
+            self.stats.update(k, elapsed, self.pair_interactions_per_step)
         if self.metrics_path:
             self._append_metrics(k, elapsed)
 
@@ -358,13 +360,14 @@ class Simulation:
         if done < self._next_morton:
             return
         self._next_morton = done + every
-        state = self.global_state()
-        p, v, a = morton_reorder(state.pos_mass, state.vel, state.accel, n_real=self.n_real)
-        state = SimState(p, v, a, state.step)
-        if self.mesh is not None:
-            # The same stable sort on every rank; each keeps its own rows.
-            state = sharded.shard_state(state, self.mesh)
-        self.state = state
+        with span("nbody3d.engine.resort"):
+            state = self.global_state()
+            p, v, a = morton_reorder(state.pos_mass, state.vel, state.accel, n_real=self.n_real)
+            state = SimState(p, v, a, state.step)
+            if self.mesh is not None:
+                # The same stable sort on every rank; each keeps its own rows.
+                state = sharded.shard_state(state, self.mesh)
+            self.state = state
 
     @property
     def scale_factor(self) -> float | None:

@@ -43,6 +43,7 @@ import torch
 from nbody3d_tpu_torch.ops.launch import (
     check_rows, check_tile, exact_split, hop_blocks, launch, lib, sm_count, split_hops,
 )
+from nbody3d_tpu_torch.utils.profiling import span
 
 Tensors2 = tuple[torch.Tensor, torch.Tensor]
 
@@ -277,7 +278,8 @@ class _DiffAccel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, abar):
         (pos_mass,) = ctx.saved_tensors
-        pm_bar, gbar = ctx.backward_fn(pos_mass.detach(), ctx.G, abar.detach().contiguous())
+        with span("nbody3d.vjp"):
+            pm_bar, gbar = ctx.backward_fn(pos_mass.detach(), ctx.G, abar.detach().contiguous())
         return (
             pm_bar if ctx.needs_input_grad[0] else None,
             gbar if ctx.needs_input_grad[1] else None,

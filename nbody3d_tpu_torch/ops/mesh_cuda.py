@@ -60,6 +60,7 @@ from __future__ import annotations
 import torch
 
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
+from nbody3d_tpu_torch.utils.profiling import span
 
 def axis_weights(f: torch.Tensor, order: int) -> tuple[torch.Tensor, ...]:
     """Per-axis assignment weights at the stencil offsets (``_offsets``),
@@ -275,7 +276,8 @@ class _Deposit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, rho_bar):
         c4, fm = ctx.saved_tensors
-        return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None, None
+        with span("nbody3d.vjp"):
+            return None, deposit_vjp(c4, fm.detach(), rho_bar, *ctx.opts), None, None, None
 
 
 class _Gather(torch.autograd.Function):
@@ -292,7 +294,8 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, out_bar):
         grids, c4, fm = ctx.saved_tensors
-        grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
+        with span("nbody3d.vjp"):
+            grids_bar, fm_bar = gather_vjp(grids.detach(), c4, fm.detach(), out_bar, *ctx.opts)
         return grids_bar, None, fm_bar, None, None, None, None
 
 

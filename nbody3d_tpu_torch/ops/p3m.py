@@ -60,6 +60,7 @@ from nbody3d_tpu_torch.ops.ewald import k_long_terms, k_short_periodic, spectral
 from nbody3d_tpu_torch.ops.launch import check_rows, launch, lib
 from nbody3d_tpu_torch.ops.morton import morton_keys
 from nbody3d_tpu_torch.ops.pm import _box, _cic_cells, _offset_axis, _pad, clip
+from nbody3d_tpu_torch.utils.profiling import span
 
 _SQRT2 = 1.4142135623730951
 _TWO_OVER_SQRT_PI = 1.1283791670955126
@@ -707,9 +708,10 @@ class _ShortRange(torch.autograd.Function):
     def backward(ctx, g):
         ps, sigma, rcut, nbr_idx, nbr_mask, dense = ctx.saved_tensors
         eps2, block, backend = ctx.opts
-        dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
-                                          rcut.detach(), block, nbr_mask, backend=backend, box=ctx.box,
-                                          dense=dense)
+        with span("nbody3d.vjp"):
+            dps, dsig = short_range_tiles_bwd(ps.detach(), g.contiguous(), nbr_idx, eps2, sigma.detach(),
+                                              rcut.detach(), block, nbr_mask, backend=backend, box=ctx.box,
+                                              dense=dense)
         return dps, dsig, None, None, None, None, None, None, None
 
 

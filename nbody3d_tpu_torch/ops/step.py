@@ -96,6 +96,7 @@ from nbody3d_tpu_torch.ops.integrate import apply_integrator, integrate_state, v
 from nbody3d_tpu_torch.ops.p3m import accel_p3m
 from nbody3d_tpu_torch.ops.pm import accel_pm
 from nbody3d_tpu_torch.state import SimState
+from nbody3d_tpu_torch.utils.profiling import span
 
 Scalar = float | torch.Tensor
 StepFn = Callable[[SimState, Scalar, Scalar], SimState]
@@ -192,28 +193,29 @@ class _SymStep(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gp, gv, ga):
-        pos_mass, vel, a_old, a_new = ctx.saved_tensors
-        eps2, b, n_real = ctx.opts
-        need_pm, need_dt, need_G = (ctx.needs_input_grad[i] for i in (0, 3, 4))
-        ins = [t.detach().requires_grad_() for t in (pos_mass, vel, a_old, a_new)]
-        dt = ctx.dt.detach().requires_grad_() if need_dt else ctx.dt
-        with torch.enable_grad():
-            outs = apply_integrator(
-                "verlet", *ins, dt, valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+        with span("nbody3d.vjp"):
+            pos_mass, vel, a_old, a_new = ctx.saved_tensors
+            eps2, b, n_real = ctx.opts
+            need_pm, need_dt, need_G = (ctx.needs_input_grad[i] for i in (0, 3, 4))
+            ins = [t.detach().requires_grad_() for t in (pos_mass, vel, a_old, a_new)]
+            dt = ctx.dt.detach().requires_grad_() if need_dt else ctx.dt
+            with torch.enable_grad():
+                outs = apply_integrator(
+                    "verlet", *ins, dt, valid_mask(pos_mass.shape[0], n_real, pos_mass.device)
+                )
+                # Autograd hands zeros for unused outputs (materialized grads).
+                grads = torch.autograd.grad(outs, ins + [dt] if need_dt else ins, (gp, gv, ga))
+            g_pm, g_v, g_aold, g_force = grads[:4]
+            gdt = grads[4] if need_dt else None
+            if not (need_pm or need_G):
+                # The force cotangent reaches only pos_mass and G: a rollout's
+                # first step, whose positions need no gradient, skips the force
+                # VJP (as autograd skips it on the exact route).
+                return None, g_v, g_aold, gdt, None, None
+            pm_bar, g_bar = force_vjp_sym(
+                pos_mass.detach(), ctx.G, g_force.contiguous(), eps2=eps2, b=b
             )
-            # Autograd hands zeros for unused outputs (materialized grads).
-            grads = torch.autograd.grad(outs, ins + [dt] if need_dt else ins, (gp, gv, ga))
-        g_pm, g_v, g_aold, g_force = grads[:4]
-        gdt = grads[4] if need_dt else None
-        if not (need_pm or need_G):
-            # The force cotangent reaches only pos_mass and G: a rollout's
-            # first step, whose positions need no gradient, skips the force
-            # VJP (as autograd skips it on the exact route).
-            return None, g_v, g_aold, gdt, None, None
-        pm_bar, g_bar = force_vjp_sym(
-            pos_mass.detach(), ctx.G, g_force.contiguous(), eps2=eps2, b=b
-        )
-        return (g_pm + pm_bar if need_pm else None), g_v, g_aold, gdt, (g_bar if need_G else None), None
+            return (g_pm + pm_bar if need_pm else None), g_v, g_aold, gdt, (g_bar if need_G else None), None
 
 
 def macro_chunks(n_pad: int) -> int:
@@ -271,7 +273,19 @@ def make_mesh_accel_fn(config: SimConfig, n_real: int, route: str) -> Callable:
 def make_step_fn(
     config: SimConfig, n_pad: int, n_real: int, device: torch.device | str
 ) -> StepFn:
-    """Build ``step(state, dt, G) -> state`` for one device."""
+    """Build ``step(state, dt, G) -> state`` for one device; each step is
+    one ``nbody3d.step`` span."""
+    route_step = _route_step_fn(config, n_pad, n_real, device)
+
+    def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
+        with span("nbody3d.step"):
+            return route_step(state, dt, G)
+
+    return step
+
+
+def _route_step_fn(config: SimConfig, n_pad: int, n_real: int, device: torch.device | str) -> StepFn:
+    """The step of the route that ``config`` and ``device`` select."""
     _check_supported(config)
     route = resolve_backend(config, device)
     eps2 = config.eps2

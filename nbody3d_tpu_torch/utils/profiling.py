@@ -1,9 +1,22 @@
-"""EMA-filtered step timing, the pair-interaction rate, and device traces.
+"""EMA-filtered step timing, the pair-interaction rate, device traces and
+the program's spans.
 
 Step times are host wall clock around a chunk of steps that ends in a
 device synchronize (``Simulation.run``), smoothed with the reference HUD's
 update rule ``x += (sample - x) / filterStrength``.  :func:`device_trace`
 is the deep dive: a ``torch.profiler`` Chrome trace around a block.
+
+:func:`span` is the program's one way to open a span: a named host range
+on the profiler's clock, recorded only while a ``torch.profiler`` records
+on the calling thread (autograd's device thread inherits the profiler's
+state, so a span inside a backward is recorded too), and one flag check
+otherwise.  A span is a host event alone: ``torch.profiler.record_function``
+would also put a device-side copy of the range into the trace (a
+``gpu_user_annotation`` that covers the idle gaps between the range's
+kernels), so spans take the profiler's plain function-scope record.
+:data:`SPANS` names every span the package opens and the per-layer
+metrics of ``nbbench/`` that read it; the spans show in ``run --trace``'s
+Chrome trace and in any profiler window around the program.
 """
 
 from __future__ import annotations
@@ -11,7 +24,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
-import time
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
+# Every span the package opens, with the per-layer metrics that read it;
+# ``syncs_per_step.step`` and ``.grad`` count the blocking CUDA runtime
+# calls that lie inside any of them.
+SPANS = (
+    ("nbody3d.engine.resort", ("resort_ms.step",)),  # the Morton re-sort, when it sorts
+    ("nbody3d.engine.wait", ("boundary_idle_ms.step",)),  # a chunk's blocking wait
+    ("nbody3d.step", ("dispatch_ms.step", "dispatch_ms.grad")),  # one step of make_step_fn, any route
+    ("nbody3d.vjp", ("vjp_host_ms.grad",)),  # the backward of each torch.autograd.Function
+)
+
+_OFF = contextlib.nullcontext()
 
 
 class Ema:
@@ -55,20 +82,16 @@ class StepStats:
             self.gints_per_s = float("inf")
 
 
-class Timer:
-    """perf_counter timer usable as a context manager."""
+def recording() -> bool:
+    """Whether a ``torch.profiler`` records on this thread: the gate of
+    every :func:`span`."""
+    return torch.autograd._profiler_enabled()
 
-    def __init__(self):
-        self.elapsed = 0.0
-        self._t0 = None
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._t0
-        return False
+def span(name: str):
+    """A context manager that records ``name`` as a host range while a
+    profiler records, and does nothing (one flag check) otherwise."""
+    return _RecordFunctionFast(name) if recording() else _OFF
 
 
 @contextlib.contextmanager
@@ -80,7 +103,6 @@ def device_trace(path: str | None):
     if path is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
