@@ -66,7 +66,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    instance beside the ftz one in turns, ``force_exact`` at every S at
    40,192, and with ``--parent`` the parent's kernels in turns (bit-equal
    at the same S).
-4. exact main path: ``Simulation.from_preset("two-galaxy", SimConfig())``,
+4. exact main path: ``Simulation.from_preset("two-galaxy", SimConfig())``
+   (its Verlet steps, needing no gradient, run ``fused_step_exact``),
    200 steps in chunks of 50, energy drift <= 1e-3 and momentum error
    <= 1e-5 of sum |m v|.
 5. sym main path: uniform-sphere N = 262,144, ``force_mode="sym"``,
@@ -76,7 +77,8 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ms/step: (a) the sym gradient path, ``make_step_fn`` at uniform-sphere
    N = 262,144 (5 steps, loss sum |x|^2 / n, gradient by v0, as
    grad_bench); (b) the exact gradient path at two-galaxy N = 40,002
-   (3 steps); (c) the full-grid VJP route (``make_diff_accel(sym=False)``,
+   (3 steps; its forward needs no gradient and runs ``fused_step_exact``,
+   its gradient ``force_exact`` + the torch Verlet); (c) the full-grid VJP route (``make_diff_accel(sym=False)``,
    on no main path) on (b)'s rollout, against (b)'s gradient; (d) at
    N = 4,096 the kernel routes' rollout gradient (sym, exact, exact with
    the full-grid VJP) against the ``backend="jnp"`` route's, rtol 2e-3,
@@ -173,8 +175,11 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    ``integrator="yoshida4"`` (3 force evaluations a step) and with
    ``fuse_epilogue=False``, 1 warm and 2 timed chunks of 20 steps each,
    phase 5's token, the unfused Verlet step beside phase 5's fused one;
-   (c) phase 4's run with ``fuse_integrate=True`` and phase 4's token, then
-   profiled 3-step rollouts of the fused and the unfused exact step; after
+   (c) one 20-step chunk of phase 4's simulation bit-equal to
+   ``force_exact`` (S = 6) + the torch Verlet, with 20 ``fused_step_exact``
+   launches and no ``force_exact``; phase 4's run through that composed
+   step (a gradient's forward), phase 4's token, beside phase 4's; then
+   profiled 3-step rollouts of the fused and the composed step; after
    the windows the three kernels' times at 10b's and 10c's shapes beside
    their twins, bounds and (``sym_combine``) ``torch.add``; (d) at N =
    4,096 6d's rollout gradient through the yoshida4 sym route against
@@ -197,11 +202,13 @@ Phases, one line each (a failed check prints FAIL and the run exits 1):
    printed; with ``--parent`` each ``force_fast`` and ``fused_step_fast``
    result bit-equal to the parent's kernel; (b) bench.py's fast configuration, uniform-sphere N =
    262,144, ``morton_every=64``, 1 warm and 2 timed chunks of 20 steps,
-   phase 5's token; (c) phase 4's run with ``force_mode="fast"`` and then
-   with ``fuse_integrate=True``, phase 4's token, each with a profiled
-   3-step rollout; after the windows both kernels' times beside their
+   phase 5's token; (c) phase 4's run with ``force_mode="fast"``
+   (``fused_step_fast``) and then through ``force_fast`` + the torch Verlet,
+   phase 4's token, each with a profiled 3-step rollout; after the windows both kernels' times beside their
    twins, their bounds and ``force_exact``/``fused_step_exact`` at the
-   same shapes (with ``--parent`` bit-equal to the parent's kernels and
+   same shapes, and at 11b's (Morton order) ``fused_step_fast`` bit-equal
+   to ``force_fast`` + the torch Verlet and against its twin, timed
+   beside that composed route (with ``--parent`` bit-equal to the parent's kernels and
    timed beside them in turns, the launch alone, at 11b's and 11c's
    shapes, and ``force_fast`` with ``rsqrtf``'s guard, eps2 = 1e-14,
    beside the ftz instance); (d) at N = 4,096 6d's rollout gradient through the fast
@@ -492,7 +499,7 @@ from nbody3d_tpu_torch.ops.launch import (
 )
 from nbody3d_tpu_torch.ops.morton import morton_reorder
 from nbody3d_tpu_torch.ops.step import (
-    GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn,
+    GPU_TILE, PAD_GRANULE, fit_block, macro_chunks, make_step_fn, make_sym_accel_fn, run_chunk,
 )
 from nbody3d_tpu_torch.parallel import exchange, sharded
 from nbody3d_tpu_torch.parallel.exchange import ReplayGroup
@@ -1654,8 +1661,8 @@ def _two_galaxy(dev):
 GRADS: dict[str, torch.Tensor] = {}  # phase 6b's gradient, for phase 6c
 
 
-def _print_grad(tag: str, n_pair: int, t_f: float, t_g: float) -> None:
-    print(f"{tag}: forward {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, ratio {t_g / t_f:.3f}, "
+def _print_grad(tag: str, n_pair: int, t_f: float, t_g: float, forward: str = "forward") -> None:
+    print(f"{tag}: {forward} {t_f:.4f} ms/step, gradient {t_g:.4f} ms/step, ratio {t_g / t_f:.3f}, "
           f"gradient pair rate 2N^2/t {2 * n_pair * n_pair / t_g / 1e6:.2f} G-pair/s", flush=True)
 
 
@@ -1678,7 +1685,10 @@ def phase_grad_exact(dev):
     step = make_step_fn(SimConfig(), st.n_pad, n_real, dev)
     t_f, t_g, g, prof = _rollout_times(
         step, st.pos_mass, st.vel, k, lambda s: (s.pos_mass[:, :3] ** 2).sum() / n_real)
-    _print_grad(f"[6b grad exact] two-galaxy N={n_real} (n_pad {st.n_pad}) k={k}", st.n_pad, t_f, t_g)
+    # The forward needs no gradient, so it runs fused_step_exact; the
+    # gradient runs force_exact + the torch Verlet under autograd.
+    _print_grad(f"[6b grad exact] two-galaxy N={n_real} (n_pad {st.n_pad}) k={k}", st.n_pad, t_f, t_g,
+                forward="forward (the fused step)")
     check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, "exact gradient finite and nonzero")
     GRADS["exact"] = g
     return [(f"exact {label}", fn) for label, fn in prof]
@@ -1762,22 +1772,38 @@ def _conservation(sim: Simulation, d0, d1):
     return drift, mom, finite
 
 
-def _timed_chunks(sim: Simulation, chunks: int, chunk: int) -> list[float]:
+def _timed_chunks(sim: Simulation, chunks: int, chunk: int, step=None) -> list[float]:
+    """Host seconds of each of ``chunks`` chunks of ``sim.run``, or with
+    ``step`` of ``run_chunk`` over it on the simulation's state (for a
+    simulation that neither re-sorts nor wraps)."""
     times = []
     for _ in range(chunks):
         t0 = time.perf_counter()
-        sim.run(chunk, chunk=chunk)
+        if step is None:
+            sim.run(chunk, chunk=chunk)
+        else:
+            sim.state = run_chunk(step, sim.state, sim.dt, sim.G, chunk)
+            torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times
 
 
-def _exact_run(dev, tag: str, mesh=None, **kw) -> float:
+def _composed_step(mode: str, n_real: int):
+    """``force_exact`` or ``force_fast`` and the torch Verlet, spelled out:
+    the route of a Verlet step that needs a gradient, and what the fused
+    kernel equals bit for bit."""
+    force = cf.force_exact if mode == "exact" else cf.force_fast
+    return lambda s, dt, g: integrate_state("verlet", lambda p: force(p, p, g, EPS2), s, dt, n_real=n_real)
+
+
+def _exact_run(dev, tag: str, mesh=None, composed: str | None = None, **kw) -> float:
     """two-galaxy N = 40,002 (the reference default) with ``kw``: 200 steps
-    in chunks of 50, energy drift <= 1e-3, momentum error <= 1e-5.
-    Returns the median ms/step."""
+    in chunks of 50, energy drift <= 1e-3, momentum error <= 1e-5; with
+    ``composed`` the chunks run ``_composed_step(composed)`` on the
+    simulation's state.  Returns the median ms/step."""
     sim = Simulation.from_preset("two-galaxy", SimConfig(**kw), device=None if mesh else dev, mesh=mesh)
     d0 = sim.diagnostics()
-    times = _timed_chunks(sim, 4, 50)
+    times = _timed_chunks(sim, 4, 50, _composed_step(composed, sim.n_real) if composed else None)
     d1 = sim.diagnostics()
     drift, mom, finite = _conservation(sim, d0, d1)
     med = statistics.median(times)
@@ -3385,16 +3411,36 @@ def _exact_forward(step, st, k: int = 3):
 
 
 def phase_fused_exact(dev):
-    """10c: ``fuse_integrate=True`` at the reference default, two-galaxy N =
-    40,002, 200 steps, phase 4's token; then (after the counts) profiles of
-    a 3-step rollout of the fused step and of phase 4's unfused step."""
-    ms = MAIN["phase 10c"] = _exact_run(dev, "10c fused exact", fuse_integrate=True)
-    unfused = MAIN.get("phase 4", float("nan"))
-    print(f"  fused {ms:.4f} vs unfused (phase 4) {unfused:.4f} ms/step ({ms / unfused - 1:+.2%})", flush=True)
+    """10c: the default's Verlet steps run ``fused_step_exact``.  One chunk
+    of 20 steps of ``Simulation(SimConfig())`` at two-galaxy N = 40,002
+    (a viewer frame) bit-equal to the same chunk of ``force_exact`` (at the
+    wrapper's S) and the torch Verlet, the registry reading 20
+    ``fused_step_exact`` launches and no ``force_exact`` for it; then phase
+    4's run through that composed step (a gradient's forward), phase 4's
+    token, beside phase 4's; after the counts, profiles of a 3-step rollout
+    of each."""
+    sim = Simulation.from_preset("two-galaxy", SimConfig(), device=dev)
+    composed = _composed_step("exact", sim.n_real)
+    start, before = sim.state, launch_counts()
+    sim.run(20, chunk=20)
+    after = launch_counts()
+    chunk = {k: after[k] - before[k] for k in ("fused_step_exact", "force_exact")}
+    s = start
+    for _ in range(20):
+        s = composed(s, sim.dt, sim.G)
+    same = all(torch.equal(a, b) for a, b in zip((s.pos_mass, s.vel, s.accel),
+                                                  (sim.state.pos_mass, sim.state.vel, sim.state.accel)))
+    split = exact_split(sim.n_pad, sim.n_pad, sm_count(dev.index))
+    check(same and chunk == {"fused_step_exact": 20, "force_exact": 0},
+          f"[10c] two-galaxy N={sim.n_real} (n_pad {sim.n_pad}), one chunk of 20 steps of Simulation(SimConfig()): "
+          f"bit-equal to force_exact (S={split}) + the torch Verlet: {same}; launches {chunk}")
+    ms = MAIN["phase 10c"] = _exact_run(dev, "10c composed exact", composed="exact")
+    fused = MAIN.get("phase 4", float("nan"))
+    print(f"  fused (phase 4) {fused:.4f} vs composed {ms:.4f} ms/step ({fused / ms - 1:+.2%})", flush=True)
     st, n_real = _two_galaxy(dev)
     return [
-        ("fused exact forward, 3 steps", _exact_forward(make_step_fn(SimConfig(fuse_integrate=True), st.n_pad, n_real, dev), st)),
-        ("unfused exact forward (phase 4's step), 3 steps", _exact_forward(make_step_fn(SimConfig(), st.n_pad, n_real, dev), st)),
+        ("fused exact forward (phase 4's step), 3 steps", _exact_forward(make_step_fn(SimConfig(), st.n_pad, n_real, dev), st)),
+        ("composed exact forward (force_exact + the torch Verlet), 3 steps", _exact_forward(composed, st)),
     ]
 
 
@@ -3717,8 +3763,9 @@ def phase_fast_sphere(dev) -> None:
 
 
 def phase_fast_two_galaxy(dev):
-    """11c: phase 4's run with ``force_mode="fast"`` and phase 4's token."""
-    ms = _exact_run(dev, "11c fast", force_mode="fast")
+    """11c: phase 4's run with ``force_mode="fast"`` (``fused_step_fast``)
+    and phase 4's token."""
+    ms = MAIN["phase 11c"] = _exact_run(dev, "11c fast", force_mode="fast")
     print(f"  fast {ms:.4f} vs exact (phase 4) {MAIN.get('phase 4', float('nan')):.4f} ms/step", flush=True)
     st, n_real = _two_galaxy(dev)
     cfg = SimConfig(force_mode="fast")
@@ -3726,13 +3773,13 @@ def phase_fast_two_galaxy(dev):
 
 
 def phase_fused_fast(dev):
-    """11c: the same with ``fuse_integrate=True``."""
-    ms = _exact_run(dev, "11c fused fast", force_mode="fast", fuse_integrate=True)
-    print(f"  fused fast {ms:.4f} vs fused exact (phase 10c) {MAIN.get('phase 10c', float('nan')):.4f} ms/step",
-          flush=True)
+    """11c: the same through ``force_fast`` and the torch Verlet (a
+    gradient's forward), beside the fused step."""
+    ms = _exact_run(dev, "11c composed fast", force_mode="fast", composed="fast")
+    fused = MAIN.get("phase 11c", float("nan"))
+    print(f"  fused fast {fused:.4f} vs composed fast {ms:.4f} ms/step ({fused / ms - 1:+.2%})", flush=True)
     st, n_real = _two_galaxy(dev)
-    cfg = SimConfig(force_mode="fast", fuse_integrate=True)
-    return [("fused fast forward, 3 steps", _exact_forward(make_step_fn(cfg, st.n_pad, n_real, dev), st))]
+    return [("composed fast forward, 3 steps", _exact_forward(_composed_step("fast", n_real), st))]
 
 
 def phase_fast_grad_crosscheck(dev, n: int = 4096) -> None:
@@ -3778,7 +3825,7 @@ def phase_fast_times(dev) -> dict[str, dict]:
     n = 262144
     pm_np, vel_np, _ = make_preset("uniform-sphere", seed=0, G=G, n=n)
     st = init_state(pm_np, vel_np, n_pad=n, device=dev)
-    pm = morton_reorder(st.pos_mass, st.vel, st.accel, n_real=n)[0]
+    pm, vel, _ = morton_reorder(st.pos_mass, st.vel, st.accel, n_real=n)
     ff = cf.force_fast(pm, pm, G, EPS2)
     t0 = time.perf_counter()
     ff_p = cf.force_fast_plain(pm, pm, G, EPS2)
@@ -3804,6 +3851,7 @@ def phase_fast_times(dev) -> dict[str, dict]:
         **_fast_vs_parent(f"uniform-sphere N={n} (11b)", dev, pm, reps=5),
     }
     del ff_p
+    sphere_note = _fast_step_at_sphere(dev, pm, vel, ff)
     st, n_real = _two_galaxy(dev)
     n = st.n_pad
     pm, vel = st.pos_mass, st.vel
@@ -3843,7 +3891,8 @@ def phase_fast_times(dev) -> dict[str, dict]:
         "ms": cuda_ms(fused, reps=20),
         "plain_ms": cuda_ms(lambda: cf.fused_step_fast_plain(pm, vel, aold, DT_MAIN, G, EPS2, n_real), reps=3),
         "shape": f"3 x ({n}, 4) in, 3 x ({n}, 4) out",
-        "note": f"the launch alone; with the wrapper's limb prep {wrapper:.4f} ms; fused_step_exact {fused_exact:.4f} ms",
+        "note": f"the launch alone; with the wrapper's limb prep {wrapper:.4f} ms; fused_step_exact "
+                f"{fused_exact:.4f} ms; {sphere_note}",
         # 3 rows in, the limbs, 3 rows out: 128 B a row; pairs only.
         **bound("fused_step_fast", n * n, 128 * n, rsqrts=n * n),
     }
@@ -3855,6 +3904,43 @@ def phase_fast_times(dev) -> dict[str, dict]:
                                  EPS2), reps=20))
     _print_times(out)
     return out
+
+
+def _fast_step_at_sphere(dev, pm: torch.Tensor, vel: torch.Tensor, aold: torch.Tensor) -> str:
+    """11b's step at its shape (uniform-sphere N = 262,144, Morton order,
+    no padding): ``fused_step_fast`` bit-equal to ``force_fast`` + the torch
+    Verlet with the valid mask and within FAST_TWIN_TOL of its plain twin;
+    its time (the launch alone and the wrapper) beside that composed route,
+    the route 11b ran before, and its bound.  Returns a note for the
+    kernel's row."""
+    n = pm.shape[0]
+    tag = f"uniform-sphere N={n} (11b, Morton order)"
+    got = cf.fused_step_fast(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n)
+    want = apply_integrator("verlet", pm, vel, aold, cf.force_fast(pm, pm, G, EPS2), DT_MAIN, valid_mask(n, n, dev))
+    t0 = time.perf_counter()
+    twin = cf.fused_step_fast_plain(pm, vel, aold, DT_MAIN, G, EPS2, n)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.equal(x, w) for x, w in zip(got, want)),
+          f"{tag}: fused_step_fast bit-equal to force_fast + torch Verlet")
+    err, err_abs = rel_err(got[2], twin[2]), max_abs(got[2], twin[2])
+    check(err < FAST_TWIN_TOL, f"{tag}: fused_step_fast vs plain {err:.3e} < {FAST_TWIN_TOL}")
+    del twin
+    lib = _build.load_library()
+    frag = cf.fragment_order(cf.limbs_bf16(pm, G))
+    outs = tuple(torch.empty_like(pm) for _ in range(3))
+    composed = _composed_step("fast", n)
+    kernel = cuda_ms(lambda: launch("fused_step_fast", dev, lib.nb_fused_step_fast, pm, frag, vel, aold, *outs,
+                                    n, n, DT_MAIN, EPS2), reps=5)
+    wrapper = cuda_ms(lambda: cf.fused_step_fast(pm, vel, aold, DT_MAIN, G, eps2=EPS2, n_real=n), reps=5)
+    route = cuda_ms(lambda: composed(SimState(pm, vel, aold, 0), DT_MAIN, G), reps=5)
+    b = bound("fused_step_fast", n * n, 128 * n, rsqrts=n * n)
+    note = (f"at 11b's uniform-sphere {n} (Morton order): the launch alone {kernel:.4f} ms, with the limb prep "
+            f"{wrapper:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), force_fast + the torch Verlet "
+            f"{route:.4f} ms (the wrapper {wrapper / route - 1:+.2%}), plain {plain_ms:.4f} ms (one run, host "
+            f"clock), max-abs err vs plain {err_abs:.3e}")
+    print(f"    fused_step_fast {note}", flush=True)
+    return note
 
 
 def _fast_vs_parent(tag: str, dev, pm: torch.Tensor, reps: int) -> dict:
@@ -5252,15 +5338,15 @@ def phase_animate(dev, out: pathlib.Path) -> None:
 
 def phase_trace(dev, out: pathlib.Path) -> None:
     """16d: ``cli run --trace`` (two-galaxy, 20 steps) writes a
-    ``torch.profiler`` trace that names ``force_exact``."""
+    ``torch.profiler`` trace that names ``fused_step_exact``."""
     argv = ["run", "--device", dev.type, "--preset", "two-galaxy", "--steps", "20", "--log-every", "10",
             "--outdir", str(out / "traced"), "--trace", str(out / "trace")]
     rc = cli.main(argv)
     path = out / "trace" / "trace.json"
     text = path.read_text() if path.exists() else ""
-    check(rc == 0 and "force_exact" in text and json.loads(text).get("traceEvents"),
-          f"[16d] cli {' '.join(argv)}: rc {rc}, {path.name} {len(text):,} B names force_exact "
-          f"{text.count('force_exact')} times")
+    check(rc == 0 and "fused_step_exact" in text and json.loads(text).get("traceEvents"),
+          f"[16d] cli {' '.join(argv)}: rc {rc}, {path.name} {len(text):,} B names fused_step_exact "
+          f"{text.count('fused_step_exact')} times")
 
 
 # --------------------------------------------- 17: sharded direct stepping
@@ -5931,7 +6017,7 @@ def phase_dryrun(dev) -> None:
 SHARDED_PATHS = (
     ("phase 17b (sharded ring path, 1 rank)", phase_sharded_ring, ("force_exact",)),
     ("phase 17c (sharded ringsym path, 1 rank)", phase_sharded_ringsym, SYM_FORCE),
-    ("phase 17d (sharded gather and 2d paths, 1 rank)", phase_sharded_gather_2d, ("force_exact",)),
+    ("phase 17d (sharded gather and 2d paths, 1 rank)", phase_sharded_gather_2d, ("force_exact", "fused_step_exact")),
     ("phase 18b (sharded periodic P3M path, 1 rank)", phase_sharded_p3m_box, MESH_KERNELS),
     ("phase 18b (sharded periodic PM path, 1 rank)", phase_sharded_pm_box, ("mesh_deposit", "mesh_gather")),
     ("phase 18c (sharded comoving EdS P3M path, 1 rank)", phase_sharded_cosmo, MESH_KERNELS),
@@ -5972,20 +6058,20 @@ VJP_SYM = ("vjp_sym_diag", "vjp_sym_hops", "vjp_combine")
 # which knows the output directory), the live viewer's, 16b, and phase
 # 17's (``SHARDED_PATHS``, run inside ``OneRankGroup``).
 PATHS = (
-    ("phase 4 (exact path)", phase_exact, ("force_exact",)),
+    ("phase 4 (exact path)", phase_exact, ("fused_step_exact",)),
     ("phase 5 (sym path)", phase_sym, SYM),
     ("phase 6a (sym gradient path)", phase_grad_sym, SYM + VJP_SYM),
-    ("phase 6b (exact gradient path)", phase_grad_exact, ("force_exact",) + VJP_SYM),
+    ("phase 6b (exact gradient path)", phase_grad_exact, ("force_exact", "fused_step_exact") + VJP_SYM),
     ("phase 8b (P3M path)", phase_p3m, MESH_KERNELS),
     ("phase 8d (PM path)", phase_pm, ("mesh_deposit", "mesh_gather")),
     ("phase 9b (P3M gradient path)", phase_grad_p3m, MESH_GRAD),
     ("phase 9c (PM gradient path)", phase_grad_pm, ("mesh_deposit", "mesh_gather")),
     ("phase 10b (unfused sym path, yoshida4)", phase_sym_yoshida4, SYM_FORCE),
     ("phase 10b (unfused sym path, verlet)", phase_sym_unfused_verlet, SYM_FORCE),
-    ("phase 10c (fused exact path)", phase_fused_exact, ("fused_step_exact",)),
-    ("phase 11b (fast path, sphere)", phase_fast_sphere, ("force_fast",)),
-    ("phase 11c (fast path, two-galaxy)", phase_fast_two_galaxy, ("force_fast",)),
-    ("phase 11c (fused fast path)", phase_fused_fast, ("fused_step_fast",)),
+    ("phase 10c (fused exact path, the composed route beside it)", phase_fused_exact, ("fused_step_exact", "force_exact")),
+    ("phase 11b (fast path, sphere)", phase_fast_sphere, ("fused_step_fast",)),
+    ("phase 11c (fast path, two-galaxy)", phase_fast_two_galaxy, ("fused_step_fast",)),
+    ("phase 11c (composed fast route)", phase_fused_fast, ("force_fast",)),
     ("phase 12b (periodic P3M path)", phase_periodic_p3m, MESH_KERNELS),
     ("phase 12b (periodic P3M path, interlaced)", phase_periodic_p3m_interlaced, MESH_KERNELS),
     ("phase 12d (periodic PM path)", phase_periodic_pm, ("mesh_deposit", "mesh_gather")),
@@ -5999,8 +6085,8 @@ PATHS = (
 )
 PERIODIC_PATHS = tuple(path for path, _, _ in PATHS + SHARDED_PATHS
                        if path.startswith(("phase 12", "phase 13", "phase 15", "phase 18b", "phase 18c")))
-RENDER_PATH = "phase 7b (render + checkpoint path)", ("force_exact", "splat_resolve")
-SERVE_PATH = "phase 16b (live viewer)", phase_serve, ("force_exact", "splat_resolve")
+RENDER_PATH = "phase 7b (render + checkpoint path)", ("fused_step_exact", "splat_resolve")
+SERVE_PATH = "phase 16b (live viewer)", phase_serve, ("fused_step_exact", "splat_resolve")
 # Runs off the main paths, each in a window of its own: the full-grid VJP
 # route (vjp_full's launches are read here) and the N = 4,096 cross-check.
 SIDE = (
@@ -6360,7 +6446,7 @@ def main() -> int:
               flush=True)
         # 16c and 16d: 7b's checkpoint animated, and a traced run; 19d: the dryrun in a spawned rank.
         run_window("phase 16c (cli animate)", functools.partial(phase_animate, out=out), ("splat_resolve",), dev)
-        run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("force_exact",), dev)
+        run_window("phase 16d (cli run --trace)", functools.partial(phase_trace, out=out), ("fused_step_exact",), dev)
         run_window("phase 19d (dryrun_multichip(1, 'cuda'), a spawned rank)", phase_dryrun, (), dev)
     run_window("phase 20a (the host disc stamp)", phase_native_raster, (), dev)
     run_window("phase 20b (the float32 JSON codec)", phase_native_json, (), dev)

@@ -47,7 +47,10 @@ class SimConfig:
     comoving step of ``ops/expansion.py``), ``omega_lambda`` (``"lcdm"``),
     ``backend``, ``block_target`` (capped at the GPU tile), ``force_mode`` (``"exact"``, ``"fast"`` or ``"sym"``,
     direct only), ``morton_every``, ``fuse_integrate`` (exact or fast with
-    Verlet: the one-launch force + Verlet kernel), ``fuse_epilogue``,
+    Verlet, whose steps that need no gradient always run the one-launch
+    force + Verlet kernel: ``True`` refuses a gradient, as the JAX
+    package's fused step has none, where ``False`` routes it through the
+    force and the torch Verlet), ``fuse_epilogue``,
     ``grad_precision``, ``seed``, ``size_factor``, and on a mesh
     (``parallel/``) ``strategy``, ``mesh_axis`` and ``p3m_halo_tiles`` (the
     sharded P3M step's halo capacity in remote tiles a rank; 0 picks

@@ -39,11 +39,16 @@ For ``method="direct"``:
      macro-tiled schedule ``accel_sym_macro``: ``accel_sym`` on each of
      ``m_chunks`` equal chunks and ``pair_sym`` on every unordered chunk
      pair, with the JAX package's chunk count;
-  3. ``"exact"`` or ``"fast"`` with ``fuse_integrate`` and ``verlet``: the
-     one-launch ``fused_step_exact`` or ``fused_step_fast``, which have no
-     gradient (a request raises);
-  4. ``"exact"`` or ``"fast"`` otherwise: ``force_exact`` or
-     ``force_fast`` (bf16 weights on the tensor cores) and the integrator.
+  3. ``"exact"`` or ``"fast"`` with ``verlet``, a step that needs no
+     gradient (grad mode off, or no input requiring grad): the one-launch
+     ``fused_step_exact`` or ``fused_step_fast``, bit for bit item 4's
+     force and the torch Verlet.  A step that needs one takes item 4's
+     route, or raises under ``fuse_integrate=True``, as the JAX package's
+     fused step has no gradient.  Without ``fuse_integrate`` a CUDA
+     tensor ``dt`` takes item 4's route too (see below);
+  4. ``"exact"`` or ``"fast"`` otherwise (euler, yoshida4, and the Verlet
+     steps item 3 hands on): ``force_exact`` or ``force_fast`` (bf16
+     weights on the tensor cores) and the integrator.
 
   On a CPU device the kernel wrappers run their plain twins, because the
   tensors lie on the CPU; nothing falls back to plain code.
@@ -58,7 +63,8 @@ through the force VJP kernels of ``ops/force_vjp.py`` with the Newton-3
 schedule:
 
 - exact, fast and the unfused sym force: ``force_exact``, ``force_fast``
-  and the sym force (``accel_sym`` or ``accel_sym_macro``, whose
+  (also under item 3's Verlet steps when one needs a gradient) and the sym
+  force (``accel_sym`` or ``accel_sym_macro``, whose
   ``pair_sym`` has no backward kernel in the JAX package either) are
   wrapped in ``make_diff_accel`` (the sym VJP
   kernels: the VJP of the ideal f32 pair math, as the JAX package pairs
@@ -69,15 +75,16 @@ schedule:
   its backward differentiates the Verlet update with autograd and sends
   the force cotangent through ``force_vjp_sym``.  When nothing needs a
   gradient the step updates the state in place, as before;
-- the fused exact and fast steps have none, as the JAX
-  ``fused_step_pallas`` has no VJP: a step whose input requires grad
-  raises.
+- the fused exact and fast kernels have none, as the JAX
+  ``fused_step_pallas`` has no VJP: such a step runs the composed route
+  above, or raises under ``fuse_integrate=True``.
 
 ``dt`` and ``G`` are Python floats or 0-d float32 tensors.  A tensor that
 requires grad gets its gradient as in the JAX fused step's VJP: ``dt``'s
 from autograd through the integrator, ``G``'s from the force VJP's Ḡ.  The
-kernels always see ``float(dt)`` and ``float(G)`` (a CUDA tensor costs a
-device sync there; a CPU tensor does not).
+kernels always see ``float(G)``, and the fused kernels ``float(dt)`` (a
+CUDA tensor costs a device sync there; a CPU tensor does not), so a CUDA
+tensor ``dt`` keeps item 3's steps on the composed route.
 """
 
 from __future__ import annotations
@@ -315,13 +322,15 @@ def _route_step_fn(config: SimConfig, n_pad: int, n_real: int, device: torch.dev
         return _integrated_step(config.integrator, accel, n_real)
 
     if mode in ("exact", "fast"):
-        if config.fuse_integrate and config.integrator == "verlet":
-            return _fused_step(fused_step_exact if mode == "exact" else fused_step_fast, eps2, n_real)
         force = force_exact if mode == "exact" else force_fast
         # The VJP's tile: any divisor of n_pad serves (nt = 1 included).
         b_vjp = fit_block(n_pad, min(config.block_target, GPU_TILE), floor=1)
         accel = make_diff_accel(lambda pm, G: force(pm, pm, G, eps2), eps2=eps2, b=b_vjp)
-        return _integrated_step(config.integrator, accel, n_real)
+        composed = _integrated_step(config.integrator, accel, n_real)
+        if config.integrator != "verlet":
+            return composed
+        fused = fused_step_exact if mode == "exact" else fused_step_fast
+        return _fused_step(fused, eps2, n_real, None if config.fuse_integrate else composed)
     raise ValueError(f"unknown force_mode {mode!r}")
 
 
@@ -349,17 +358,25 @@ def _fused_sym_step(eps2: float, b: int, n_real: int) -> StepFn:
     return step
 
 
-def _fused_step(fused: Callable, eps2: float, n_real: int) -> StepFn:
-    """``fused_step_exact`` or ``fused_step_fast`` into fresh state
-    tensors.  Gradients raise."""
+def _fused_step(fused: Callable, eps2: float, n_real: int, composed: StepFn | None) -> StepFn:
+    """``fused_step_exact`` or ``fused_step_fast`` into fresh state tensors:
+    the same bits as ``composed``, the force wrapper and the torch Verlet,
+    in one launch.  A step that needs a gradient, or whose ``dt`` is a
+    CUDA tensor (the kernel takes a host float, and reading a device
+    scalar waits for the card), runs ``composed``; without it
+    (``fuse_integrate=True``) a gradient raises."""
 
     def step(state: SimState, dt: Scalar, G: Scalar) -> SimState:
         p, v, a = state.pos_mass, state.vel, state.accel
         if torch.is_grad_enabled() and any(map(requires_grad, (p, v, a, dt, G))):
-            raise RuntimeError(
-                "fuse_integrate=True: the fused force+Verlet kernel has no gradient (nor has "
-                "the JAX package's fused_step_pallas); differentiate with fuse_integrate=False"
-            )
+            if composed is None:
+                raise RuntimeError(
+                    "fuse_integrate=True: the fused force+Verlet kernel has no gradient (nor has "
+                    "the JAX package's fused_step_pallas); differentiate with fuse_integrate=False"
+                )
+            return composed(state, dt, G)
+        if composed is not None and isinstance(dt, torch.Tensor) and dt.is_cuda:
+            return composed(state, dt, G)
         out = fused(p, v, a, float(dt), float(G), eps2=eps2, n_real=n_real)
         return SimState(*out, state.step + 1)
 

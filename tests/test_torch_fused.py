@@ -1,8 +1,11 @@
-"""The fused exact step (``force_mode="exact"``, ``fuse_integrate=True``):
-the port's ``fused_step_exact`` twin (what the wrapper runs on CPU tensors)
-against the JAX package's ``fused_step_pallas(mode="exact")`` in interpret
-mode, and the route through ``make_step_fn`` and ``Simulation`` against
-the unfused exact step and the JAX package's fused engine.
+"""The fused exact step: the port's ``fused_step_exact`` twin (what the
+wrapper runs on CPU tensors) against the JAX package's
+``fused_step_pallas(mode="exact")`` in interpret mode, and the route
+through ``make_step_fn`` and ``Simulation`` against the unfused exact step
+and the JAX package's fused engine.  Exact and fast Verlet steps that need
+no gradient run the fused kernel whatever ``fuse_integrate`` says; a step
+that needs one runs the force wrapper under ``make_diff_accel`` and the
+torch Verlet (``fuse_integrate=True`` refuses it).
 
 Bounds are the JAX package's own (``tests/test_pallas.py:176-250``,
 ``tests/test_step.py:49-61``): positions rtol 1e-6 / atol 1e-6 (1e-7
@@ -11,6 +14,8 @@ where padded), velocities rtol 1e-5 / atol 1e-6, accelerations rtol 1e-5
 positions and velocities as they were.  Both sides are f32 with different
 summation orders.  The twin is ``force_exact``'s followed by the torch
 Verlet, bit for bit, as the kernel is on the card."""
+
+import collections
 
 import numpy as np
 import pytest
@@ -26,6 +31,7 @@ from nbody3d_tpu.engine import Simulation as JaxSimulation  # noqa: E402
 from nbody3d_tpu.ops.pallas_force import fused_step_pallas  # noqa: E402
 from nbody3d_tpu_torch import SimConfig, Simulation  # noqa: E402
 from nbody3d_tpu_torch.ops import cuda_force as cf  # noqa: E402
+from nbody3d_tpu_torch.ops import step as tstep  # noqa: E402
 from nbody3d_tpu_torch.ops.integrate import apply_integrator, valid_mask  # noqa: E402
 from nbody3d_tpu_torch.ops.launch import KERNELS, launch_counts, reset_launch_counts  # noqa: E402
 from nbody3d_tpu_torch.ops.step import make_step_fn  # noqa: E402
@@ -117,18 +123,32 @@ def run_steps(cfg, pm, vel, n_real, k=2):
     return s
 
 
+def composed_steps(mode, pm, vel, n_real, k=2):
+    """k steps of the force twin and ``apply_integrator("verlet")`` with the
+    valid mask, spelled out: what the fused kernel equals bit for bit."""
+    n = pm.shape[0]
+    force = cf.force_exact if mode == "exact" else cf.force_fast
+    p, v, a = torch.from_numpy(pm.copy()), torch.from_numpy(vel.copy()), torch.zeros((n, 4))
+    for _ in range(k):
+        p, v, a = apply_integrator("verlet", p, v, a, force(p, p, G, EPS2), DT, valid_mask(n, n_real, "cpu"))
+    return p, v, a
+
+
 @pytest.mark.parametrize("n_real", [256, 230])
 def test_fused_engine_matches_unfused(rng, n_real):
-    """``tests/test_step.py:49-61``: fused against unfused exact; on the
-    CPU the two routes run the same twins in the same order, so they agree
-    bit for bit, within the reference's rtol 1e-6 / atol 1e-7."""
+    """``tests/test_step.py:49-61``: the step, with either value of
+    ``fuse_integrate``, against the unfused exact step spelled out
+    (``force_exact`` then the torch Verlet); on the CPU both run the same
+    twins in the same order, so they agree bit for bit, within the
+    reference's rtol 1e-6 / atol 1e-7."""
     pm, vel, _ = random_state(rng, 256, n_real)
-    sf = run_steps(SimConfig(fuse_integrate=True), pm, vel, n_real)
-    su = run_steps(SimConfig(fuse_integrate=False), pm, vel, n_real)
-    assert sf.step == su.step == 2
-    for x, w in zip((sf.pos_mass, sf.vel, sf.accel), (su.pos_mass, su.vel, su.accel)):
-        np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=1e-6, atol=1e-7)
-        assert torch.equal(x, w)
+    want = composed_steps("exact", pm, vel, n_real)
+    for fuse in (True, False):
+        s = run_steps(SimConfig(fuse_integrate=fuse), pm, vel, n_real)
+        assert s.step == 2
+        for x, w in zip((s.pos_mass, s.vel, s.accel), want):
+            np.testing.assert_allclose(x.numpy(), w.numpy(), rtol=1e-6, atol=1e-7)
+            assert torch.equal(x, w)
 
 
 def test_fused_simulation_matches_jax():
@@ -171,3 +191,116 @@ def test_fused_step_refuses_gradients(rng, what):
     with pytest.raises(RuntimeError, match="fuse_integrate=True.*no gradient"):
         step(SimState(p, v, torch.zeros_like(p), 0), dt, g)
     assert step(SimState(p.detach(), v.detach(), torch.zeros_like(p), 0), DT, G).step == 1
+
+
+# ------------------------------------------ the route of the default step
+FORCE = {"exact": "force_exact", "fast": "force_fast"}
+FUSED = {"exact": "fused_step_exact", "fast": "fused_step_fast"}
+
+
+def spied_step(monkeypatch, cfg, n, n_real):
+    """``make_step_fn(cfg)`` built over counting spies of the ``ops.step``
+    module's wrappers and of the accelerations ``make_diff_accel`` makes:
+    ``(calls by name, step)``."""
+    calls = collections.Counter()
+
+    def spy(name, fn):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+
+        return counted
+
+    for name in (*FORCE.values(), *FUSED.values()):
+        monkeypatch.setattr(tstep, name, spy(name, getattr(tstep, name)))
+    make = tstep.make_diff_accel
+    monkeypatch.setattr(tstep, "make_diff_accel", lambda *a, **kw: spy("make_diff_accel", make(*a, **kw)))
+    return calls, make_step_fn(cfg, n, n_real, "cpu")
+
+
+@pytest.mark.parametrize("via", ["make_step_fn", "Simulation"])
+@pytest.mark.parametrize("n_real", [256, 230])
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_default_verlet_step_runs_the_fused_kernel(rng, monkeypatch, mode, n_real, via):
+    """``SimConfig(force_mode=mode)`` on inputs that need no gradient,
+    stepped by ``make_step_fn``'s step or by ``Simulation.run`` (which pads
+    ``n_real`` rows to 256): one fused call a step and no force call, and
+    the state equals the force twin followed by the torch Verlet bit for
+    bit."""
+    pm, vel, _ = random_state(rng, 256, n_real)
+    cfg = SimConfig(force_mode=mode, dt=DT, G=G, eps2=EPS2)
+    calls, step = spied_step(monkeypatch, cfg, 256, n_real)
+    if via == "Simulation":
+        sim = Simulation(cfg, pm[:n_real], vel[:n_real], device="cpu")
+        assert sim.n_pad == 256
+        s = sim.run(2, chunk=2)
+    else:
+        s = SimState(torch.from_numpy(pm.copy()), torch.from_numpy(vel.copy()), torch.zeros((256, 4)), 0)
+        for _ in range(2):
+            s = step(s, DT, G)
+    assert calls == {FUSED[mode]: 2}
+    for x, w in zip((s.pos_mass, s.vel, s.accel), composed_steps(mode, pm, vel, n_real)):
+        assert torch.equal(x, w)
+
+
+@pytest.mark.parametrize("what", ["v0", "dt", "G"])
+@pytest.mark.parametrize("n_real", [256, 230])
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_verlet_step_with_a_gradient_takes_the_force_route(rng, monkeypatch, mode, n_real, what):
+    """A step whose ``v0``, ``dt`` or ``G`` requires grad runs the force
+    wrapper through ``make_diff_accel`` and autograd through the torch
+    Verlet, with no fused call; its gradient is the ``backend="jnp"``
+    route's (the port's plain route) within the rollout tolerance (rtol
+    2e-3, ``tests/test_torch_grad.py``).  Under ``fuse_integrate=True`` the
+    same request raises.  The gradient against the JAX package's is held
+    by ``test_torch_grad.py::test_rollout_grad_matches_jax_pallas_step``."""
+    n, k = 256, 3
+    pm, vel, _ = random_state(rng, n, n_real)
+
+    def grad(step):
+        args = {"v0": torch.from_numpy(vel.copy()), "dt": DT, "G": G}
+        x = args[what] = torch.as_tensor(args[what]).requires_grad_()
+        s = SimState(torch.from_numpy(pm.copy()), args["v0"], torch.zeros((n, 4)), 0)
+        for _ in range(k):
+            s = step(s, args["dt"], args["G"])
+        return torch.autograd.grad(torch.sum(s.pos_mass[:n_real, :3] ** 2), x)[0].numpy()
+
+    calls, step = spied_step(monkeypatch, SimConfig(force_mode=mode), n, n_real)
+    got = grad(step)
+    assert calls == {FORCE[mode]: k, "make_diff_accel": k}
+    want = grad(make_step_fn(SimConfig(backend="jnp"), n, n_real, "cpu"))
+    assert np.isfinite(got).all() and np.abs(got).max() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-6 * np.abs(want).max())
+    with pytest.raises(RuntimeError, match="fuse_integrate=True.*no gradient"):
+        grad(make_step_fn(SimConfig(force_mode=mode, fuse_integrate=True), n, n_real, "cpu"))
+
+
+class CardScalar(torch.Tensor):
+    """A CPU tensor that reports itself on the card: what the step's test
+    of a CUDA ``dt`` sees, without a card.  Results of torch ops on it are
+    plain tensors."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+    is_cuda = property(lambda self: True)
+
+
+@pytest.mark.parametrize("where", ["cpu", "cuda"])
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_tensor_dt_without_gradient(rng, monkeypatch, mode, fuse, where):
+    """A 0-d CUDA tensor ``dt`` that needs no gradient stays on the device
+    through the force route, as the fused kernel would read it on the host
+    (a wait for the card); ``fuse_integrate=True`` still fuses, and a CPU
+    tensor, which the host reads for free, fuses either way.  The same
+    bits on every route."""
+    pm, vel, _ = random_state(rng, 256, 230)
+    calls, step = spied_step(monkeypatch, SimConfig(force_mode=mode, fuse_integrate=fuse), 256, 230)
+    dt = torch.tensor(DT)
+    dt = dt.as_subclass(CardScalar) if where == "cuda" else dt
+    s = SimState(torch.from_numpy(pm.copy()), torch.from_numpy(vel.copy()), torch.zeros((256, 4)), 0)
+    for _ in range(2):
+        s = step(s, dt, G)
+    composed = where == "cuda" and not fuse
+    assert calls == ({FORCE[mode]: 2, "make_diff_accel": 2} if composed else {FUSED[mode]: 2})
+    for x, w in zip((s.pos_mass, s.vel, s.accel), composed_steps(mode, pm, vel, 230)):
+        assert type(x) is torch.Tensor and torch.equal(x, w)
